@@ -1,0 +1,491 @@
+"""Cycle-based ICI network simulator in PyTorch (paper §V-B) — the
+static runner.
+
+The port of `repro.core.simulator`: the same BookSim semantics and the
+same counters, bit for bit —
+
+  * input-queued routers, V virtual channels x B-flit buffers per input
+    port (paper: 4 x 4),
+  * credit-based flow control with wire-delayed credit return,
+  * two-phase separable switch allocation (rotating priority; an input
+    port forwards at most one flit per cycle, an output port accepts at
+    most one) — the `netstep` kernel,
+  * per-channel link pipelines whose depth is the Table-IV hop latency,
+  * one injection queue and one ejection port per chiplet.
+
+Where the JAX package `vmap`s one router grid over specs x rates and
+`lax.scan`s over cycles, the port carries an explicit leading row axis
+B = S*R (row b simulates spec `b // R` at rate `b % R`, every spec leaf
+gathered by the row's spec index) and runs a Python loop over cycles.
+The loop makes no host synchronisation: no `.item()`, no branch on a
+tensor — only on the Python cycle counter.
+
+Padding invariance rests on the reference's three ingredients, kept
+as they are: a counter-based hash of (seed, cycle, node, stream) for
+injection randomness; scatters that are unique, pure integer adds
+(`index_put_(..., accumulate=True)`), or routed to a *sacrificial* row
+or slot (buffer slot B, channel row C) that is never read back; and
+the rotating-priority counter advancing modulo the spec's own
+V*(P_spec+1).
+
+Deferred to later slices, each raising `NotImplementedError`: phase
+schedules (workloads), the flight recorder (`telemetry`,
+`telemetry_windows`) and `routing="adaptive"`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.netstep.ops import netstep
+from ..kernels.netstep.ref import netstep_ref
+from ..obs.trace import trace as _span
+from . import linkmodel as lm
+from .routing import Routing, productive_ports
+
+INF = 2 ** 30
+_M32 = 0xFFFFFFFF
+_GOLD = 0x9E3779B9
+_MIX_T = 0x85EBCA6B
+_MIX_N = 0xC2B2AE3D
+
+#: cycles of injection randomness drawn per device call (a chunk of the
+#: hash table [cycles, N] is made at once, outside the per-cycle work)
+_BITS_CHUNK = 256
+
+#: rate-grid headroom above the static analytic bound (DESIGN.md §15)
+STATIC_HEADROOM = 2.0
+ADAPTIVE_HEADROOM = 3.0
+
+
+class SimConfig(NamedTuple):
+    n_vcs: int = 4
+    buf_depth: int = 4
+    cycles: int = 3000
+    warmup: int = 1000
+    seed: int = 0
+    alloc: str = "auto"     # "auto" | "torch" | "cuda"
+    telemetry: bool = False  # flight recorder: a later slice
+    routing: str = "static"  # "static"; "adaptive" is a later slice
+    telemetry_windows: int = 0  # windowed flight recorder: a later slice
+
+
+@dataclasses.dataclass
+class SimSpec:
+    """Static simulator inputs derived from a Routing + traffic matrix."""
+    n: int
+    p: int                  # max real ports
+    c: int                  # directed channels
+    d: int                  # link pipeline ring depth
+    table: np.ndarray       # [N_dst, N, P+1] -> out port, EJECT=-2
+    out_ch: np.ndarray      # [N, P]
+    in_ch: np.ndarray       # [N, P]
+    ch_dst: np.ndarray      # [C]
+    ch_in_port: np.ndarray  # [C]
+    ch_src: np.ndarray
+    ch_out_port: np.ndarray
+    ch_depth: np.ndarray    # [C] pipeline depth (cycles per hop)
+    traffic_cum: np.ndarray  # [N, N] cumulative traffic rows
+    inj_weight: np.ndarray   # [N] relative injection rate per node
+    # productive-ports mask [N_dst, N, P]; read only by the adaptive
+    # runner (a later slice), carried so specs convert both ways
+    prod: np.ndarray = None
+
+
+def _traffic_arrays(traffic: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(cumulative rows, injection weights) for one traffic matrix."""
+    rows = traffic.sum(axis=1)
+    inj_weight = rows / max(rows.max(), 1e-12)
+    cum = np.cumsum(traffic, axis=1)
+    cum = cum / np.maximum(cum[:, -1:], 1e-12)
+    cum[rows <= 0] = 1.0   # inert sources: any draw maps to dst 0, gated off
+    return cum, inj_weight
+
+
+def make_spec(routing: Routing, traffic: np.ndarray) -> SimSpec:
+    depth = lm.hop_latency_cycles(routing.ch_len_mm, routing.topo.substrate)
+    depth = np.maximum(np.asarray(depth, np.int32), 1)
+    d = int(depth.max()) + 1
+    cum, inj_weight = _traffic_arrays(traffic)
+    return SimSpec(
+        n=routing.topo.n, p=routing.max_ports, c=routing.n_channels, d=d,
+        table=routing.table, out_ch=routing.out_ch, in_ch=routing.in_ch,
+        ch_dst=routing.ch_dst, ch_in_port=routing.ch_in_port,
+        ch_src=routing.ch_src, ch_out_port=routing.ch_out_port,
+        ch_depth=depth, traffic_cum=cum, inj_weight=inj_weight,
+        prod=productive_ports(routing))
+
+
+# =====================================================================
+# padding-invariant injection randomness
+# =====================================================================
+# The reference hashes in wrapping uint32.  torch has no >> or % on
+# uint32, so the port hashes in int64 holding values in [0, 2^32).  A
+# product of two such values can pass 2^63, and signed overflow is
+# undefined in the device code, so each multiply is split into 16-bit
+# halves of the constant: every partial product stays below 2^48.
+
+def _mul32(h, m: int):
+    """(h * m) mod 2^32 for h in [0, 2^32): an int64 tensor or an int."""
+    return (h * (m & 0xFFFF) + (((h * (m >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(h):
+    """splitmix-style avalanche on values in [0, 2^32)."""
+    h = _mul32(h ^ (h >> 16), 0x7FEB352D)
+    h = _mul32(h ^ (h >> 15), 0x846CA68B)
+    return h ^ (h >> 16)
+
+
+def _node_bits(seed: int, t, node_idx, stream: int):
+    """Per-node 32 bits depending only on (seed, cycle, node, stream) —
+    bitwise invariant to the node-axis padding.  `t` and `node_idx`
+    are int64 tensors (broadcast together) or ints."""
+    h = _mix32((seed & _M32) ^ _mul32(stream, _GOLD))
+    h = _mix32(h ^ _mul32(t, _MIX_T))
+    return _mix32(h ^ _mul32(node_idx, _MIX_N))
+
+
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """[0, 2^32) -> float32 in [0, 1) using the top 24 bits (exact)."""
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+# =====================================================================
+# route lookup + allocation
+# =====================================================================
+
+def _route_lookup(table, srow, credits, head_dst, cnt, p: int):
+    """Table lookup + credit check for every (row, node, in-port, VC)
+    head flit.  Returns op_slot [B, N, PI, V] int64 (requested output
+    slot, ejection = P, negative = no request) and eligible [B, N, PI,
+    V] bool.  `table` is the [S, N, N, P+1] stack, indexed through the
+    row's spec `srow`."""
+    B, N, PI, V = head_dst.shape
+    dev = head_dst.device
+    node = torch.arange(N, device=dev).view(1, N, 1, 1)
+    port = torch.arange(PI, device=dev).view(1, 1, PI, 1)
+    vcs = torch.arange(V, device=dev).view(1, 1, 1, V)
+    b = torch.arange(B, device=dev).view(B, 1, 1, 1)
+
+    valid = cnt > 0
+    dst = torch.where(valid, head_dst, 0)
+    op = table[srow.view(B, 1, 1, 1), dst, node, port].long()
+    op = torch.where(valid, op, -3)
+    is_eject = op == Routing.EJECT
+    op_slot = torch.where(is_eject, p, op)
+    # the ejection slot P always has credit (the reference pads the
+    # credit tensor with INF there), so only ports [0, P) are looked up
+    have_credit = credits[b, node, op_slot.clamp(0, p - 1), vcs] > 0
+    eligible = valid & (op_slot >= 0) & (have_credit | is_eject)
+    return op_slot, eligible
+
+
+def resolve_alloc(alloc: str, device) -> str:
+    """Map SimConfig.alloc to an implementation for this device:
+    "auto" is the CUDA kernel on a CUDA device and the plain version
+    on the CPU; "torch" is the plain version anywhere; "cuda" is the
+    kernel and needs a CUDA device."""
+    dev = torch.device(device)
+    if alloc == "auto":
+        return "cuda" if dev.type == "cuda" else "torch"
+    if alloc not in ("torch", "cuda"):
+        raise ValueError(f"unknown alloc impl {alloc!r}; choose 'auto', "
+                         f"'torch' or 'cuda'")
+    if alloc == "cuda" and dev.type != "cuda":
+        raise ValueError(f"alloc='cuda' needs a CUDA device, got {dev}")
+    return alloc
+
+
+def _check_static(cfg: SimConfig, schedules) -> None:
+    if schedules is not None:
+        raise NotImplementedError(
+            "phase schedules come with the workloads slice of the port")
+    if cfg.telemetry or cfg.telemetry_windows:
+        raise NotImplementedError(
+            "the flight recorder (telemetry, telemetry_windows) comes with "
+            "the telemetry slice of the port")
+    if cfg.routing == "adaptive":
+        raise NotImplementedError(
+            "routing='adaptive' comes with the adaptive-routing slice of "
+            "the port")
+    if cfg.routing != "static":
+        raise ValueError(f"unknown routing mode {cfg.routing!r}; choose "
+                         f"'static' or 'adaptive'")
+
+
+# =====================================================================
+# batched runner
+# =====================================================================
+
+def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
+                   n: int, p: int, c: int, d: int, cfg: SimConfig,
+                   alloc_fn):
+    """Simulate B = len(srow) rows for cfg.cycles cycles.
+
+    lv: the BatchSpec leaves as device tensors ([S, ...]); srow [B] the
+    spec of each row; rate [B] float32.  Returns the raw counters
+    (delivered, offered, accepted [B], lat_node [B, N]) as int32
+    device tensors.
+    """
+    N, P, C, D = n, p, c, d
+    V, Bd = cfg.n_vcs, cfg.buf_depth
+    PI = P + 1
+    B = srow.shape[0]
+    dev = srow.device
+    i64, i32 = torch.int64, torch.int32
+
+    # ---- per-row spec leaves (gathered once) ---------------------------
+    ch_dst = lv["ch_dst"][srow].long()                   # [B, C]
+    ch_in_port = lv["ch_in_port"][srow].long()
+    ch_src = lv["ch_src"][srow].long()
+    ch_out_port = lv["ch_out_port"][srow].long()
+    depth_pad = torch.cat(                               # [B, C+1]
+        [lv["ch_depth"][srow].long(), torch.ones((B, 1), dtype=i64,
+                                                 device=dev)], dim=1)
+    out_ch = lv["out_ch"][srow].long()                   # [B, N, P]
+    inj_w = lv["inj_weight"][srow]                       # [B, N] f32
+    pi = lv["pi"][srow]                                  # [B] int32
+    rate_b = rate.view(B, 1)
+    table, cum = lv["table"], lv["traffic_cum"]          # [S, ...]
+
+    b2 = torch.arange(B, device=dev).view(B, 1)
+    b3 = b2.view(B, 1, 1)
+    node_r = torch.arange(N, device=dev)
+    node3 = node_r.view(1, N, 1)
+    pp = torch.arange(PI, device=dev).view(1, 1, PI)
+
+    # upstream channel of every (node, in-port) and its credit-return
+    # delay: spec-only, so hoisted out of the cycle loop
+    up_ch = lv["in_ch"][srow].long().gather(
+        2, pp.clamp(0, P - 1).expand(B, N, PI))          # [B, N, PI]
+    up_real = (pp < P) & (up_ch >= 0)
+    up_ch_s = up_ch.clamp(min=0)
+    up_delay = depth_pad.gather(1, up_ch_s.view(B, -1)).view(B, N, PI)
+
+    # ---- state ------------------------------------------------------------
+    # int64 where a value indexes another tensor (torch indexes with
+    # int64); the counters the reference keeps in int32 stay int32
+    buf_dst = torch.full((B, N, PI, V, Bd + 1), -1, dtype=i64, device=dev)
+    buf_t = torch.zeros((B, N, PI, V, Bd + 1), dtype=i64, device=dev)
+    head = torch.zeros((B, N, PI, V), dtype=i64, device=dev)
+    cnt = torch.zeros((B, N, PI, V), dtype=i64, device=dev)
+    credits = torch.full((B, N, P, V), Bd, dtype=i64, device=dev)
+    link_dst = torch.full((B, C + 1, D), -1, dtype=i64, device=dev)
+    link_t = torch.zeros((B, C + 1, D), dtype=i64, device=dev)
+    link_vc = torch.zeros((B, C + 1, D), dtype=i64, device=dev)
+    credit_pipe = torch.zeros((B, C + 1, D, V), dtype=i64, device=dev)
+    rr = torch.zeros((B,), dtype=i32, device=dev)
+    delivered = torch.zeros((B,), dtype=i32, device=dev)
+    offered = torch.zeros((B,), dtype=i32, device=dev)
+    accepted = torch.zeros((B,), dtype=i32, device=dev)
+    lat_node = torch.zeros((B, N), dtype=i32, device=dev)
+
+    for t in range(cfg.cycles):
+        slot = t % D
+        measuring = t >= cfg.warmup
+        if t % _BITS_CHUNK == 0:
+            ts = torch.arange(t, min(t + _BITS_CHUNK, cfg.cycles),
+                              dtype=i64, device=dev).view(-1, 1)
+            u_inj_c = _bits_to_unit(_node_bits(cfg.seed, ts, node_r, 0))
+            u_dst_c = _bits_to_unit(_node_bits(cfg.seed, ts, node_r, 1))
+            vcs_c = _node_bits(cfg.seed, ts, node_r, 2) % V
+        k = t % _BITS_CHUNK
+
+        # ---- 1. link deliveries -> input buffers ------------------------
+        arr_dst = link_dst[:, :C, slot]                 # [B, C]
+        arr_ok = arr_dst >= 0
+        arr_at = (b2, ch_dst, ch_in_port, link_vc[:, :C, slot])
+        pos = (head[arr_at] + cnt[arr_at]) % Bd
+        pos_w = torch.where(arr_ok, pos, Bd)            # Bd: sacrificial
+        buf_dst[arr_at + (pos_w,)] = arr_dst
+        buf_t[arr_at + (pos_w,)] = link_t[:, :C, slot]
+        cnt.index_put_(arr_at, arr_ok.long(), accumulate=True)
+        link_dst[:, :, slot] = -1
+
+        # ---- 2. credit returns --------------------------------------------
+        credits.index_put_((b2, ch_src, ch_out_port),
+                           credit_pipe[:, :C, slot], accumulate=True)
+        credit_pipe[:, :, slot] = 0
+
+        # ---- 3. injection ---------------------------------------------------
+        want = u_inj_c[k] < rate_b * inj_w              # [B, N]
+        dsts = (cum < u_dst_c[k].view(1, N, 1)).sum(2).clamp(0, N - 1)
+        dsts = dsts[srow]                               # [B, N]
+        want &= dsts != node_r
+        inj_at = (b2, node_r, P, vcs_c[k])
+        space = cnt[inj_at] < Bd
+        do_inj = want & space
+        posi = (head[inj_at] + cnt[inj_at]) % Bd
+        posi_w = torch.where(do_inj, posi, Bd)
+        buf_dst[inj_at + (posi_w,)] = dsts
+        buf_t[inj_at + (posi_w,)] = t
+        cnt[inj_at] += do_inj.long()                    # unique per row/node
+        if measuring:
+            offered += want.sum(1, dtype=i32)
+            accepted += do_inj.sum(1, dtype=i32)
+
+        # ---- 4. route + allocate --------------------------------------------
+        head_dst = buf_dst.gather(4, head.unsqueeze(4)).squeeze(4)
+        head_t = buf_t.gather(4, head.unsqueeze(4)).squeeze(4)
+        op_slot, eligible = _route_lookup(table, srow, credits, head_dst,
+                                          cnt, P)
+        win_mask, vc_choice, out_req = alloc_fn(
+            op_slot.to(i32), eligible, rr % V, rr % pi)
+        port_wins = win_mask.any(3)                     # [B, N, PI]
+
+        # ---- 5. winners: pop, move, credit ----------------------------------
+        wvc = vc_choice.long()                          # [B, N, PI]
+        w_dst = head_dst.gather(3, wvc.unsqueeze(3)).squeeze(3)
+        w_t = head_t.gather(3, wvc.unsqueeze(3)).squeeze(3)
+        pw = port_wins.long().unsqueeze(3)
+        head.scatter_add_(3, wvc.unsqueeze(3), pw).remainder_(Bd)
+        cnt.scatter_add_(3, wvc.unsqueeze(3), -pw)
+
+        # upstream credit return for real input ports
+        has_up = up_real & port_wins
+        ret_slot = (up_delay + t) % D
+        credit_pipe.index_put_((b3, up_ch_s, ret_slot, wvc),
+                               has_up.long(), accumulate=True)
+
+        # ejection vs traversal
+        eject = port_wins & (out_req == P)
+        traverse = port_wins & (out_req >= 0) & (out_req < P)
+        if measuring:
+            delivered += eject.sum((1, 2), dtype=i32)
+            lat_node += torch.where(eject, t - w_t, 0).sum(2, dtype=i32)
+
+        out_port = out_req.long().clamp(0, P - 1)
+        oc_w = torch.where(traverse, out_ch.gather(2, out_port), C)
+        wslot = (depth_pad.gather(1, oc_w.view(B, -1)).view(B, N, PI)
+                 + t) % D
+        link_at = (b3, oc_w, wslot)                     # C: sacrificial
+        link_dst[link_at] = w_dst
+        link_t[link_at] = w_t
+        link_vc[link_at] = wvc
+        credits.index_put_((b3, node3, out_port, wvc), -traverse.long(),
+                           accumulate=True)
+        rr = (rr + 1) % (V * pi)
+
+    return delivered, offered, accepted, lat_node
+
+
+def run_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
+              pad_shape=None, device=None, schedules=None) -> list[dict]:
+    """Run many SimSpecs x injection rates in one batched simulation.
+
+    rates: [R] shared across specs, or [S, R] one row per spec.  Returns
+    one dict per spec with raw integer counters (`delivered`,
+    `offered_n`, `accepted_n`, `lat_sum`, each [R]) plus derived float
+    metrics (`throughput`, `latency`, `offered`, `accepted`) computed in
+    numpy — so derived values are bitwise reproducible for any padding
+    of the same spec.
+
+    device: None runs on the CUDA card (and raises without one); pass
+    "cpu" to run on the CPU.  `schedules` (workloads) is a later slice.
+    """
+    dev = resolve_device(device)
+    _check_static(cfg, schedules)
+    alloc_fn = netstep if resolve_alloc(cfg.alloc, dev) == "cuda" \
+        else netstep_ref
+    from ..sweep.padding import stack_specs
+    with _span("sim.stack", cat="sim", specs=len(specs)):
+        batch, shape = stack_specs(specs, pad_shape)
+    s = len(specs)
+    rates = np.asarray(rates, np.float32)
+    if rates.ndim == 1:
+        rates = np.broadcast_to(rates, (s, rates.shape[0]))
+    if rates.shape[0] != s:
+        raise ValueError(f"rates rows {rates.shape[0]} != specs {s}")
+    r = rates.shape[1]
+    with _span("sim.dispatch", cat="sim", specs=s, shape=str(shape),
+               device=str(dev), rows=s * r):
+        lv = {k: torch.as_tensor(v, device=dev)
+              for k, v in batch._asdict().items()}
+        srow = torch.arange(s, device=dev).repeat_interleave(r)
+        rate = torch.as_tensor(np.array(rates).reshape(-1), device=dev)
+        raw = _simulate_rows(lv, srow, rate, shape.n, shape.p, shape.c,
+                             shape.d, cfg, alloc_fn)
+    with _span("sim.wait", cat="sim", specs=s):
+        delivered, offered, accepted, lat_node = (
+            x.cpu().numpy() for x in raw)
+    delivered = delivered.reshape(s, r)
+    offered = offered.reshape(s, r)
+    accepted = accepted.reshape(s, r)
+    lat_sum = lat_node.astype(np.int64).sum(axis=1).reshape(s, r)
+    meas = cfg.cycles - cfg.warmup
+    out = []
+    for i, spec in enumerate(specs):
+        norm = spec.n * meas
+        out.append(dict(
+            rate=rates[i].astype(np.float64),
+            delivered=delivered[i], offered_n=offered[i],
+            accepted_n=accepted[i], lat_sum=lat_sum[i],
+            throughput=delivered[i] / norm,
+            latency=lat_sum[i] / np.maximum(delivered[i], 1),
+            offered=offered[i] / norm,
+            accepted=accepted[i] / norm))
+    return out
+
+
+# =====================================================================
+# single-spec conveniences (thin wrappers over the batched path)
+# =====================================================================
+
+def simulate(routing: Routing, traffic: np.ndarray, rates,
+             cfg: SimConfig = SimConfig(), *, device=None):
+    """Run the simulator for a sweep of injection rates.
+
+    Returns dict of numpy arrays: delivered throughput (flits/node/cycle),
+    avg packet latency (cycles), offered and accepted rates.  This is a
+    batch of one through `run_batch` at the spec's exact shape.
+    """
+    spec = make_spec(routing, traffic)
+    res = run_batch([spec], np.asarray(rates, np.float32)[None, :], cfg,
+                    device=device)[0]
+    return dict(rate=np.asarray(rates), throughput=res["throughput"],
+                latency=res["latency"], offered=res["offered"],
+                accepted=res["accepted"])
+
+
+def saturation_throughput(routing: Routing, traffic: np.ndarray,
+                          cfg: SimConfig = SimConfig(),
+                          n_rates: int = 8, *, device=None) -> dict:
+    """Saturation = plateau of delivered throughput over an offered sweep.
+
+    The sweep is seeded by the analytic channel-load bound and refined
+    around it.
+    """
+    analytic = routing.saturation_rate(traffic)
+    rates = saturation_rate_grid(analytic, n_rates,
+                                 headroom=routing_headroom(cfg.routing))
+    res = simulate(routing, traffic, rates, cfg, device=device)
+    i = int(np.argmax(res["throughput"]))
+    return dict(sim_saturation=float(res["throughput"][i]),
+                analytic_saturation=float(analytic),
+                latency_at_sat=float(res["latency"][i]), sweep=res)
+
+
+def routing_headroom(routing: str) -> float:
+    """Default rate-grid ceiling multiplier for a routing mode: adaptive
+    sweeps must extend past the *static* analytic bound (they can beat
+    it), static sweeps keep the historical 2x bracket."""
+    return ADAPTIVE_HEADROOM if routing == "adaptive" else STATIC_HEADROOM
+
+
+def saturation_rate_grid(analytic: float, n_rates: int = 8,
+                         headroom: float = STATIC_HEADROOM) -> np.ndarray:
+    """Offered-rate grid bracketing the analytic saturation estimate."""
+    hi = min(1.0, headroom * analytic)
+    return np.linspace(max(analytic * 0.25, 1e-3), hi, n_rates)
+
+
+def zero_load_latency(routing: Routing, traffic: np.ndarray) -> float:
+    """Analytic average packet latency at zero load (cycles)."""
+    _, hops, lat = routing.paths_channel_loads(traffic)
+    w = traffic / max(traffic.sum(), 1e-12)
+    return float((lat * w).sum())

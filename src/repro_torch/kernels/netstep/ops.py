@@ -1,0 +1,77 @@
+"""Public wrapper of the `netstep` allocator.
+
+`netstep` checks its inputs, then on a CUDA tensor launches the
+hand-written kernel (`csrc/netstep.cu`) on PyTorch's current stream, and
+on a CPU tensor computes the plain version (`ref.netstep_ref`).  A CUDA
+input never falls back: a build or launch failure raises.
+`netstep.launches` counts kernel launches (CPU calls are not counted),
+so a run can show that its cycles went through the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .ref import netstep_ref
+
+MAX_LANES = 32   # one warp per router: PI and V each fit in a warp
+
+
+def _check(op_slot, eligible, rr_vc, rr_port):
+    if op_slot.dim() != 4:
+        raise ValueError(f"op_slot must be [B, N, PI, V], got "
+                         f"{tuple(op_slot.shape)}")
+    B = op_slot.shape[0]
+    if op_slot.dtype != torch.int32:
+        raise TypeError(f"op_slot must be int32, got {op_slot.dtype}")
+    if eligible.dtype != torch.bool:
+        raise TypeError(f"eligible must be bool, got {eligible.dtype}")
+    if eligible.shape != op_slot.shape:
+        raise ValueError(f"eligible {tuple(eligible.shape)} != op_slot "
+                         f"{tuple(op_slot.shape)}")
+    for name, rr in (("rr_vc", rr_vc), ("rr_port", rr_port)):
+        if rr.dtype != torch.int32 or tuple(rr.shape) != (B,):
+            raise ValueError(f"{name} must be int32 [{B}], got {rr.dtype} "
+                             f"{tuple(rr.shape)}")
+    devs = {t.device for t in (op_slot, eligible, rr_vc, rr_port)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
+
+
+def netstep(op_slot: torch.Tensor, eligible: torch.Tensor,
+            rr_vc: torch.Tensor, rr_port: torch.Tensor):
+    """op_slot [B, N, PI, V] int32, eligible [B, N, PI, V] bool,
+    rr_vc / rr_port [B] int32 -> (win_mask [B, N, PI, V] bool,
+    vc_choice [B, N, PI] int32, out_req [B, N, PI] int32)."""
+    _check(op_slot, eligible, rr_vc, rr_port)
+    dev = op_slot.device
+    if dev.type == "cpu":
+        return netstep_ref(op_slot, eligible, rr_vc, rr_port)
+    if dev.type != "cuda":
+        raise ValueError(f"netstep runs on cuda or cpu, not {dev}")
+    B, N, PI, V = op_slot.shape
+    if PI > MAX_LANES or V > MAX_LANES:
+        raise ValueError(f"netstep kernel takes PI <= {MAX_LANES} and "
+                         f"V <= {MAX_LANES}, got PI={PI}, V={V}")
+    tensors = (op_slot, eligible, rr_vc, rr_port)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("netstep kernel needs contiguous inputs")
+    lib = build.load()
+    win = torch.empty((B, N, PI, V), dtype=torch.bool, device=dev)
+    vc = torch.empty((B, N, PI), dtype=torch.int32, device=dev)
+    req = torch.empty((B, N, PI), dtype=torch.int32, device=dev)
+    if op_slot.numel() == 0:
+        return win, vc, req
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.netstep_launch(
+            op_slot.data_ptr(), eligible.data_ptr(), rr_vc.data_ptr(),
+            rr_port.data_ptr(), win.data_ptr(), vc.data_ptr(),
+            req.data_ptr(), B, N, PI, V, stream)
+    if rc != 0:
+        raise RuntimeError(f"netstep kernel launch failed: CUDA error {rc}")
+    netstep.launches += 1
+    return win, vc, req
+
+
+netstep.launches = 0

@@ -1,0 +1,1 @@
+"""repro_torch.obs — the port's span tracer (`obs.trace`)."""

@@ -1,0 +1,199 @@
+"""The port's static cycle simulator on the CPU is bitwise-equal to the
+JAX package's (`alloc="jnp"`) on the heterogeneous batch of
+tests/test_sweep.py, with the very same specs carried across by
+`convert.spec_from_reference`; batched equals single-spec, a fat pad
+changes nothing, and the sweep engine equals `run_batch`."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.core import simulator as RS  # noqa: E402
+from repro.core import topology as RT, traffic as RTR  # noqa: E402
+from repro.core.routing import build_routing  # noqa: E402
+from repro_torch.convert import spec_from_reference  # noqa: E402
+from repro_torch.core import simulator as PS  # noqa: E402
+from repro_torch.core import topology as PT, traffic as PTR  # noqa: E402
+from repro_torch.core.routing import build_routing as p_build_routing  # noqa: E402,E501
+from repro_torch.sweep.engine import SweepCase, SweepEngine  # noqa: E402
+from repro_torch.sweep.padding import PadShape, stack_specs  # noqa: E402
+
+HETERO = [("mesh", 16), ("folded_hexa_torus", 36), ("honeycomb_mesh", 16),
+          ("octamesh", 25)]
+NAMES = [f"{name}{n}" for name, n in HETERO]
+RATES = np.array([0.05, 0.15, 0.3, 0.6], np.float32)
+RCFG = RS.SimConfig(cycles=300, warmup=100, alloc="jnp")
+PCFG = PS.SimConfig(cycles=300, warmup=100)
+RAW = ("delivered", "offered_n", "accepted_n", "lat_sum")
+DERIVED = ("throughput", "latency", "offered", "accepted")
+
+
+def _assert_results_equal(got, want, keys=RAW + DERIVED):
+    for k in keys:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
+
+
+@pytest.fixture(scope="module")
+def ref_specs():
+    specs = []
+    for name, n in HETERO:
+        r = build_routing(RT.build(name, n))
+        specs.append(RS.make_spec(r, RTR.uniform(r.topo)))
+    return specs
+
+
+@pytest.fixture(scope="module")
+def port_specs(ref_specs):
+    return [spec_from_reference(dataclasses.asdict(s)) for s in ref_specs]
+
+
+@pytest.fixture(scope="module")
+def ref_results(ref_specs):
+    return RS.run_batch(ref_specs, RATES, RCFG)
+
+
+@pytest.fixture(scope="module")
+def port_results(port_specs):
+    return PS.run_batch(port_specs, RATES, PCFG, device="cpu")
+
+
+@pytest.mark.parametrize("i", range(len(HETERO)), ids=NAMES)
+def test_run_batch_bitwise_equals_reference(i, port_results, ref_results):
+    _assert_results_equal(port_results[i], ref_results[i])
+    np.testing.assert_array_equal(port_results[i]["rate"],
+                                  ref_results[i]["rate"])
+
+
+@pytest.mark.parametrize("i", range(len(HETERO)), ids=NAMES)
+def test_batched_equals_single_spec(i, port_specs, port_results):
+    single = PS.run_batch([port_specs[i]], RATES[None, :], PCFG,
+                          device="cpu")[0]
+    _assert_results_equal(single, port_results[i])
+
+
+@pytest.mark.parametrize("i", range(len(HETERO)), ids=NAMES)
+def test_own_make_spec_equals_reference(i, ref_specs):
+    name, n = HETERO[i]
+    r = p_build_routing(PT.build(name, n))
+    got = PS.make_spec(r, PTR.uniform(r.topo))
+    for f in dataclasses.fields(PS.SimSpec):
+        np.testing.assert_array_equal(getattr(got, f.name),
+                                      getattr(ref_specs[i], f.name),
+                                      err_msg=f.name)
+
+
+def test_fat_pad_is_invisible(port_specs, port_results):
+    fat = PadShape.of(port_specs)
+    fat = PadShape(n=fat.n + 5, p=fat.p + 2, c=fat.c + 17, d=fat.d + 3)
+    got = PS.run_batch(port_specs, RATES, PCFG, pad_shape=fat, device="cpu")
+    for g, w in zip(got, port_results):
+        _assert_results_equal(g, w)
+
+
+def test_padding_leaves_equal_reference(ref_specs, port_specs):
+    from repro.sweep.padding import stack_specs as ref_stack
+    got, shape = stack_specs(port_specs)
+    want, ref_shape = ref_stack(ref_specs)
+    assert (shape.n, shape.p, shape.c, shape.d) == \
+        (ref_shape.n, ref_shape.p, ref_shape.c, ref_shape.d)
+    for k, v in got._asdict().items():
+        np.testing.assert_array_equal(v, getattr(want, k), err_msg=k)
+        assert v.dtype == getattr(want, k).dtype, k
+    with pytest.raises(ValueError, match="does not cover"):
+        stack_specs(port_specs, PadShape(n=4, p=2, c=4, d=2))
+
+
+def test_engine_run_specs_equals_run_batch(port_specs):
+    rates = np.array([0.05, 0.2, 0.5], np.float32)
+    eng = SweepEngine(cfg=PCFG, device="cpu")
+    got = eng.run_specs(port_specs, rates)
+    want = PS.run_batch(port_specs, rates, PCFG, device="cpu")
+    for g, w in zip(got, want):
+        _assert_results_equal(g, w)
+        assert g["delivered"].shape == (3,)
+    # four distinct radices -> four groups, as in the reference engine
+    assert eng.stats == dict(runs=1, groups=4, specs=4)
+    one = SweepEngine(cfg=PCFG, device="cpu").run_specs(
+        port_specs, rates, single_program=True)
+    for g, w in zip(one, want):
+        _assert_results_equal(g, w)
+
+
+def test_saturation_throughput_equals_reference():
+    rr = build_routing(RT.build("folded_hexa_torus", 16))
+    pr = p_build_routing(PT.build("folded_hexa_torus", 16))
+    traffic = RTR.uniform(rr.topo)
+    want = RS.saturation_throughput(rr, traffic, RCFG, n_rates=4)
+    got = PS.saturation_throughput(pr, traffic, PCFG, n_rates=4,
+                                   device="cpu")
+    for k in ("sim_saturation", "analytic_saturation", "latency_at_sat"):
+        assert got[k] == want[k], k
+    for k in ("throughput", "latency", "offered", "accepted"):
+        np.testing.assert_array_equal(got["sweep"][k], want["sweep"][k])
+
+
+def test_sweep_case_builds_routing_and_traffic():
+    r, traffic = SweepCase("folded_hexa_torus", 16).build()
+    np.testing.assert_array_equal(traffic, RTR.uniform(RT.build(
+        "folded_hexa_torus", 16)))
+    assert r.topo.n == 16
+    assert not SweepCase("hypercube", 36).valid
+
+
+def test_alloc_resolution():
+    assert PS.resolve_alloc("auto", "cpu") == "torch"
+    assert PS.resolve_alloc("torch", "cpu") == "torch"
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        PS.resolve_alloc("cuda", "cpu")
+    with pytest.raises(ValueError, match="unknown alloc"):
+        PS.resolve_alloc("pallas", "cpu")
+
+
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(telemetry=True), NotImplementedError, "telemetry slice"),
+    (dict(telemetry_windows=4), NotImplementedError, "telemetry slice"),
+    (dict(routing="adaptive"), NotImplementedError, "adaptive-routing"),
+    (dict(routing="bogus"), ValueError, "unknown routing"),
+    (dict(alloc="cuda"), ValueError, "needs a CUDA device"),
+])
+def test_deferred_and_invalid_configs_raise(port_specs, kw, exc, match):
+    cfg = PCFG._replace(cycles=4, warmup=1, **kw)
+    with pytest.raises(exc, match=match):
+        PS.run_batch(port_specs[:1], RATES[:1], cfg, device="cpu")
+
+
+def test_schedules_are_a_later_slice(port_specs):
+    with pytest.raises(NotImplementedError, match="workloads slice"):
+        PS.run_batch(port_specs[:1], RATES[:1], PCFG, device="cpu",
+                     schedules=[object()])
+
+
+def test_spec_from_reference_rejects_other_dicts(ref_specs):
+    fields = dataclasses.asdict(ref_specs[0])
+    spec = spec_from_reference(fields)
+    assert isinstance(spec.n, int) and spec.table.dtype == np.int16
+    with pytest.raises(ValueError, match="unknown fields"):
+        spec_from_reference(dict(fields, bogus=1))
+    fields.pop("table")
+    with pytest.raises(ValueError, match="missing fields"):
+        spec_from_reference(fields)
+
+
+def test_hash_matches_reference_bits():
+    """The int64 hash with split multiplies equals the reference's
+    wrapping uint32 hash, including at cycle counts past 2^16."""
+    import jax.numpy as jnp
+    import torch
+    t = np.array([0, 1, 77, 65_537, 2 ** 31 - 1], np.int64)
+    nodes = np.arange(300)
+    for stream in (0, 1, 2):
+        for seed in (0, 12345):
+            got = PS._node_bits(seed, torch.from_numpy(t).view(-1, 1),
+                                torch.from_numpy(nodes), stream).numpy()
+            want = np.stack([np.asarray(RS._node_bits(
+                seed, jnp.int32(ti), jnp.asarray(nodes), stream))
+                for ti in t])
+            np.testing.assert_array_equal(got, want.astype(np.int64))
