@@ -8,7 +8,11 @@ Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  Phases, each printing one JSON line:
 
   device               card name and power limit (nvidia-smi), versions
-  build                nvcc builds the netstep kernel from the checkout
+  build                nvcc builds the three kernels from the checkout,
+                       one process per source, all started together;
+                       netstep's library and ptxas lines
+  build_lm             the same build's flash_attention and ssd_scan
+                       libraries and ptxas lines
   kernel_vs_plain      the CUDA netstep equals its plain PyTorch version
                        on the card, bit for bit, plus the allocation
                        invariants
@@ -27,12 +31,46 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
   profile              torch.profiler: the kernel's device time, and the
                        device busy/idle share of simulated cycles at the
                        main path's widest group
+  flash_vs_plain       the flash-attention kernel against its plain
+                       version on the card: the five (tq, tk, causal,
+                       window) cases of tests/test_kernels.py x f32/bf16
+                       (tolerance 2e-5 / 2e-2), and qwen3-1.7b's prefill
+                       shape [4, 1024, 16 (8 kv), 128] bf16 causal
+  ssd_vs_plain         the SSD-scan kernel against its plain version: the
+                       three shapes of tests/test_kernels.py x f32/bf16
+                       (1e-4 / 3e-2), and mamba2-1.3b's prefill shape
+                       (B 4, T 1024, H 64, P 64, N 128, chunk 256, bf16);
+                       y and the final state
+  lm_card_vs_cpu       qwen3-1.7b and mamba2-1.3b at full width, depth 2,
+                       f32 compute, batch 1, prompt 256: prefill logits and
+                       4 decode steps with the kernels on the card, with
+                       the plain path on the card, and on the CPU (the path
+                       the CPU tests hold against the JAX package) agree
+                       within 1e-3; in bf16 the kernel path's prefill
+                       logits agree with the plain path's within 0.08
+  serve                the serving path: `launch.serve.main` at full depth
+                       and width for each arch (batch 4, prompt 1024, gen
+                       32, bf16); 28 flash and 48 SSD launches per
+                       prefill.  Prefill logits with the kernels on and
+                       off, in bf16 and f32: in f32 the two agree within
+                       1e-3; in bf16 each differs from the f32 logits by
+                       its own rounding, and the kernel path may differ no
+                       more than the plain path (x 1.1).  Prefill ms,
+                       decode ms per token, tokens/s, peak memory and the
+                       decode loop's device idle share
+  lm_timing            CUDA-event times of both kernels at the serving
+                       shapes, their plain versions and bounds, and SDPA
+                       beside flash attention
+  lm_profile           torch.profiler: both kernels' device time, and the
+                       device idle share of each arch's decode loop
 
 then the kernel summary line and, last, the `{"ok": true, ...}` line.
 A failed check raises and exits non-zero before the last line; without
 a card, or without the repository beside this script, it exits
 non-zero and prints no result.
 """
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -78,6 +116,31 @@ PEAK_OPS_PER_S = 67e12
 TIMING_SAMPLES = 60
 LAUNCHES_PER_SAMPLE = 20
 PROFILE_CYCLES = 100
+
+# The LM serving path (qwen3-1.7b: flash attention, mamba2-1.3b: SSD
+# scan).  Peak rates of the H100 SXM data sheet by input type: the
+# tensor cores' dense bf16 rate, and float32 outside the tensor cores.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+SERVE = dict(batch=4, prompt=1024, gen=32)
+SERVE_LAUNCHES = {"qwen3-1.7b": ("flash_attention", 28),
+                  "mamba2-1.3b": ("ssd_scan", 48)}
+SERVE_TOL = 0.08            # tests/test_integration.py's kernel tolerance
+# bf16 serving through the kernels may sit no further from the f32
+# logits than the plain bf16 path, give or take this factor (the max and
+# mean over 4 x vocab logits move by a few % between two bf16 roundings)
+BF16_MARGIN = 1.1
+CARD_VS_CPU = dict(depth=2, batch=1, prompt=256, decode=4, tol=1e-3)
+FLASH_CASES = [(128, 128, True, None), (256, 256, True, None),
+               (128, 256, False, None), (256, 256, True, 128),
+               (128, 128, True, 64)]
+SSD_CASES = [(2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32),
+             (3, 32, 8, 4, 4, 8)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+FLASH_PATH = dict(b=4, t=1024, h=16, kv=8, hd=128)          # qwen3-1.7b
+SSD_PATH = dict(b=4, t=1024, h=64, p=64, n=128, chunk=256)  # mamba2-1.3b
+LM_TIMING_SAMPLES = 10
+DECODE_PROFILE_STEPS = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -131,6 +194,14 @@ def compare_kernel(torch, netstep, netstep_ref, op_slot, eligible, rr_vc,
     return err
 
 
+def ptxas_lines(lib_path) -> list:
+    """The register and spill lines of a library's build log."""
+    log = lib_path.with_suffix(".log")
+    return [ln.strip() for ln in (log.read_text().splitlines()
+                                  if log.exists() else [])
+            if "registers" in ln or "spill" in ln]
+
+
 def device_rows(prof) -> list:
     """Profiler rows that ran on the card (kernels, copies, fills)."""
     return [e for e in prof.key_averages()
@@ -163,6 +234,387 @@ def time_ms(torch, fn, samples: int, reps: int) -> float:
     return times[len(times) // 2]
 
 
+# ---------------------------------------------------------------------------
+# LM serving path: flash attention (qwen3-1.7b) and SSD scan (mamba2-1.3b)
+# ---------------------------------------------------------------------------
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+
+
+def check_close(torch, got, want, tol, what) -> float:
+    err = max_err(got, want)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+    check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+          f"{what}: max abs err {err} above tolerance {tol}")
+    return err
+
+
+def mean_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().mean())
+
+
+def prefill_logits(model, tokens, kernels):
+    """Last-position prefill logits (float32) with both kernels on or
+    off; the model's config is left with them on."""
+    model.cfg = dataclasses.replace(model.cfg, use_flash_kernel=bool(kernels),
+                                    use_ssd_kernel=bool(kernels))
+    logits, _ = model.prefill(tokens)
+    model.cfg = dataclasses.replace(model.cfg, use_flash_kernel=True,
+                                    use_ssd_kernel=True)
+    return logits.float()
+
+
+def randn(torch, gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen).to(dtype=dtype, device=dev)
+
+
+def flash_inputs(torch, gen, b, tq, tk, h, kv, hd, dtype, dev):
+    return (randn(torch, gen, (b, tq, h, hd), dtype, dev),
+            randn(torch, gen, (b, tk, kv, hd), dtype, dev),
+            randn(torch, gen, (b, tk, kv, hd), dtype, dev))
+
+
+def ssd_inputs(torch, gen, b, t, h, p, n, dtype, dev):
+    """x, B, C normal in `dtype`; dt in [0.05, 0.9) and a in (-2, -0.3]
+    float32, as tests/test_kernels.py draws them."""
+    dt = torch.rand((b, t, h), generator=gen) * 0.85 + 0.05
+    a = -(torch.rand((h,), generator=gen) * 1.7 + 0.3)
+    return (randn(torch, gen, (b, t, h, p), dtype, dev), dt.to(dev),
+            a.to(dev), randn(torch, gen, (b, t, n), dtype, dev),
+            randn(torch, gen, (b, t, n), dtype, dev))
+
+
+def flash_bound(torch, q, k, v, causal=True):
+    """(bound ms, bound_by, bytes, flops): q, k, v read once, o written
+    once; 4 flops per (q, k) pair the causal mask keeps and head dim."""
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    pairs = tq * (tq + 1) // 2 if causal else tq * tk
+    n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    flops = 4 * b * h * hd * pairs
+    return bound(n_bytes, flops, str(q.dtype).split(".")[-1])
+
+
+def ssd_bound(x, dt, a, bm, cm, chunk):
+    """(bound ms, bound_by, bytes, flops): every input read once, y and
+    the f32 state written once; the multiply-adds of C Bᵀ on and below
+    the diagonal (once per batch, not per head), of the masked scores
+    times dt x, of C S and of the state update."""
+    b, t, h, p = x.shape
+    n = bm.shape[-1]
+    tri = chunk * (chunk + 1) // 2 * (t // chunk)
+    n_bytes = (sum(v.numel() * v.element_size() for v in (x, dt, a, bm, cm))
+               + x.numel() * x.element_size() + 4 * b * h * n * p)
+    macs = b * tri * n + b * h * tri * p + 2 * b * t * h * n * p
+    return bound(n_bytes, 2 * macs, str(x.dtype).split(".")[-1])
+
+
+def bound(n_bytes, flops, dtype_name):
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * flops / PEAK_FLOPS[dtype_name]
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, flops)
+
+
+def kernel_device_ms(prof, name):
+    rows = [e for e in device_rows(prof) if name in e.key]
+    return (device_us(rows[0]) / rows[0].count / 1e3
+            if rows and device_us(rows[0]) > 0 else None)
+
+
+def lm_phases(torch, dev, smi, fops, sops, serve):
+    """The LM phases; returns the kernel summary rows of flash_attention
+    and ssd_scan."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    gen = torch.Generator().manual_seed(12)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    # ---- flash attention vs plain ------------------------------------------
+    t0 = time.perf_counter()
+    errs = {}
+    for dname, dtype in dtypes.items():
+        for tq, tk, causal, window in FLASH_CASES:
+            q, k, v = flash_inputs(torch, gen, 3, tq, tk, 1, 1, 128, dtype,
+                                   dev)
+            got = fops.flash_attention(q, k, v, causal=causal, window=window)
+            want = fops.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window)
+            errs[f"{dname} {tq}x{tk} causal={causal} window={window}"] = \
+                check_close(torch, got, want, FLASH_TOL[dname],
+                            f"flash {dname} {tq}x{tk}")
+    fp = FLASH_PATH
+    fq, fk, fv = flash_inputs(torch, gen, fp["b"], fp["t"], fp["t"], fp["h"],
+                              fp["kv"], fp["hd"], torch.bfloat16, dev)
+    flash_out = fops.flash_attention(fq, fk, fv, causal=True)
+    flash_err = check_close(torch, flash_out,
+                            fops.flash_attention_plain(fq, fk, fv,
+                                                       causal=True),
+                            FLASH_TOL["bfloat16"], "flash at the path shape")
+    emit("flash_vs_plain", cases=errs, path_shape=list(fq.shape),
+         path_kv_heads=fp["kv"], path_max_abs_err=flash_err,
+         path_tol=FLASH_TOL["bfloat16"],
+         seconds=round(time.perf_counter() - t0, 3))
+    del flash_out
+
+    # ---- SSD scan vs plain -------------------------------------------------
+    t0 = time.perf_counter()
+    errs = {}
+    for dname, dtype in dtypes.items():
+        for b, t, h, p, n, chunk in SSD_CASES:
+            args = ssd_inputs(torch, gen, b, t, h, p, n, dtype, dev)
+            y, st = sops.ssd_scan(*args, chunk=chunk)
+            yr, sr = sops.ssd_ref(*args, chunk)
+            what = f"ssd {dname} {(b, t, h, p, n, chunk)}"
+            errs[f"{dname} {(b, t, h, p, n, chunk)}"] = dict(
+                y=check_close(torch, y, yr, SSD_TOL[dname], what + " y"),
+                state=check_close(torch, st, sr, SSD_TOL[dname],
+                                  what + " state"))
+    sp = SSD_PATH
+    ssd_args = ssd_inputs(torch, gen, sp["b"], sp["t"], sp["h"], sp["p"],
+                          sp["n"], torch.bfloat16, dev)
+    y, st = sops.ssd_scan(*ssd_args, chunk=sp["chunk"])
+    yr, sr = sops.ssd_ref(*ssd_args, sp["chunk"])
+    ssd_err = check_close(torch, y, yr, SSD_TOL["bfloat16"],
+                          "ssd y at the path shape")
+    ssd_state_err = check_close(torch, st, sr, SSD_TOL["bfloat16"],
+                                "ssd state at the path shape")
+    emit("ssd_vs_plain", cases=errs, path_shape=dict(sp),
+         path_max_abs_err=dict(y=ssd_err, state=ssd_state_err),
+         path_tol=SSD_TOL["bfloat16"],
+         seconds=round(time.perf_counter() - t0, 3))
+    del y, st, yr, sr
+
+    # ---- the card against the CPU, full width, depth 2, f32 ----------------
+    t0 = time.perf_counter()
+    cvc = CARD_VS_CPU
+    rows = {}
+    for arch in SERVE_LAUNCHES:
+        cfg = dataclasses.replace(
+            get_config(arch), n_layers=cvc["depth"],
+            compute_dtype=torch.float32, use_flash_kernel=True,
+            use_ssd_kernel=True)
+        cpu_model = Model(cfg).init(torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu_model).to(dev)
+        rng = torch.Generator().manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (cvc["batch"], cvc["prompt"]),
+                               generator=rng)
+        steps = torch.randint(0, cfg.vocab, (cvc["decode"], cvc["batch"], 1),
+                              generator=rng)
+
+        def run(model, device, kernels):
+            model.cfg = dataclasses.replace(model.cfg,
+                                            use_flash_kernel=kernels,
+                                            use_ssd_kernel=kernels)
+            logits, caches = model.prefill(prompt.to(device))
+            outs = [logits.cpu()]
+            for i in range(cvc["decode"]):
+                logits, caches = model.decode_step(
+                    caches, steps[i].to(device), cvc["prompt"] + i)
+                outs.append(logits[:, -1].cpu())
+            return outs
+
+        before = (fops.flash_attention.launches, sops.ssd_scan.launches)
+        kern = run(card, dev, True)
+        launched = (fops.flash_attention.launches - before[0],
+                    sops.ssd_scan.launches - before[1])
+        plain = run(card, dev, False)
+        cpu = run(cpu_model, torch.device("cpu"), True)
+        name = SERVE_LAUNCHES[arch][0]
+        n_launched = launched[0] if name == "flash_attention" else launched[1]
+        check(n_launched == cvc["depth"],
+              f"{arch}: {n_launched} {name} launches for {cvc['depth']} "
+              f"layers")
+        errs = {}
+        for label, other in (("kernel_vs_plain", plain),
+                             ("kernel_vs_cpu", cpu), ("plain_vs_cpu", cpu)):
+            mine = plain if label == "plain_vs_cpu" else kern
+            errs[label] = [check_close(torch, a, b, cvc["tol"],
+                                       f"{arch} {label} step {i}")
+                           for i, (a, b) in enumerate(zip(mine, other))]
+        # the same two layers in bf16 on the card: kernel path vs plain
+        # path prefill at the tolerance tests/test_integration.py sets
+        card.cfg = dataclasses.replace(card.cfg, compute_dtype=torch.bfloat16)
+        bf16 = [prefill_logits(card, prompt.to(dev), on) for on in (1, 0)]
+        errs["kernel_vs_plain_bf16_prefill"] = check_close(
+            torch, bf16[0], bf16[1], SERVE_TOL, f"{arch} depth-2 bf16 prefill")
+        rows[arch] = dict(launches={name: n_launched}, max_abs_err=errs,
+                          logits_abs_max=float(kern[0].abs().max()))
+        del cpu_model, card
+        torch.cuda.empty_cache()
+    emit("lm_card_vs_cpu", depth=cvc["depth"], batch=cvc["batch"],
+         prompt=cvc["prompt"], decode_steps=cvc["decode"],
+         compute_dtype="float32", tol=cvc["tol"], bf16_tol=SERVE_TOL,
+         archs=rows,
+         seconds=round(time.perf_counter() - t0, 3))
+
+    # ---- the serving path, full depth and width ----------------------------
+    launches = {}
+    serve_rows = {}
+    for arch, (name, per_prefill) in SERVE_LAUNCHES.items():
+        t0 = time.perf_counter()
+        argv = ["--arch", arch, "--batch", str(SERVE["batch"]),
+                "--prompt-len", str(SERVE["prompt"]), "--gen",
+                str(SERVE["gen"]), "--seed", "0"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fops.flash_attention.launches = 0
+        sops.ssd_scan.launches = 0
+        toks = serve.main(argv)
+        counts = {"flash_attention": fops.flash_attention.launches,
+                  "ssd_scan": sops.ssd_scan.launches}
+        peak = torch.cuda.max_memory_allocated()
+        launches[name] = counts[name]
+        check(counts[name] == per_prefill,
+              f"{arch}: serve launched {name} {counts[name]} times, not "
+              f"{per_prefill} per prefill")
+        check(tuple(toks.shape) == (SERVE["batch"], SERVE["gen"] + 1)
+              and toks.dtype == torch.int32, f"{arch}: tokens "
+              f"{tuple(toks.shape)} {toks.dtype}")
+        vocab = get_config(arch).vocab
+        check(bool(((toks >= 0) & (toks < vocab)).all()),
+              f"{arch}: a token outside the vocabulary")
+
+        model = serve.load_model(arch, seed=0)
+        tokens = torch.from_numpy(serve.prompts(
+            model.cfg, SERVE["batch"], SERVE["prompt"], 0)).to(dev)
+        # prefill logits four ways: kernels on / off, bf16 / f32 compute
+        serving = model.cfg
+        logits = {}
+        for dname in ("bfloat16", "float32"):
+            model.cfg = dataclasses.replace(serving,
+                                            compute_dtype=dtypes[dname])
+            for path, on in (("kernel", 1), ("plain", 0)):
+                logits[f"{path}_{dname}"] = prefill_logits(model, tokens, on)
+        model.cfg = serving
+        f32 = logits["plain_float32"]
+        accuracy = dict(
+            kernel_vs_plain_bf16=max_err(logits["kernel_bfloat16"],
+                                         logits["plain_bfloat16"]),
+            kernel_vs_plain_f32=max_err(logits["kernel_float32"], f32),
+            **{f"{path}_bf16_vs_f32_{stat}": fn(logits[f"{path}_bfloat16"],
+                                                 f32)
+               for path in ("kernel", "plain")
+               for stat, fn in (("max", max_err), ("mean", mean_err))})
+        toks2, stats = serve.generate(model, tokens, SERVE["gen"])
+        check(torch.equal(toks2[:, :1], toks[:, :1]),
+              f"{arch}: the first token differs between two runs")
+        _, caches = model.prefill(tokens)
+        tok = toks2[:, :1].to(dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for i in range(DECODE_PROFILE_STEPS):
+                _, caches = model.decode_step(caches, tok,
+                                              SERVE["prompt"] + i)
+            torch.cuda.synchronize()
+            decode_wall_s = time.perf_counter() - t1
+        events = device_rows(prof)
+        busy_s = sum(device_us(e) for e in events) / 1e6
+        serve_rows[arch] = dict(
+            launches=counts, accuracy=accuracy, f32_tol=CARD_VS_CPU["tol"],
+            prefill_ms=1e3 * stats["prefill_s"],
+            decode_ms_per_token=1e3 * stats["decode_s"] / SERVE["gen"],
+            tokens_per_s=SERVE["batch"] * SERVE["gen"] / stats["decode_s"],
+            peak_memory_gb=peak / 1e9, sample=toks[0, :8].tolist(),
+            decode_profile=dict(
+                steps=DECODE_PROFILE_STEPS, wall_s=decode_wall_s,
+                device_busy_s=busy_s if busy_s > 0 else None,
+                device_idle_share=(1 - busy_s / decode_wall_s)
+                if busy_s > 0 else None,
+                device_launches_per_token=sum(e.count for e in events)
+                / DECODE_PROFILE_STEPS if busy_s > 0 else None,
+                top_device_us_per_token={
+                    e.key[:60]: device_us(e) / DECODE_PROFILE_STEPS
+                    for e in sorted(events, key=device_us,
+                                    reverse=True)[:6]}))
+        emit("serve", arch=arch, **serve_rows[arch],
+             batch=SERVE["batch"], prompt=SERVE["prompt"], gen=SERVE["gen"],
+             compute_dtype="bfloat16", nvidia_smi=smi,
+             seconds=round(time.perf_counter() - t0, 3))
+        # at full depth the kernels compute their plain versions' function
+        # (f32), and serving in bf16 through them is no further from the
+        # f32 logits than the plain bf16 path (the bf16 paths differ from
+        # each other by their own rounding, above SERVE_TOL at this depth)
+        check_close(torch, logits["kernel_float32"], f32, CARD_VS_CPU["tol"],
+                    f"{arch} full-depth f32 prefill, kernel vs plain")
+        for stat in ("max", "mean"):
+            k = accuracy[f"kernel_bf16_vs_f32_{stat}"]
+            p = accuracy[f"plain_bf16_vs_f32_{stat}"]
+            check(k <= BF16_MARGIN * p, f"{arch}: bf16 kernel path is "
+                  f"{k} from the f32 logits ({stat}), the plain path {p}")
+        del model, logits, f32, caches
+        torch.cuda.empty_cache()
+
+    # ---- timing at the serving shapes --------------------------------------
+    f_bound = flash_bound(torch, fq, fk, fv)
+    s_bound = ssd_bound(*ssd_args, SSD_PATH["chunk"])
+    flash_ms = time_ms(torch, lambda: fops.flash_attention(
+        fq, fk, fv, causal=True), LM_TIMING_SAMPLES, 5)
+    flash_plain_ms = time_ms(torch, lambda: fops.flash_attention_plain(
+        fq, fk, fv, causal=True), LM_TIMING_SAMPLES, 5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash_library_ms = time_ms(torch, lambda: sdpa(
+        qt, kt, vt, is_causal=True, enable_gqa=True), LM_TIMING_SAMPLES, 5)
+    ssd_ms = time_ms(torch, lambda: sops.ssd_scan(
+        *ssd_args, chunk=SSD_PATH["chunk"]), LM_TIMING_SAMPLES, 5)
+    ssd_plain_ms = time_ms(torch, lambda: sops.ssd_ref(
+        *ssd_args, SSD_PATH["chunk"]), LM_TIMING_SAMPLES, 5)
+    emit("lm_timing", nvidia_smi=smi, samples=LM_TIMING_SAMPLES,
+         launches_per_sample=5,
+         flash_attention=dict(
+             shape=list(fq.shape), kv_heads=FLASH_PATH["kv"],
+             dtype="bfloat16", causal=True, kernel_ms=flash_ms,
+             plain_ms=flash_plain_ms, bound_ms=f_bound[0],
+             bound_by=f_bound[1], bytes=f_bound[2], flops=f_bound[3],
+             library_ms=flash_library_ms,
+             library="scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True)"),
+         ssd_scan=dict(
+             shape=dict(SSD_PATH), dtype="bfloat16", kernel_ms=ssd_ms,
+             plain_ms=ssd_plain_ms, bound_ms=s_bound[0],
+             bound_by=s_bound[1], bytes=s_bound[2], flops=s_bound[3],
+             library_ms=None,
+             library_note="no single PyTorch call computes the SSD scan"))
+
+    # ---- profile: kernels' device time, decode idle share ------------------
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fops.flash_attention(fq, fk, fv, causal=True)
+            sops.ssd_scan(*ssd_args, chunk=SSD_PATH["chunk"])
+        torch.cuda.synchronize()
+    emit("lm_profile",
+         flash_attention_device_ms=kernel_device_ms(prof, "flash_fwd_kernel"),
+         ssd_scan_device_ms=kernel_device_ms(prof, "ssd_scan_kernel"),
+         decode={arch: row["decode_profile"]
+                 for arch, row in serve_rows.items()})
+    return [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:28",
+             launches=launches["flash_attention"], max_abs_err=flash_err,
+             ms=flash_ms, plain_ms=flash_plain_ms, bound_ms=f_bound[0],
+             bound_by=f_bound[1], library_ms=flash_library_ms),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/ssd_scan.py:26",
+             launches=launches["ssd_scan"], max_abs_err=ssd_err, ms=ssd_ms,
+             plain_ms=ssd_plain_ms, bound_ms=s_bound[0], bound_by=s_bound[1],
+             library_ms=None)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -175,15 +627,22 @@ def main() -> int:
         from repro_torch.core import topology as T
         from repro_torch.core import traffic as TR
         from repro_torch.core.routing import build_routing
-        from repro_torch.kernels.netstep import build as kbuild
+        from repro_torch.kernels.build import build_all
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.netstep import ops as nops
         from repro_torch.kernels.netstep.ops import netstep
         from repro_torch.kernels.netstep.ref import netstep_ref
+        from repro_torch.kernels.ssd_scan import ops as sops
+        from repro_torch.launch import serve
         from repro_torch.sweep.engine import SweepEngine
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 3
     dev = torch.device("cuda")
+    # float32 products in full float32 wherever a phase compares in f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
 
     # ---- device ------------------------------------------------------------
@@ -196,15 +655,17 @@ def main() -> int:
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = kbuild.build()
-    kbuild.load()
+    libs = (nops.LIB, fops.LIB, sops.LIB)
+    paths = build_all(libs)
+    for lib in libs:
+        lib.launcher()
     build_s = time.perf_counter() - t0
-    log = lib_path.with_suffix(".log")
-    ptxas = [ln.strip() for ln in (log.read_text().splitlines()
-                                   if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
     emit("build", seconds=round(build_s, 3),
-         library=str(lib_path.relative_to(ROOT)), ptxas=ptxas)
+         library=str(paths[0].relative_to(ROOT)), ptxas=ptxas_lines(paths[0]))
+    emit("build_lm", seconds=round(build_s, 3), built_with="netstep",
+         libraries={lib.stem: dict(library=str(path.relative_to(ROOT)),
+                                   ptxas=ptxas_lines(path))
+                    for lib, path in zip(libs[1:], paths[1:])})
 
     # ---- kernel vs plain ---------------------------------------------------
     t0 = time.perf_counter()
@@ -374,6 +835,8 @@ def main() -> int:
          top_device_us_per_cycle={
              e.key[:60]: device_us(e) / PROFILE_CYCLES for e in top})
 
+    lm_rows = lm_phases(torch, dev, smi, fops, sops, serve)
+
     print(json.dumps({"kernels": [dict(
         name="netstep", route="cuda",
         source="src/repro_torch/kernels/netstep/csrc/netstep.cu",
@@ -381,7 +844,7 @@ def main() -> int:
         launches=main_launches, max_abs_err=max_err, ms=kernel_ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None)]}), flush=True)
+        library_ms=None)] + lm_rows}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t_all, 3))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

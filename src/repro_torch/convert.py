@@ -1,19 +1,23 @@
-"""Carry a simulator input across from the JAX package.
+"""Carry inputs across from the JAX package.
 
 The simulator has no weights: what the JAX package hands it is a
 `SimSpec` of routing tables, channel maps, depths and traffic rows, all
 numpy.  `spec_from_reference` takes such a spec as a plain dict
 (`dataclasses.asdict(repro_spec)`) and returns the port's `SimSpec`, so
-both simulators can be fed the very same inputs.  It reads only the
-dict, and needs nothing of the JAX package.
+both simulators can be fed the very same inputs.
+`params_from_reference` does the same for the LM stack's weights.  Both
+read only plain dicts and numpy arrays, and need nothing of the JAX
+package.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.simulator import SimSpec
+from .models.model import Model
 
 _INT_FIELDS = ("n", "p", "c", "d")
 
@@ -36,3 +40,55 @@ def spec_from_reference(fields: dict) -> SimSpec:
         else:
             out[k] = None if v is None else np.asarray(v)
     return SimSpec(**out)
+
+
+def params_from_reference(params: dict, cfg) -> "Model":
+    """Port `Model` (on the CPU) holding the JAX package's parameters.
+
+    `params` is the reference's *unboxed* parameter tree as numpy arrays
+    (`unbox(Model.init(key))[0]` mapped through `np.asarray`): `embed`,
+    `final_norm`, `blocks[slot][group][name]` stacked along a leading
+    n_rep axis, and `tail[i][group][name]`.  Block leaves are unstacked
+    into true layer order (layer `rep * len(pattern) + slot`, then the
+    tail).  A missing or unknown leaf, or a shape that differs, raises."""
+    model = Model(cfg).init(torch.Generator().manual_seed(0))
+    pat, n_rep, _ = cfg.pattern()
+    flat = {}
+    for key, val in params.items():
+        if key == "blocks":
+            for slot, blk in enumerate(val):
+                for path, arr in _leaves(blk):
+                    for rep in range(np.shape(arr)[0]):
+                        flat[f"layers.{rep * len(pat) + slot}.{path}"] = \
+                            np.asarray(arr)[rep]
+        elif key == "tail":
+            for i, blk in enumerate(val):
+                for path, arr in _leaves(blk):
+                    flat[f"layers.{n_rep * len(pat) + i}.{path}"] = arr
+        else:
+            for path, arr in _leaves(val):
+                flat[f"{key}.{path}" if path else key] = arr
+    state = model.state_dict()
+    unknown = sorted(set(flat) - set(state))
+    missing = sorted(set(state) - set(flat))
+    if unknown or missing:
+        raise ValueError(f"parameter tree does not fit {cfg.name}: unknown "
+                         f"leaves {unknown}, missing leaves {missing}")
+    with torch.no_grad():
+        for name, t in state.items():
+            arr = np.asarray(flat[name])
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return model
+
+
+def _leaves(tree, prefix=""):
+    """(dotted path, leaf) of a nested dict; a leaf at the root has the
+    empty path."""
+    if not isinstance(tree, dict):
+        yield prefix, tree
+        return
+    for k, v in tree.items():
+        yield from _leaves(v, f"{prefix}.{k}" if prefix else k)

@@ -9,12 +9,19 @@ so a run can show that its cycles went through the kernel.
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import torch
 
-from . import build
+from ..build import CudaLibrary
 from .ref import netstep_ref
 
 MAX_LANES = 32   # one warp per router: PI and V each fit in a warp
+LIB = CudaLibrary(
+    Path(__file__).resolve().parent / "csrc" / "netstep.cu", "netstep",
+    "netstep_launch", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p])
 
 
 def _check(op_slot, eligible, rr_vc, rr_port):
@@ -56,7 +63,7 @@ def netstep(op_slot: torch.Tensor, eligible: torch.Tensor,
     tensors = (op_slot, eligible, rr_vc, rr_port)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("netstep kernel needs contiguous inputs")
-    lib = build.load()
+    launch = LIB.launcher()
     win = torch.empty((B, N, PI, V), dtype=torch.bool, device=dev)
     vc = torch.empty((B, N, PI), dtype=torch.int32, device=dev)
     req = torch.empty((B, N, PI), dtype=torch.int32, device=dev)
@@ -64,7 +71,7 @@ def netstep(op_slot: torch.Tensor, eligible: torch.Tensor,
         return win, vc, req
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.netstep_launch(
+        rc = launch(
             op_slot.data_ptr(), eligible.data_ptr(), rr_vc.data_ptr(),
             rr_port.data_ptr(), win.data_ptr(), vc.data_ptr(),
             req.data_ptr(), B, N, PI, V, stream)

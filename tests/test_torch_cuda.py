@@ -1,4 +1,5 @@
-"""The CUDA `netstep` kernel and the simulator on the card.  Every test
+"""The port's CUDA kernels (`netstep`, `flash_attention`, `ssd_scan`), the
+simulator and the LM serving path on the card.  Every test
 here needs an NVIDIA GPU and nvcc (marker `requires_cuda`) and skips
 without one; on such a machine run
 
@@ -14,8 +15,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import simulator as sim  # noqa: E402
 from repro_torch.core import topology as T, traffic as TR  # noqa: E402
 from repro_torch.core.routing import build_routing  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.netstep.ops import netstep  # noqa: E402
 from repro_torch.kernels.netstep.ref import netstep_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -28,6 +33,8 @@ RAW = ("delivered", "offered_n", "accepted_n", "lat_sum")
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -105,3 +112,141 @@ def test_simulator_kernel_equals_plain_and_cpu(cuda):
         for key in RAW:
             np.testing.assert_array_equal(k[key], p[key], err_msg=key)
             np.testing.assert_array_equal(k[key], c[key], err_msg=key)
+
+
+# ---------------------------------------------------------------------
+# flash attention and SSD scan against their plain versions
+# ---------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("tq,tk,causal,window", [
+    (128, 128, True, None), (256, 256, True, None), (128, 256, False, None),
+    (256, 256, True, 128), (128, 128, True, 64)])
+def test_flash_kernel_matches_plain(cuda, tq, tk, causal, window, hd, dtype):
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (2, tq, 4, hd), dtype, cuda)
+    k = _randn(rng, (2, tk, 2, hd), dtype, cuda)
+    v = _randn(rng, (2, tk, 2, hd), dtype, cuda)
+    before = fops.flash_attention.launches
+    got = fops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fops.flash_attention.launches == before + 1
+    want = fops.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_matches_plain_at_serving_shape(cuda):
+    """qwen3-1.7b's prefill: batch 4, prompt 1024, 16 q heads over 8 kv
+    heads of 128, bf16, causal."""
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (4, 1024, 16, 128), torch.bfloat16, cuda)
+    k = _randn(rng, (4, 1024, 8, 128), torch.bfloat16, cuda)
+    v = _randn(rng, (4, 1024, 8, 128), torch.bfloat16, cuda)
+    got = fops.flash_attention(q, k, v, causal=True)
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(2)
+    q = _randn(rng, (1, 128, 2, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="hd in"):
+        fops.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fops.flash_attention(q[:, :96], q[:, :96], q[:, :96])
+    wide = _randn(rng, (1, 128, 2, 128), torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fops.flash_attention(wide[..., ::2], wide[..., ::2], wide[..., ::2])
+
+
+def _ssd_inputs(rng, b, t, h, p, n, dtype, device):
+    x = _randn(rng, (b, t, h, p), dtype, device)
+    dt = torch.from_numpy(rng.uniform(0.05, 0.9, (b, t, h)).astype(
+        np.float32)).to(device)
+    a = -torch.from_numpy(rng.uniform(0.3, 2.0, (h,)).astype(
+        np.float32)).to(device)
+    return (x, dt, a, _randn(rng, (b, t, n), dtype, device),
+            _randn(rng, (b, t, n), dtype, device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,p,n,chunk", [
+    (2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32), (3, 32, 8, 4, 4, 8),
+    (1, 512, 4, 64, 128, 256)])
+def test_ssd_kernel_matches_plain(cuda, b, t, h, p, n, chunk, dtype):
+    args = _ssd_inputs(np.random.default_rng(3), b, t, h, p, n, dtype, cuda)
+    before = sops.ssd_scan.launches
+    y, s = sops.ssd_scan(*args, chunk=chunk)
+    assert sops.ssd_scan.launches == before + 1
+    yr, sr = sops.ssd_ref(*args, chunk)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype]
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(s, sr, atol=tol, rtol=tol)
+
+
+def test_ssd_kernel_stays_finite_under_strong_decay(cuda):
+    """exp(cum_q - cum_k) above the diagonal would overflow here; the
+    kernel never takes it."""
+    x, dt, a, bm, cm = _ssd_inputs(np.random.default_rng(5), 1, 64, 2, 4, 4,
+                                   torch.float32, cuda)
+    a = torch.tensor([-60.0, -0.5], device=cuda)
+    y, s = sops.ssd_scan(x, dt, a, bm, cm, chunk=32)
+    yr, sr = sops.ssd_ref(x, dt, a, bm, cm, 32)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, a, bm, cm = _ssd_inputs(np.random.default_rng(6), 1, 96, 2, 8, 8,
+                                   torch.float32, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sops.ssd_scan(x.half(), dt, a, bm.half(), cm.half(), chunk=32)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sops.ssd_scan(x, dt, a, bm, cm, chunk=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        sops.ssd_scan(x, dt, a, bm.transpose(1, 2).contiguous()
+                      .transpose(1, 2), cm, chunk=32)
+    big = _ssd_inputs(np.random.default_rng(7), 1, 256, 1, 256, 256,
+                      torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        sops.ssd_scan(*big, chunk=256)
+
+
+@pytest.mark.parametrize("arch,t,flash,ssd", [
+    ("qwen3-1.7b", 128, 2, 0), ("mamba2-1.3b", 16, 0, 2)])
+def test_prefill_launches_each_layers_kernel(cuda, arch, t, flash, ssd):
+    """With the kernel flags on, every layer's prefill goes through its
+    kernel once, and the logits agree with the plain path's."""
+    import dataclasses
+    cfg = get_config(arch, smoke=True)
+    model = Model(dataclasses.replace(
+        cfg, use_flash_kernel=True, use_ssd_kernel=True)).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, t))).to(cuda)
+    before = (fops.flash_attention.launches, sops.ssd_scan.launches)
+    logits, _ = model.prefill(tokens)
+    after = (fops.flash_attention.launches, sops.ssd_scan.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (flash, ssd)
+    model.cfg = dataclasses.replace(model.cfg, use_flash_kernel=False,
+                                    use_ssd_kernel=False)
+    plain, _ = model.prefill(tokens)
+    torch.testing.assert_close(logits.float(), plain.float(), atol=0.08,
+                               rtol=0.08)

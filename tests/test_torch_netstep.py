@@ -14,8 +14,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.simulator import _alloc_jnp  # noqa: E402
 from repro.kernels.netstep.netstep import netstep_pallas  # noqa: E402
-from repro_torch.kernels.netstep import build  # noqa: E402
-from repro_torch.kernels.netstep.ops import netstep  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.netstep.ops import LIB, netstep  # noqa: E402
 from repro_torch.kernels.netstep.ref import netstep_ref  # noqa: E402
 
 
@@ -123,7 +123,7 @@ def test_wrapper_checks_its_inputs():
 
 
 def test_kernel_library_is_keyed_by_source(monkeypatch, tmp_path):
-    path = build.library_path()
+    path = LIB.library_path()
     assert path.parent == build.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "kernels")
     assert path.name.startswith("netstep_") and path.suffix == ".so"
