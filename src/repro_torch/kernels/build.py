@@ -10,7 +10,7 @@ resource report (-Xptxas=-v) is kept beside each library as
 builds.  A missing compiler or a failed build raises.
 
 `build_all` starts one `nvcc` per source, all together, and waits for
-them; `CudaLibrary.build` is the same for one source.
+them; `CudaLibrary.launcher` builds its own source the same way.
 """
 from __future__ import annotations
 
@@ -59,14 +59,11 @@ class CudaLibrary:
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.stem}_{h.hexdigest()[:16]}.so"
 
-    def build(self) -> Path:
-        """Compile the kernel unless the library for this source exists."""
-        return build_all([self])[0]
-
     def launcher(self):
-        """The loaded C entry point, with its signature declared."""
+        """The loaded C entry point, with its signature declared; the
+        kernel is compiled first unless its library exists."""
         if self._fn is None:
-            fn = getattr(ctypes.CDLL(str(self.build())), self.entry)
+            fn = getattr(ctypes.CDLL(str(build_all([self])[0])), self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn

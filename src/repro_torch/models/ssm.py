@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ops as sops
-from ..kernels.ssd_scan.ref import ssd_chunked_core  # noqa: F401
+from ..kernels.ssd_scan.ref import ssd_chunked_core
 from .layers import _norm
 
 
