@@ -8,11 +8,15 @@ Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  Phases, each printing one JSON line:
 
   device               card name and power limit (nvidia-smi), versions
-  build                nvcc builds the three kernels from the checkout,
-                       one process per source, all started together;
-                       netstep's library and ptxas lines
+  build                nvcc builds the five kernel sources from the
+                       checkout, one process per source, all started
+                       together; netstep's library and ptxas lines
   build_lm             the same build's flash_attention and ssd_scan
-                       libraries and ptxas lines
+                       libraries (bf16 tensor-core and f32 CUDA-core
+                       route of each) and their ptxas lines
+  sass                 cuobjdump -sass of every library: HGMMA / HMMA
+                       counts; the bf16 flash kernel must hold HGMMA and
+                       the bf16 SSD kernels HGMMA or HMMA
   kernel_vs_plain      the CUDA netstep equals its plain PyTorch version
                        on the card, bit for bit, plus the allocation
                        invariants
@@ -31,16 +35,21 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
   profile              torch.profiler: the kernel's device time, and the
                        device busy/idle share of simulated cycles at the
                        main path's widest group
-  flash_vs_plain       the flash-attention kernel against its plain
-                       version on the card: the five (tq, tk, causal,
-                       window) cases of tests/test_kernels.py x f32/bf16
-                       (tolerance 2e-5 / 2e-2), and qwen3-1.7b's prefill
-                       shape [4, 1024, 16 (8 kv), 128] bf16 causal
-  ssd_vs_plain         the SSD-scan kernel against its plain version: the
-                       three shapes of tests/test_kernels.py x f32/bf16
-                       (1e-4 / 3e-2), and mamba2-1.3b's prefill shape
-                       (B 4, T 1024, H 64, P 64, N 128, chunk 256, bf16);
-                       y and the final state
+  flash_vs_plain       the flash-attention kernels against their plain
+                       version on the card: every case of
+                       tests/test_torch_cuda.py (five (tq, tk, causal,
+                       window) x hd 16/32/64/128, GQA 4:2) through both
+                       routes, f32 (2e-5) and bf16 (2e-2), and qwen3-1.7b's
+                       prefill shape [4, 1024, 16 (8 kv), 128] causal
+                       through both
+  ssd_vs_plain         the SSD-scan kernels against their plain version:
+                       the shapes of tests/test_torch_cuda.py through both
+                       routes, f32 (1e-4) and bf16 (3e-2), the bf16
+                       route's any-chunk shapes, and mamba2-1.3b's prefill
+                       shape (B 4, T 1024, H 64, P 64, N 128, chunk 256):
+                       bf16 at 3e-2, f32 no further from the f64
+                       evaluation of the plain version than the plain f32
+                       version (x 2); y and the final state
   lm_card_vs_cpu       qwen3-1.7b and mamba2-1.3b at full width, depth 2,
                        f32 compute, batch 1, prompt 256: prefill logits and
                        4 decode steps with the kernels on the card, with
@@ -58,11 +67,15 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        more than the plain path (x 1.1).  Prefill ms,
                        decode ms per token, tokens/s, peak memory and the
                        decode loop's device idle share
-  lm_timing            CUDA-event times of both kernels at the serving
-                       shapes, their plain versions and bounds, and SDPA
-                       beside flash attention
-  lm_profile           torch.profiler: both kernels' device time, and the
-                       device idle share of each arch's decode loop
+  lm_timing_f32        CUDA-event times of the f32 routes at the serving
+                       shapes
+  lm_timing            CUDA-event times of the bf16 (serving) routes at the
+                       serving shapes, their plain versions and bounds, and
+                       SDPA beside flash attention
+  lm_profile           torch.profiler: the device time of every CUDA kernel
+                       one wrapper call launches, summed, per route (the
+                       bf16 SSD call launches four), and the device idle
+                       share of each arch's decode loop
 
 then the kernel summary line and, last, the `{"ok": true, ...}` line.
 A failed check raises and exits non-zero before the last line; without
@@ -72,6 +85,7 @@ non-zero and prints no result.
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -130,13 +144,20 @@ SERVE_TOL = 0.08            # tests/test_integration.py's kernel tolerance
 # mean over 4 x vocab logits move by a few % between two bf16 roundings)
 BF16_MARGIN = 1.1
 CARD_VS_CPU = dict(depth=2, batch=1, prompt=256, decode=4, tol=1e-3)
+# the cases of tests/test_torch_cuda.py: (tq, tk, causal, window) x hd at
+# batch 2, 4 q heads over 2 kv heads; SSD (b, t, h, p, n, chunk) for both
+# routes, and the shapes only the bf16 route takes (any chunk)
 FLASH_CASES = [(128, 128, True, None), (256, 256, True, None),
                (128, 256, False, None), (256, 256, True, 128),
                (128, 128, True, 64)]
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
 SSD_CASES = [(2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32),
-             (3, 32, 8, 4, 4, 8)]
+             (3, 32, 8, 4, 4, 8), (1, 512, 4, 64, 128, 256)]
+SSD_BF16_CASES = [(1, 96, 2, 8, 8, 48), (2, 16, 4, 16, 16, 8),
+                  (2, 40, 3, 12, 20, 20), (1, 320, 2, 72, 136, 160)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+F32_MARGIN = 2.0            # f32 SSD at the path shape, against f64
 FLASH_PATH = dict(b=4, t=1024, h=16, kv=8, hd=128)          # qwen3-1.7b
 SSD_PATH = dict(b=4, t=1024, h=64, p=64, n=128, chunk=256)  # mamba2-1.3b
 LM_TIMING_SAMPLES = 10
@@ -200,6 +221,16 @@ def ptxas_lines(lib_path) -> list:
     return [ln.strip() for ln in (log.read_text().splitlines()
                                   if log.exists() else [])
             if "registers" in ln or "spill" in ln]
+
+
+def sass_counts(lib_path, nvcc_path) -> dict:
+    """Tensor-core instructions in a library's SASS (cuobjdump -sass)."""
+    tool = Path(nvcc_path).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "HMMA")}
 
 
 def device_rows(prof) -> list:
@@ -321,10 +352,29 @@ def bound(n_bytes, flops, dtype_name):
             "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, flops)
 
 
-def kernel_device_ms(prof, name):
-    rows = [e for e in device_rows(prof) if name in e.key]
-    return (device_us(rows[0]) / rows[0].count / 1e3
-            if rows and device_us(rows[0]) > 0 else None)
+def first(device_ms, events_ms):
+    """A kernel's time: its device time from the profiler, or, where the
+    profiler saw none, its CUDA-event time."""
+    return device_ms if device_ms is not None else events_ms
+
+
+def wrapper_device_ms(torch, fn, calls: int = 5):
+    """(device ms, {kernel: device ms}) of one call of `fn`: each CUDA
+    kernel's mean device time per launch, summed over the kernels (every
+    kernel of a wrapper launches once per call); None when the profiler
+    saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = {e.key[:60]: device_us(e) / e.count / 1e3
+                  for e in device_rows(prof)}
+    total = sum(per_kernel.values())
+    return (total if total > 0 else None), per_kernel
 
 
 def lm_phases(torch, dev, smi, fops, sops, serve):
@@ -337,58 +387,90 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
     gen = torch.Generator().manual_seed(12)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    # ---- flash attention vs plain ------------------------------------------
+    # ---- flash attention vs plain, both routes -----------------------------
     t0 = time.perf_counter()
     errs = {}
     for dname, dtype in dtypes.items():
-        for tq, tk, causal, window in FLASH_CASES:
-            q, k, v = flash_inputs(torch, gen, 3, tq, tk, 1, 1, 128, dtype,
-                                   dev)
-            got = fops.flash_attention(q, k, v, causal=causal, window=window)
-            want = fops.flash_attention_plain(q, k, v, causal=causal,
-                                              window=window)
-            errs[f"{dname} {tq}x{tk} causal={causal} window={window}"] = \
-                check_close(torch, got, want, FLASH_TOL[dname],
-                            f"flash {dname} {tq}x{tk}")
+        for hd in FLASH_HEAD_DIMS:
+            for tq, tk, causal, window in FLASH_CASES:
+                q, k, v = flash_inputs(torch, gen, 2, tq, tk, 4, 2, hd, dtype,
+                                       dev)
+                got = fops.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+                want = fops.flash_attention_plain(q, k, v, causal=causal,
+                                                  window=window)
+                what = f"{dname} hd {hd} {tq}x{tk} causal={causal} " \
+                       f"window={window}"
+                errs[what] = check_close(torch, got, want, FLASH_TOL[dname],
+                                         "flash " + what)
     fp = FLASH_PATH
-    fq, fk, fv = flash_inputs(torch, gen, fp["b"], fp["t"], fp["t"], fp["h"],
-                              fp["kv"], fp["hd"], torch.bfloat16, dev)
-    flash_out = fops.flash_attention(fq, fk, fv, causal=True)
-    flash_err = check_close(torch, flash_out,
-                            fops.flash_attention_plain(fq, fk, fv,
-                                                       causal=True),
-                            FLASH_TOL["bfloat16"], "flash at the path shape")
+    path_errs = {}
+    for dname, dtype in dtypes.items():
+        q, k, v = flash_inputs(torch, gen, fp["b"], fp["t"], fp["t"], fp["h"],
+                               fp["kv"], fp["hd"], dtype, dev)
+        path_errs[dname] = check_close(
+            torch, fops.flash_attention(q, k, v, causal=True),
+            fops.flash_attention_plain(q, k, v, causal=True),
+            FLASH_TOL[dname], f"flash {dname} at the path shape")
+        if dname == "float32":
+            f32_flash = (q, k, v)
+        else:
+            fq, fk, fv = q, k, v
+    flash_err = path_errs["bfloat16"]
     emit("flash_vs_plain", cases=errs, path_shape=list(fq.shape),
-         path_kv_heads=fp["kv"], path_max_abs_err=flash_err,
-         path_tol=FLASH_TOL["bfloat16"],
-         seconds=round(time.perf_counter() - t0, 3))
-    del flash_out
+         path_kv_heads=fp["kv"], path_max_abs_err=path_errs,
+         tol=FLASH_TOL, seconds=round(time.perf_counter() - t0, 3))
 
-    # ---- SSD scan vs plain -------------------------------------------------
+    # ---- SSD scan vs plain, both routes ------------------------------------
     t0 = time.perf_counter()
     errs = {}
-    for dname, dtype in dtypes.items():
-        for b, t, h, p, n, chunk in SSD_CASES:
-            args = ssd_inputs(torch, gen, b, t, h, p, n, dtype, dev)
-            y, st = sops.ssd_scan(*args, chunk=chunk)
-            yr, sr = sops.ssd_ref(*args, chunk)
-            what = f"ssd {dname} {(b, t, h, p, n, chunk)}"
-            errs[f"{dname} {(b, t, h, p, n, chunk)}"] = dict(
-                y=check_close(torch, y, yr, SSD_TOL[dname], what + " y"),
-                state=check_close(torch, st, sr, SSD_TOL[dname],
-                                  what + " state"))
+    cases = [(d, c) for d in dtypes for c in SSD_CASES] + \
+        [("bfloat16", c) for c in SSD_BF16_CASES]
+    for dname, (b, t, h, p, n, chunk) in cases:
+        args = ssd_inputs(torch, gen, b, t, h, p, n, dtypes[dname], dev)
+        y, st = sops.ssd_scan(*args, chunk=chunk)
+        yr, sr = sops.ssd_ref(*args, chunk)
+        what = f"{dname} {(b, t, h, p, n, chunk)}"
+        errs[what] = dict(
+            y=check_close(torch, y, yr, SSD_TOL[dname], f"ssd {what} y"),
+            state=check_close(torch, st, sr, SSD_TOL[dname],
+                              f"ssd {what} state"))
     sp = SSD_PATH
-    ssd_args = ssd_inputs(torch, gen, sp["b"], sp["t"], sp["h"], sp["p"],
-                          sp["n"], torch.bfloat16, dev)
-    y, st = sops.ssd_scan(*ssd_args, chunk=sp["chunk"])
-    yr, sr = sops.ssd_ref(*ssd_args, sp["chunk"])
-    ssd_err = check_close(torch, y, yr, SSD_TOL["bfloat16"],
-                          "ssd y at the path shape")
-    ssd_state_err = check_close(torch, st, sr, SSD_TOL["bfloat16"],
-                                "ssd state at the path shape")
+    path_errs = {}
+    for dname, dtype in dtypes.items():
+        args = ssd_inputs(torch, gen, sp["b"], sp["t"], sp["h"], sp["p"],
+                          sp["n"], dtype, dev)
+        y, st = sops.ssd_scan(*args, chunk=sp["chunk"])
+        yr, sr = sops.ssd_ref(*args, sp["chunk"])
+        if dname == "bfloat16":
+            ssd_args = args
+            path_errs[dname] = dict(
+                y=check_close(torch, y, yr, SSD_TOL[dname],
+                              f"ssd {dname} y at the path shape"),
+                state=check_close(torch, st, sr, SSD_TOL[dname],
+                                  f"ssd {dname} state at the path shape"))
+            continue
+        # f32 at the path shape: sums of 256 terms in two orders differ by
+        # more than 1e-4 here (the plain version is that far from its own
+        # f64 evaluation), so the kernel is held against the f64
+        # evaluation: no further from it than the plain f32 version is,
+        # give or take F32_MARGIN
+        f32_ssd = args
+        y64, s64 = sops.ssd_ref(*(v.double() for v in args), sp["chunk"])
+        errs64 = {}
+        for what, got, plain, exact in (("y", y, yr, y64),
+                                        ("state", st, sr, s64)):
+            check(bool(torch.isfinite(got).all()), f"ssd f32 {what} finite")
+            k, pl = max_err(got, exact), max_err(plain, exact)
+            check(k <= F32_MARGIN * pl, f"ssd f32 {what} at the path shape "
+                  f"is {k} from its f64 evaluation, the plain version {pl}")
+            errs64[what] = dict(kernel_vs_plain=max_err(got, plain),
+                                kernel_vs_f64=k, plain_vs_f64=pl)
+        path_errs[dname] = errs64
+        del y64, s64
+    ssd_err = path_errs["bfloat16"]["y"]
     emit("ssd_vs_plain", cases=errs, path_shape=dict(sp),
-         path_max_abs_err=dict(y=ssd_err, state=ssd_state_err),
-         path_tol=SSD_TOL["bfloat16"],
+         path_max_abs_err=path_errs, tol=SSD_TOL,
          seconds=round(time.perf_counter() - t0, 3))
     del y, st, yr, sr
 
@@ -555,18 +637,41 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
         torch.cuda.empty_cache()
 
     # ---- timing at the serving shapes --------------------------------------
+    flash_call = lambda q, k, v: fops.flash_attention(q, k, v, causal=True)
+    ssd_call = lambda *a: sops.ssd_scan(*a, chunk=SSD_PATH["chunk"])
+    f32_bound = (flash_bound(torch, *f32_flash),
+                 ssd_bound(*f32_ssd, SSD_PATH["chunk"]))
+    emit("lm_timing_f32", nvidia_smi=smi, samples=LM_TIMING_SAMPLES,
+         launches_per_sample=2,
+         flash_attention=dict(
+             shape=list(f32_flash[0].shape), kernel_ms=time_ms(
+                 torch, lambda: flash_call(*f32_flash), LM_TIMING_SAMPLES, 2),
+             bound_ms=f32_bound[0][0], bound_by=f32_bound[0][1],
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu"),
+         ssd_scan=dict(
+             shape=dict(SSD_PATH), kernel_ms=time_ms(
+                 torch, lambda: ssd_call(*f32_ssd), LM_TIMING_SAMPLES, 2),
+             bound_ms=f32_bound[1][0], bound_by=f32_bound[1][1],
+             source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"))
     f_bound = flash_bound(torch, fq, fk, fv)
     s_bound = ssd_bound(*ssd_args, SSD_PATH["chunk"])
-    flash_ms = time_ms(torch, lambda: fops.flash_attention(
-        fq, fk, fv, causal=True), LM_TIMING_SAMPLES, 5)
+    flash_ms = time_ms(torch, lambda: flash_call(fq, fk, fv),
+                       LM_TIMING_SAMPLES, 5)
     flash_plain_ms = time_ms(torch, lambda: fops.flash_attention_plain(
         fq, fk, fv, causal=True), LM_TIMING_SAMPLES, 5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_library_ms = time_ms(torch, lambda: sdpa(
         qt, kt, vt, is_causal=True, enable_gqa=True), LM_TIMING_SAMPLES, 5)
-    ssd_ms = time_ms(torch, lambda: sops.ssd_scan(
-        *ssd_args, chunk=SSD_PATH["chunk"]), LM_TIMING_SAMPLES, 5)
+    # without the causal mask (twice the work, no diagonal tiles, every q
+    # tile equally heavy) beside SDPA: what the causal structure costs
+    full_bound = flash_bound(torch, fq, fk, fv, causal=False)
+    flash_full_ms = time_ms(torch, lambda: fops.flash_attention(
+        fq, fk, fv, causal=False), LM_TIMING_SAMPLES, 5)
+    library_full_ms = time_ms(torch, lambda: sdpa(
+        qt, kt, vt, is_causal=False, enable_gqa=True), LM_TIMING_SAMPLES, 5)
+    ssd_ms = time_ms(torch, lambda: ssd_call(*ssd_args), LM_TIMING_SAMPLES, 5)
     ssd_plain_ms = time_ms(torch, lambda: sops.ssd_ref(
         *ssd_args, SSD_PATH["chunk"]), LM_TIMING_SAMPLES, 5)
     emit("lm_timing", nvidia_smi=smi, samples=LM_TIMING_SAMPLES,
@@ -578,7 +683,10 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
              bound_by=f_bound[1], bytes=f_bound[2], flops=f_bound[3],
              library_ms=flash_library_ms,
              library="scaled_dot_product_attention(is_causal=True, "
-                     "enable_gqa=True)"),
+                     "enable_gqa=True)",
+             noncausal=dict(kernel_ms=flash_full_ms,
+                            library_ms=library_full_ms,
+                            bound_ms=full_bound[0], flops=full_bound[3])),
          ssd_scan=dict(
              shape=dict(SSD_PATH), dtype="bfloat16", kernel_ms=ssd_ms,
              plain_ms=ssd_plain_ms, bound_ms=s_bound[0],
@@ -586,33 +694,42 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
              library_ms=None,
              library_note="no single PyTorch call computes the SSD scan"))
 
-    # ---- profile: kernels' device time, decode idle share ------------------
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fops.flash_attention(fq, fk, fv, causal=True)
-            sops.ssd_scan(*ssd_args, chunk=SSD_PATH["chunk"])
-        torch.cuda.synchronize()
+    # ---- profile: device time per wrapper call, decode idle share ----------
+    calls = {"flash_attention_bf16": lambda: flash_call(fq, fk, fv),
+             "flash_attention_f32": lambda: flash_call(*f32_flash),
+             "ssd_scan_bf16": lambda: ssd_call(*ssd_args),
+             "ssd_scan_f32": lambda: ssd_call(*f32_ssd)}
+    per_call = {name: wrapper_device_ms(torch, fn) for name, fn in
+                calls.items()}
     emit("lm_profile",
-         flash_attention_device_ms=kernel_device_ms(prof, "flash_fwd_kernel"),
-         ssd_scan_device_ms=kernel_device_ms(prof, "ssd_scan_kernel"),
+         device_ms_per_call={k: v[0] for k, v in per_call.items()},
+         device_ms_per_kernel={k: v[1] for k, v in per_call.items()},
          decode={arch: row["decode_profile"]
                  for arch, row in serve_rows.items()})
     return [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/"
-                    "flash_attention.cu",
+                    "flash_attention_bf16.cu",
              replaces="src/repro/kernels/flash_attention/"
                       "flash_attention.py:28",
              launches=launches["flash_attention"], max_abs_err=flash_err,
-             ms=flash_ms, plain_ms=flash_plain_ms, bound_ms=f_bound[0],
-             bound_by=f_bound[1], library_ms=flash_library_ms),
+             ms=first(per_call["flash_attention_bf16"][0], flash_ms),
+             events_ms=flash_ms,
+             plain_ms=flash_plain_ms, bound_ms=f_bound[0],
+             bound_by=f_bound[1], library_ms=flash_library_ms,
+             routes={"bfloat16": "cuda, wgmma + TMA: flash_attention_bf16.cu",
+                     "float32": "cuda, CUDA-core FMA: flash_attention.cu"}),
         dict(name="ssd_scan", route="cuda",
-             source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+             source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bf16.cu",
              replaces="src/repro/kernels/ssd_scan/ssd_scan.py:26",
-             launches=launches["ssd_scan"], max_abs_err=ssd_err, ms=ssd_ms,
+             launches=launches["ssd_scan"], max_abs_err=ssd_err,
+             ms=first(per_call["ssd_scan_bf16"][0], ssd_ms),
+             events_ms=ssd_ms,
              plain_ms=ssd_plain_ms, bound_ms=s_bound[0], bound_by=s_bound[1],
-             library_ms=None)]
+             library_ms=None,
+             routes={"bfloat16": "cuda, mma.sync bf16 + TF32, four kernels: "
+                                 "ssd_scan_bf16.cu",
+                     "float32": "cuda, CUDA-core FMA: ssd_scan.cu"})]
 
 
 def main() -> int:
@@ -627,7 +744,7 @@ def main() -> int:
         from repro_torch.core import topology as T
         from repro_torch.core import traffic as TR
         from repro_torch.core.routing import build_routing
-        from repro_torch.kernels.build import build_all
+        from repro_torch.kernels.build import build_all, nvcc
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.kernels.netstep import ops as nops
         from repro_torch.kernels.netstep.ops import netstep
@@ -655,7 +772,7 @@ def main() -> int:
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = (nops.LIB, fops.LIB, sops.LIB)
+    libs = (nops.LIB, *fops.LIBS.values(), *sops.LIBS.values())
     paths = build_all(libs)
     for lib in libs:
         lib.launcher()
@@ -666,6 +783,15 @@ def main() -> int:
          libraries={lib.stem: dict(library=str(path.relative_to(ROOT)),
                                    ptxas=ptxas_lines(path))
                     for lib, path in zip(libs[1:], paths[1:])})
+
+    # ---- SASS: the bf16 routes run on the tensor cores ---------------------
+    counts = {lib.stem: sass_counts(path, nvcc())
+              for lib, path in zip(libs, paths)}
+    emit("sass", counts=counts)
+    check(counts["flash_attention_bf16"]["HGMMA"] > 0,
+          "no HGMMA in the bf16 flash-attention kernel")
+    check(counts["ssd_scan_bf16"]["HGMMA"] + counts["ssd_scan_bf16"]["HMMA"]
+          > 0, "no HGMMA or HMMA in the bf16 SSD kernels")
 
     # ---- kernel vs plain ---------------------------------------------------
     t0 = time.perf_counter()

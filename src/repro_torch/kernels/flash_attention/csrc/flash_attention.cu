@@ -1,35 +1,34 @@
-// flash_attention: forward softmax attention with an online softmax,
-// written by hand for Hopper (sm_90a).
+// flash_attention: forward softmax attention with an online softmax for
+// float32 inputs, written by hand for Hopper (sm_90a).  bfloat16 inputs
+// take flash_attention_bf16.cu (tensor cores); this kernel is the f32
+// route.
 //
 // Replaces the TPU kernel `_fa_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py:28 (Pallas), reached
-// through `flash_attention_bhsd` and `ops.flash_attention`.  Same function
-// as the plain version `repro_torch/kernels/flash_attention/ops.py::
-// flash_attention_plain`: q is scaled by 1/sqrt(hd) in float32, scores
-// outside the causal / sliding-window mask are -1e30, the running (m, l,
-// acc) are float32, k tiles outside [lo, hi) are skipped, and the output is
-// acc / max(l, 1e-30) in q's dtype.
+// through `flash_attention_bhsd` and `ops.flash_attention`, for float32
+// inputs.  Same function as the plain version
+// `repro_torch/kernels/flash_attention/ops.py::flash_attention_plain`: q is
+// scaled by 1/sqrt(hd) in float32, scores outside the causal /
+// sliding-window mask are -1e30, the running (m, l, acc) are float32, k
+// tiles outside [lo, hi) are skipped, and the output is acc / max(l, 1e-30).
 //
-// Layout: q and o [B, Tq, H, hd], k and v [B, Tk, KV, hd], contiguous, float
-// or bfloat16.  The GQA repeat is not materialised: q head h reads kv head
+// Layout: q and o [B, Tq, H, hd], k and v [B, Tk, KV, hd], contiguous
+// float32.  The GQA repeat is not materialised: q head h reads kv head
 // h / (H / KV), the head `jnp.repeat` would have put there.
 //
 // Design: one block of 256 threads per (batch * head, 64-row q tile).  The
-// block stages the q tile and each 64-row k and v tile in shared memory as
-// float32 (q and k rows padded by one float, so the 16 lanes that read 16
+// block stages the q tile and each 64-row k and v tile in shared memory
+// (q and k rows padded by one float, so the 16 lanes that read 16
 // different k rows hit 16 banks).  Thread (ty, tx) of a 16 x 16 grid owns
 // score rows ty + 16 i and columns tx + 16 j, and output rows ty + 16 i and
 // columns tx + 16 d; a score row's 16 owners are one half-warp, so the row
 // max and row sum are xor-shuffles.
 //
-// Bound: at the serving path's shape (qwen3-1.7b prefill, [4, 1024, 16, 128]
-// bf16, causal) the work is about 17 GFLOP against about 50 MB moved, so
-// operations bound it: about 17 us at the tensor cores' bf16 rate, against
-// about 15 us for the bytes at 3.35 TB/s.  This
-// kernel does its products on the CUDA cores in float32 from shared memory,
-// so it sits far above that bound; moving QK^T and PV to wgmma with a TMA
-// ring is the next step.
-#include <cuda_bf16.h>
+// Bound and why it stays on the CUDA cores: float32 inputs are held to
+// 2e-5 (tests) and 1e-3 (the full-depth model) against the plain version,
+// which TF32 or bf16 tensor-core products cannot meet, so the products are
+// exact float32 FMAs; the card's 67 TFLOP/s float32 rate bounds them
+// (about 0.26 ms at qwen3-1.7b's prefill shape in f32).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -42,26 +41,18 @@ constexpr int kBK = 64;              // k rows per tile
 constexpr int kPS = kBK + 16;        // row stride of the probability tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
          (size_t)(kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * kPS);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int tq, int tk,
-                 int h, int kvh, int causal, int window, float sm_scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int tq,
+                 int tk, int h, int kvh, int causal, int window,
+                 float sm_scale) {
   constexpr int kQS = HD + 1;          // padded row stride of q and k tiles
   constexpr int kR = kBQ / 16;         // rows per thread
   constexpr int kC = kBK / 16;         // score columns per thread
@@ -80,14 +71,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_start = blockIdx.y * kBQ;
   const long long q_row = (long long)h * HD;    // elements between q rows
   const long long k_row = (long long)kvh * HD;  // elements between k rows
-  const T* qb = q + ((long long)b * tq * h + hh) * HD;
-  const T* kb = k + ((long long)b * tk * kvh + kh) * HD;
-  const T* vb = v + ((long long)b * tk * kvh + kh) * HD;
-  T* ob = o + ((long long)b * tq * h + hh) * HD;
+  const float* qb = q + ((long long)b * tq * h + hh) * HD;
+  const float* kb = k + ((long long)b * tk * kvh + kh) * HD;
+  const float* vb = v + ((long long)b * tk * kvh + kh) * HD;
+  float* ob = o + ((long long)b * tq * h + hh) * HD;
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
-    qs[r * kQS + d] = to_f32(qb[(q_start + r) * q_row + d]) * sm_scale;
+    qs[r * kQS + d] = qb[(q_start + r) * q_row + d] * sm_scale;
   }
 
   // k tiles that any row of this q tile can see (the Pallas lo / hi)
@@ -110,8 +101,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, d = i % HD;
       const long long g = (k_start + r) * k_row + d;
-      ks[r * kQS + d] = to_f32(kb[g]);
-      vs[r * HD + d] = to_f32(vb[g]);
+      ks[r * kQS + d] = kb[g];
+      vs[r * HD + d] = vb[g];
     }
     __syncthreads();
 
@@ -186,57 +177,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long row = (long long)(q_start + ty + 16 * i) * q_row;
 #pragma unroll
     for (int d = 0; d < kD; ++d)
-      store(&ob[row + tx + 16 * d], acc[i][d] / den);
+      ob[row + tx + 16 * d] = acc[i][d] / den;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int tq, int tk, int h, int kvh, int causal, int window,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const float sm_scale = (float)(1.0 / sqrt((double)HD));
   const dim3 grid((unsigned)(b * h), (unsigned)(tq / kBQ));
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, tq, tk, h, kvh, causal,
-      window, sm_scale);
+  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, tq, tk, h,
+      kvh, causal, window, sm_scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int b,
-              int tq, int tk, int h, int kvh, int hd, int causal, int window,
-              cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
-    case 32: return launch<T, 32>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype 0 = float32, 1 = bfloat16;
-// window 0 = no window.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched); the caller checks shapes, types,
-// contiguity and that Tq and Tk are multiples of 64.
+// Plain C entry point for ctypes.  window 0 = no window.  Launches on
+// `stream` and returns cudaGetLastError() (0 = launched); the caller checks
+// shapes, the dtype (float32), contiguity and that Tq and Tk are multiples
+// of 64.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int tq,
                                       int tk, int h, int kvh, int hd,
-                                      int dtype, int causal, int window,
-                                      void* stream) {
+                                      int causal, int window, void* stream) {
   if (b == 0 || tq == 0 || h == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, b, tq, tk, h, kvh, hd, causal, window, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, b, tq, tk, h, kvh, hd, causal,
-                                    window, s);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
+    case 32: return launch<32>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
+    case 64: return launch<64>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
+    case 128: return launch<128>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,10 +1,20 @@
-"""Public wrapper of the flash-attention kernel: [B, T, H, hd] attention
+"""Public wrapper of the flash-attention kernels: [B, T, H, hd] attention
 with grouped KV heads.
 
 `flash_attention` checks its inputs, then on a CUDA tensor launches the
-hand-written kernel (`csrc/flash_attention.cu`) on PyTorch's current
-stream, and on a CPU tensor computes the plain version
-(`flash_attention_plain`).  A CUDA input never falls back: an input the
+hand-written kernel of the input's dtype on PyTorch's current stream, and
+on a CPU tensor computes the plain version (`flash_attention_plain`).
+The route is chosen by dtype, never by failure:
+
+  bfloat16  `csrc/flash_attention_bf16.cu`: wgmma on the tensor cores,
+            K/V tiles through a TMA ring; P is rounded to bf16 as the
+            operand of P V (as the model's plain bf16 path does)
+  float32   `csrc/flash_attention.cu`: exact float32 FMAs on the CUDA
+            cores, to meet the 2e-5 / 1e-3 tolerances float32 is held to
+
+Both take hd in {16, 32, 64, 128} and Tq, Tk multiples of 64 (the
+bf16 kernel's q tile per warpgroup and key tile; its TMA also needs
+16-byte aligned inputs).  A CUDA input never falls back: an input the
 kernel does not take, a build failure or a launch failure raises.
 `flash_attention.launches` counts kernel launches only.
 """
@@ -18,13 +28,19 @@ import torch
 from ..build import CudaLibrary
 from .ref import attention_ref
 
-TILE = 64                        # q and k rows per tile of the kernel
+TILE = 64                        # q and k rows per tile of both kernels
 HEAD_DIMS = (16, 32, 64, 128)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-LIB = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    "flash_attention", "flash_attention_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# the kernel of each input dtype
+LIBS = {
+    torch.bfloat16: CudaLibrary(_CSRC / "flash_attention_bf16.cu",
+                                "flash_attention_bf16",
+                                "flash_attention_bf16_launch", _ARGS),
+    torch.float32: CudaLibrary(_CSRC / "flash_attention.cu",
+                               "flash_attention", "flash_attention_launch",
+                               _ARGS),
+}
 
 
 def _check(q, k, v):
@@ -75,7 +91,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
     b, tq, h, hd = q.shape
     tk, kvh = k.shape[1], k.shape[2]
-    if q.dtype not in DTYPES:
+    if q.dtype not in LIBS:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
     if hd not in HEAD_DIMS:
@@ -88,15 +104,19 @@ def flash_attention(q, k, v, *, causal=True, window=None):
         raise ValueError("flash_attention kernel needs contiguous inputs")
     if window is not None and window <= 0:
         raise ValueError(f"window must be None or positive, got {window}")
-    launch = LIB.launcher()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention bf16 kernel (TMA) needs 16-byte "
+                         "aligned inputs")
+    launch = LIBS[q.dtype].launcher()
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, tq, tk, h, kvh, hd, DTYPES[q.dtype], int(causal),
-                    int(window or 0), stream)
+                    b, tq, tk, h, kvh, hd, int(causal), int(window or 0),
+                    stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -1,44 +1,37 @@
-// ssd_scan: the Mamba2 SSD chunked scan, written by hand for Hopper
-// (sm_90a).
+// ssd_scan: the Mamba2 SSD chunked scan for float32 inputs, written by
+// hand for Hopper (sm_90a).  bfloat16 inputs take ssd_scan_bf16.cu (chunk-
+// parallel passes on the tensor cores); this kernel is the f32 route.
 //
 // Replaces the TPU kernel `_ssd_kernel` of
 // src/repro/kernels/ssd_scan/ssd_scan.py:26 (Pallas), reached through
-// `ssd_scan_pallas` and `ops.ssd_scan`.  Same function as the plain
-// version `repro_torch/kernels/ssd_scan/ref.py::ssd_chunked_core`: for
-// every chunk of Q steps, with cum the running sum of dt * a inside the
-// chunk and S the state carried in from the chunks before,
+// `ssd_scan_pallas` and `ops.ssd_scan`, for float32 inputs.  Same function
+// as the plain version `repro_torch/kernels/ssd_scan/ref.py::
+// ssd_chunked_core`: for every chunk of Q steps, with cum the running sum
+// of dt * a inside the chunk and S the state carried in from the chunks
+// before,
 //   y[q]  = sum_{k <= q} (C_q . B_k) exp(cum_q - cum_k) dt_k x_k
 //           + exp(cum_q) C_q S
 //   S    <- exp(cum_last) S + sum_k B_k (exp(cum_last - cum_k) dt_k x_k)
-// in float32, y in x's dtype, and the final S in float32.
+// in float32, and the final S.
 //
-// Layout: x and y [B, T, H, P], dt [B, T, H] float32, a [H] float32, B and
-// C [B, T, N] in x's dtype, state [B, H, N, P] float32, all contiguous.
+// Layout: x, y [B, T, H, P], dt [B, T, H], a [H], B and C [B, T, N],
+// state [B, H, N, P], all float32 and contiguous.
 //
 // Design: the TPU ran the chunk axis as a sequential grid axis with S in
 // VMEM scratch.  Blocks here run in no order, so one block of 256 threads
 // per (head, batch) walks the chunks in a loop and keeps S [N, P] in shared
-// memory (128 x 64 float32 = 32 KB for mamba2-1.3b).  A chunk's Q x Q
-// decay matrix would not fit (256 KB at Q = 256), so the block walks q
-// tiles of 32 rows and, for each, the k tiles at or below the diagonal,
+// memory.  A chunk's Q x Q decay matrix would not fit, so the block walks
+// q tiles of 32 rows and, for each, the k tiles at or below the diagonal,
 // building the 32 x 32 scores (C Bᵀ ∘ L) in shared memory.  The decay
 // exp(cum_q - cum_k) is taken only where k <= q, where it is at most 1:
-// above the diagonal the exponent is positive and could overflow.  The
-// cumulative sum is a serial loop of one thread per chunk.  C Bᵀ does not
-// depend on the head but is recomputed by every head's block: about
-// Q² N / 2 multiply-adds per (head, chunk), 4.2 M of the 10.8 M a block
-// spends on a chunk of mamba2-1.3b, so 64 heads redo it 63 times too often.
+// above the diagonal the exponent is positive and could overflow.
 //
-// Bound: at the serving path's shape (mamba2-1.3b prefill, B = 4, T = 1024,
-// H = 64, P = 64, N = 128, chunk 256, bf16) the kernel must move about
-// 79 MB (x and y 34 MB each, the f32 state 8 MB) and do about 13 GFLOP
-// without the per-head recompute, so bytes bound it: about 24 us at
-// 3.35 TB/s.  This kernel runs its products on the CUDA cores in float32
-// from shared memory, one block per (head, batch), so 256 blocks fill the
-// 132 SMs about twice: it sits far above the bound.  Sharing C Bᵀ across a
-// group of heads, splitting the chunks over blocks (chunk states, then a
-// scan) and moving the three products to wgmma are the next steps.
-#include <cuda_bf16.h>
+// Bound and why it stays on the CUDA cores: float32 inputs are held to
+// 1e-4 against the plain version, which TF32 or bf16 tensor-core products
+// cannot promise over a chunk of 256 terms, so the products are exact
+// float32 FMAs.  One block per (head, batch) and the per-head C Bᵀ
+// recompute keep it far above its byte bound; the serving path is bf16
+// and takes the other kernel.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -48,20 +41,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 32;            // q and k rows per tile
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const T* __restrict__ bm,
-                const T* __restrict__ cm, T* __restrict__ y,
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ a, const float* __restrict__ bm,
+                const float* __restrict__ cm, float* __restrict__ y,
                 float* __restrict__ state_out, int t, int h, int p, int n,
                 int chunk, int tr) {
   const int hh = blockIdx.x, b = blockIdx.y;
@@ -100,7 +83,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       __syncthreads();                 // cs and ys are free
       for (int i = tid; i < tr * n; i += kThreads) {
         const int r = i / n, j = i % n;
-        cs[r * ns + j] = to_f32(cm[(row_bt + c0 + q0 + r) * n + j]);
+        cs[r * ns + j] = cm[(row_bt + c0 + q0 + r) * n + j];
       }
       for (int i = tid; i < tr * p; i += kThreads) ys[i] = 0.f;
 
@@ -108,11 +91,11 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         __syncthreads();               // bs, xs and gs are free
         for (int i = tid; i < tr * n; i += kThreads) {
           const int r = i / n, j = i % n;
-          bs[r * ns + j] = to_f32(bm[(row_bt + c0 + k0 + r) * n + j]);
+          bs[r * ns + j] = bm[(row_bt + c0 + k0 + r) * n + j];
         }
         for (int i = tid; i < tr * p; i += kThreads) {
           const int r = i / p, j = i % p;
-          xs[i] = to_f32(x[((row_bt + c0 + k0 + r) * h + hh) * p + j]) *
+          xs[i] = x[((row_bt + c0 + k0 + r) * h + hh) * p + j] *
                   dts[k0 + r];
         }
         __syncthreads();
@@ -144,8 +127,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         float acc = 0.f;
         for (int jn = 0; jn < n; ++jn)
           acc = fmaf(cs[r * ns + jn], S[jn * p + j], acc);
-        store(&y[((row_bt + c0 + q0 + r) * h + hh) * p + j],
-              ys[i] + acc * expf(cum[q0 + r]));
+        y[((row_bt + c0 + q0 + r) * h + hh) * p + j] =
+            ys[i] + acc * expf(cum[q0 + r]);
       }
     }
 
@@ -158,11 +141,11 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       __syncthreads();                 // bs and xs are free
       for (int i = tid; i < tr * n; i += kThreads) {
         const int r = i / n, j = i % n;
-        bs[r * ns + j] = to_f32(bm[(row_bt + c0 + k0 + r) * n + j]);
+        bs[r * ns + j] = bm[(row_bt + c0 + k0 + r) * n + j];
       }
       for (int i = tid; i < tr * p; i += kThreads) {
         const int r = i / p, j = i % p;
-        xs[i] = to_f32(x[((row_bt + c0 + k0 + r) * h + hh) * p + j]) *
+        xs[i] = x[((row_bt + c0 + k0 + r) * h + hh) * p + j] *
                 (expf(last - cum[k0 + r]) * dts[k0 + r]);
       }
       __syncthreads();
@@ -181,41 +164,35 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int i = tid; i < n * p; i += kThreads) sb[i] = S[i];
 }
 
-template <typename T>
-int launch(const void* x, const void* dt, const void* a, const void* bm,
-           const void* cm, void* y, void* state, int b, int t, int h, int p,
-           int n, int chunk, cudaStream_t stream) {
+int launch(const float* x, const float* dt, const float* a, const float* bm,
+           const float* cm, float* y, float* state, int b, int t, int h,
+           int p, int n, int chunk, cudaStream_t stream) {
   const int tr = chunk < kTile ? chunk : kTile;
   const size_t smem = sizeof(float) *
       ((size_t)n * p + 2 * chunk + 2 * tr * (n + 1) + 2 * tr * p +
        tr * (tr + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)h, (unsigned)b);
-  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const float*)dt, (const float*)a, (const T*)bm,
-      (const T*)cm, (T*)y, (float*)state, t, h, p, n, chunk, tr);
+  ssd_scan_kernel<<<grid, kThreads, smem, stream>>>(
+      x, dt, a, bm, cm, y, state, t, h, p, n, chunk, tr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype 0 = float32, 1 = bfloat16 (of x,
-// B, C and y).  Launches on `stream` and returns cudaGetLastError()
-// (0 = launched); the caller checks shapes, types, contiguity, that T is a
-// multiple of chunk and that the shared memory fits.
+// Plain C entry point for ctypes (all float32).  Launches on `stream` and
+// returns cudaGetLastError() (0 = launched); the caller checks shapes,
+// types, contiguity, that T is a multiple of chunk and that the shared
+// memory fits.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm, void* y,
                                void* state, int b, int t, int h, int p, int n,
-                               int chunk, int dtype, void* stream) {
+                               int chunk, void* stream) {
   if (b == 0 || h == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(x, dt, a, bm, cm, y, state, b, t, h, p, n, chunk, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, a, bm, cm, y, state, b, t, h, p, n,
-                                 chunk, s);
-  return (int)cudaErrorInvalidValue;
+  return launch((const float*)x, (const float*)dt, (const float*)a,
+                (const float*)bm, (const float*)cm, (float*)y, (float*)state,
+                b, t, h, p, n, chunk, (cudaStream_t)stream);
 }

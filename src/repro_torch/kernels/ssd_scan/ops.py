@@ -1,11 +1,23 @@
-"""Public wrapper of the SSD scan kernel.
+"""Public wrapper of the SSD scan kernels.
 
 `ssd_scan` checks its inputs, then on a CUDA tensor launches the
-hand-written kernel (`csrc/ssd_scan.cu`) on PyTorch's current stream,
-and on a CPU tensor computes the plain version (`ref.ssd_ref`).  A CUDA
-input never falls back: an input the kernel does not take, a build
-failure or a launch failure raises.  `ssd_scan.launches` counts kernel
-launches only.
+hand-written kernel of x's dtype on PyTorch's current stream, and on a
+CPU tensor computes the plain version (`ref.ssd_ref`).  The route is
+chosen by dtype, never by failure:
+
+  bfloat16  `csrc/ssd_scan_bf16.cu`: four kernels (cumsum, C Bᵀ once per
+            chunk, the chunk states passed along the chunks, the
+            chunk-parallel output) with bf16 and TF32 tensor-core
+            products; any chunk size; float32 scratch allocated here
+  float32   `csrc/ssd_scan.cu`: one block per (head, batch) walking the
+            chunks, exact float32 FMAs (the 1e-4 tolerance float32 is held
+            to); chunk <= 32 or a multiple of 32, and its shared memory
+            must fit
+
+A CUDA input never falls back: an input the kernel does not take, a
+build failure or a launch failure raises.  `ssd_scan.launches` counts
+wrapper calls that launch (one per layer), not CUDA kernels: a bf16 call
+launches four.
 """
 from __future__ import annotations
 
@@ -17,20 +29,25 @@ import torch
 from ..build import CudaLibrary
 from .ref import ssd_ref
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 32                    # q and k rows per tile (`kTile` of the .cu)
+TILE = 32                    # f32 kernel: q and k rows per tile (`kTile`)
 MAX_SMEM = 232448            # bytes of shared memory one block may use
-LIB = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu",
-    "ssd_scan", "ssd_scan_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_CSRC = Path(__file__).resolve().parent / "csrc"
+# the kernel of each input dtype
+LIBS = {
+    torch.bfloat16: CudaLibrary(
+        _CSRC / "ssd_scan_bf16.cu", "ssd_scan_bf16", "ssd_scan_bf16_launch",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    torch.float32: CudaLibrary(
+        _CSRC / "ssd_scan.cu", "ssd_scan", "ssd_scan_launch",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+}
 
 
 def smem_bytes(p: int, n: int, chunk: int) -> int:
-    """Shared memory of one block, as `ssd_scan.cu` lays it out: the
-    carried state, the chunk's dt and cumulative decay, the C and B tiles
-    (rows padded to n + 1), the weighted x tile, the scores tile and the
-    y tile, all float32."""
+    """Shared memory of one block of the f32 kernel, as `ssd_scan.cu` lays
+    it out: the carried state, the chunk's dt and cumulative decay, the C
+    and B tiles (rows padded to n + 1), the weighted x tile, the scores
+    tile and the y tile, all float32."""
     t = min(TILE, chunk)
     return 4 * (n * p + 2 * chunk + 2 * t * (n + 1) + 2 * t * p
                 + t * (t + 1))
@@ -70,31 +87,41 @@ def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 128):
         return ssd_ref(x, dt, a, b_mat, c_mat, chunk)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {dev}")
-    if x.dtype not in DTYPES:
+    if x.dtype not in LIBS:
         raise TypeError(f"ssd_scan kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
     bsz, t, h, p = x.shape
     n = b_mat.shape[-1]
-    if chunk > TILE and chunk % TILE:
-        raise ValueError(f"ssd_scan kernel needs chunk <= {TILE} or a "
-                         f"multiple of {TILE}, got {chunk}")
-    if smem_bytes(p, n, chunk) > MAX_SMEM:
-        raise ValueError(f"ssd_scan kernel: P={p}, N={n}, chunk={chunk} need "
-                         f"{smem_bytes(p, n, chunk)} bytes of shared memory, "
-                         f"more than {MAX_SMEM}")
+    if x.dtype == torch.float32:
+        if chunk > TILE and chunk % TILE:
+            raise ValueError(f"ssd_scan f32 kernel needs chunk <= {TILE} or "
+                             f"a multiple of {TILE}, got {chunk}")
+        if smem_bytes(p, n, chunk) > MAX_SMEM:
+            raise ValueError(f"ssd_scan f32 kernel: P={p}, N={n}, "
+                             f"chunk={chunk} need {smem_bytes(p, n, chunk)} "
+                             f"bytes of shared memory, more than {MAX_SMEM}")
     if not all(v.is_contiguous() for v in (x, dt, a, b_mat, c_mat)):
         raise ValueError("ssd_scan kernel needs contiguous inputs")
-    launch = LIB.launcher()
+    launch = LIBS[x.dtype].launcher()
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev)
     if x.numel() == 0:
         return y, state.zero_()
+    ptrs = [v.data_ptr() for v in (x, dt, a, b_mat, c_mat, y, state)]
+    shape = [bsz, t, h, p, n, chunk]
+    if x.dtype == torch.bfloat16:
+        # float32 scratch of the passes: the running decay, C Bᵀ of every
+        # chunk (rows padded to 16 bytes) and each chunk's incoming state
+        nc, ldcb = t // chunk, -(-chunk // 4) * 4
+        f32 = dict(dtype=torch.float32, device=dev)
+        scratch = (torch.empty((bsz, nc, h, chunk), **f32),
+                   torch.empty((bsz, nc, chunk, ldcb), **f32),
+                   torch.empty((bsz, nc, h, n, p), **f32))
+        ptrs += [v.data_ptr() for v in scratch]
+        shape.append(ldcb)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                    b_mat.data_ptr(), c_mat.data_ptr(), y.data_ptr(),
-                    state.data_ptr(), bsz, t, h, p, n, chunk,
-                    DTYPES[x.dtype], stream)
+        rc = launch(*ptrs, *shape, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd_scan.launches += 1

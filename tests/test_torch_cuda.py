@@ -128,7 +128,7 @@ def _randn(rng, shape, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("tq,tk,causal,window", [
     (128, 128, True, None), (256, 256, True, None), (128, 256, False, None),
     (256, 256, True, 128), (128, 128, True, 64)])
@@ -149,7 +149,7 @@ def test_flash_kernel_matches_plain(cuda, tq, tk, causal, window, hd, dtype):
 
 def test_flash_kernel_matches_plain_at_serving_shape(cuda):
     """qwen3-1.7b's prefill: batch 4, prompt 1024, 16 q heads over 8 kv
-    heads of 128, bf16, causal."""
+    heads of 128, bf16, causal: the tensor-core route."""
     rng = np.random.default_rng(1)
     q = _randn(rng, (4, 1024, 16, 128), torch.bfloat16, cuda)
     k = _randn(rng, (4, 1024, 8, 128), torch.bfloat16, cuda)
@@ -158,6 +158,33 @@ def test_flash_kernel_matches_plain_at_serving_shape(cuda):
     want = fops.flash_attention_plain(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+def test_flash_f32_kernel_matches_plain_at_serving_shape(cuda):
+    """The same shape in float32: the CUDA-core route, exact f32 products."""
+    rng = np.random.default_rng(9)
+    q = _randn(rng, (4, 1024, 16, 128), torch.float32, cuda)
+    k = _randn(rng, (4, 1024, 8, 128), torch.float32, cuda)
+    v = _randn(rng, (4, 1024, 8, 128), torch.float32, cuda)
+    got = fops.flash_attention(q, k, v, causal=True)
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("h,kv,tq", [(3, 1, 192), (6, 2, 64), (4, 4, 320)])
+def test_flash_bf16_kernel_pairs_heads_and_tiles(cuda, h, kv, tq):
+    """The bf16 kernel's two warpgroups share a block: two q heads of one
+    kv head when H / KV is even, else two q tiles of one head (an odd tile
+    count leaves the last block one tile)."""
+    rng = np.random.default_rng(8)
+    q = _randn(rng, (2, tq, h, 64), torch.bfloat16, cuda)
+    k = _randn(rng, (2, tq, kv, 64), torch.bfloat16, cuda)
+    v = _randn(rng, (2, tq, kv, 64), torch.bfloat16, cuda)
+    for window in (None, 96):
+        got = fops.flash_attention(q, k, v, causal=True, window=window)
+        want = fops.flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -172,6 +199,10 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     wide = _randn(rng, (1, 128, 2, 128), torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fops.flash_attention(wide[..., ::2], wide[..., ::2], wide[..., ::2])
+    odd = _randn(rng, (1, 128, 2, 64), torch.bfloat16, cuda).flatten()
+    shifted = odd[1:1 + 128 * 2 * 32].view(1, 128, 2, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fops.flash_attention(shifted, shifted, shifted)
 
 
 def _ssd_inputs(rng, b, t, h, p, n, dtype, device):
@@ -213,7 +244,38 @@ def test_ssd_kernel_stays_finite_under_strong_decay(cuda):
     torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
 
 
+def test_ssd_bf16_kernel_stays_finite_under_strong_decay(cuda):
+    """The same through the tensor-core route."""
+    x, dt, a, bm, cm = _ssd_inputs(np.random.default_rng(5), 1, 64, 2, 4, 4,
+                                   torch.bfloat16, cuda)
+    a = torch.tensor([-60.0, -0.5], device=cuda)
+    y, s = sops.ssd_scan(x, dt, a, bm, cm, chunk=32)
+    yr, sr = sops.ssd_ref(x, dt, a, bm, cm, 32)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y.float(), yr.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(s, sr, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", [
+    (1, 96, 2, 8, 8, 48), (2, 16, 4, 16, 16, 8), (2, 40, 3, 12, 20, 20),
+    (1, 320, 2, 72, 136, 160), (4, 1024, 64, 64, 128, 256)])
+def test_ssd_bf16_kernel_takes_any_chunk(cuda, b, t, h, p, n, chunk):
+    """The tensor-core route tiles Q, P and N itself (zero-filled ragged
+    tiles): chunks that are no multiple of 32, the smoke config (P 16,
+    chunk 8), P and N past one tile, and mamba2-1.3b's prefill shape."""
+    args = _ssd_inputs(np.random.default_rng(13), b, t, h, p, n,
+                       torch.bfloat16, cuda)
+    before = sops.ssd_scan.launches
+    y, s = sops.ssd_scan(*args, chunk=chunk)
+    assert sops.ssd_scan.launches == before + 1
+    yr, sr = sops.ssd_ref(*args, chunk)
+    torch.testing.assert_close(y.float(), yr.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(s, sr, atol=3e-2, rtol=3e-2)
+
+
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    """The f32 route keeps its tiles (chunk <= 32 or a multiple of 32) and
+    its shared memory; the bf16 route takes both shapes."""
     x, dt, a, bm, cm = _ssd_inputs(np.random.default_rng(6), 1, 96, 2, 8, 8,
                                    torch.float32, cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -227,6 +289,13 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
                       torch.float32, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         sops.ssd_scan(*big, chunk=256)
+    bf = torch.bfloat16
+    sops.ssd_scan(x.to(bf), dt, a, bm.to(bf), cm.to(bf), chunk=48)
+    sops.ssd_scan(big[0].to(bf), big[1], big[2], big[3].to(bf),
+                  big[4].to(bf), chunk=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        sops.ssd_scan(x.to(bf), dt, a, bm.to(bf).transpose(1, 2)
+                      .contiguous().transpose(1, 2), cm.to(bf), chunk=32)
 
 
 @pytest.mark.parametrize("arch,t,flash,ssd", [

@@ -14,7 +14,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref, attention_tiles_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -46,6 +47,32 @@ def test_attention_ref_matches_reference(tq, tk, causal, window, dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("tq,tk,causal,window", [
+    (128, 128, True, None),
+    (256, 256, True, None),
+    (128, 256, False, None),
+    (256, 256, True, 128),
+    (128, 128, True, 64),
+])
+def test_bf16_kernel_numerics_match_reference(tq, tk, causal, window, hd):
+    """A CPU rehearsal of the bf16 tensor-core kernel: its tile-by-tile
+    online softmax with P rounded to bf16 before P V stays within the bf16
+    tolerance of the exact references, the port's and the JAX package's."""
+    rng = np.random.default_rng(3)
+    bh = 3
+    q, k, v = (rng.normal(0, 1, shape).astype(np.float32)
+               for shape in ((bh, tq, hd), (bh, tk, hd), (bh, tk, hd)))
+    (jq, tq_), (jk, tk_), (jv, tv) = (_both(a, "bfloat16") for a in (q, k, v))
+    got = attention_tiles_ref(tq_, tk_, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    ours = attention_ref(tq_, tk_, tv, causal=causal, window=window)
+    jax_ = jax_attention_ref(jq, jk, jv, causal=causal, window=window)
+    for want in (ours.float().numpy(), np.asarray(jax_, np.float32)):
+        np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
+                                   rtol=2e-2)
 
 
 @pytest.mark.parametrize("window", [None, 64])

@@ -81,6 +81,22 @@ def test_chunked_core_matches_naive():
                                    rtol=2e-4)
 
 
+def test_chunked_core_in_float64():
+    """Float64 inputs run the plain version in float64 (the precision
+    reference of the f32 kernel at the serving shape): it then equals the
+    recurrence to float64 rounding."""
+    _, torch_in = _inputs(np.random.default_rng(4), 2, 32, 3, 4, 5)
+    in64 = [v.double() for v in torch_in]
+    y, s = ssd_chunked_core(*in64, 8)
+    yn, sn = ssd_naive(*in64)
+    assert y.dtype == s.dtype == torch.float64
+    np.testing.assert_allclose(y.numpy(), yn.double().numpy(), atol=1e-5,
+                               rtol=1e-5)
+    y32, _ = ssd_chunked_core(*torch_in, 8)
+    np.testing.assert_allclose(y32.double().numpy(), y.numpy(), atol=2e-5,
+                               rtol=2e-4)
+
+
 def test_strong_decay_stays_finite():
     """With dt * a large, exp(cum_q - cum_k) above the chunk's diagonal
     overflows to inf; the plain version selects it away (never multiplies
