@@ -358,21 +358,26 @@ def first(device_ms, events_ms):
     return device_ms if device_ms is not None else events_ms
 
 
-def wrapper_device_ms(torch, fn, calls: int = 5):
+def wrapper_device_ms(torch, fn, calls: int = 5, sessions: int = 3):
     """(device ms, {kernel: device ms}) of one call of `fn`: each CUDA
     kernel's mean device time per launch, summed over the kernels (every
-    kernel of a wrapper launches once per call); None when the profiler
-    saw no device time."""
+    kernel of a wrapper launches once per call).  The profiler on the
+    card sometimes records no device event in a session, so a session
+    that saw none is repeated, up to `sessions` times; None if none did."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    per_kernel = {e.key[:60]: device_us(e) / e.count / 1e3
-                  for e in device_rows(prof)}
+    per_kernel = {}
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per_kernel = {e.key[:60]: device_us(e) / e.count / 1e3
+                      for e in device_rows(prof)}
+        if per_kernel:
+            break
     total = sum(per_kernel.values())
     return (total if total > 0 else None), per_kernel
 
