@@ -9,17 +9,26 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
 
   device               card name and power limit (nvidia-smi), versions
   build                nvcc builds the five kernel sources from the
-                       checkout, one process per source, all started
-                       together; netstep's library and ptxas lines
+                       checkout, and two cuts of netstep (kernels.ablate):
+                       its body cut out (the launch floor) and its
+                       arbitration through __reduce_min_sync, one process
+                       per source, all started together; netstep's library
+                       and ptxas lines, which must report no spill
   build_lm             the same build's flash_attention and ssd_scan
                        libraries (bf16 tensor-core and f32 CUDA-core
                        route of each) and their ptxas lines
-  sass                 cuobjdump -sass of every library: HGMMA / HMMA
-                       counts; the bf16 flash kernel must hold HGMMA and
-                       the bf16 SSD kernels HGMMA or HMMA
+  sass                 cuobjdump -sass of every library: HGMMA / HMMA /
+                       MATCH / REDUX counts; the bf16 flash kernel must
+                       hold HGMMA, the bf16 SSD kernels HGMMA or HMMA,
+                       netstep MATCH (its arbitration) and its redux cut
+                       REDUX
   kernel_vs_plain      the CUDA netstep equals its plain PyTorch version
                        on the card, bit for bit, plus the allocation
-                       invariants
+                       invariants: the cases of tests/test_torch_cuda.py,
+                       random shapes, every PI in LANE_PIS x V in LANE_VS
+                       on rows whose warps straddle two rows, ROW_SHAPES
+                       and the main path's shape; a misaligned input
+                       raises and an empty one launches nothing
   sim_kernel_vs_plain  the simulator's counters with the kernel, with
                        the plain allocator on the card, and on the CPU
                        are equal (the CPU path is held against the JAX
@@ -29,12 +38,16 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        SweepEngine.run_specs; counters equal the JAX
                        reference's, and every cycle went through the
                        kernel
-  timing               CUDA-event times of the kernel and of the plain
-                       version at the main path's shape, beside the
-                       kernel's bound
-  profile              torch.profiler: the kernel's device time, and the
-                       device busy/idle share of simulated cycles at the
-                       main path's widest group
+  timing               netstep at NETSTEP_SHAPES (the main path's
+                       [32, 256, 7, 4], mesh's PI 5, the widest radix's
+                       PI 31): the profiler's device time per launch
+                       beside the bound, the launch floor (the kernel
+                       with its body cut out, same grid) and the redux
+                       cut's device time; CUDA-event time of back-to-back
+                       wrapper calls (host-bound: minus the device time,
+                       the wrapper's host time) and the plain version's
+  profile              torch.profiler: the device busy/idle share of
+                       simulated cycles at the main path's widest group
   flash_vs_plain       the flash-attention kernels against their plain
                        version on the card: every case of
                        tests/test_torch_cuda.py (five (tq, tk, causal,
@@ -130,6 +143,19 @@ PEAK_OPS_PER_S = 67e12
 TIMING_SAMPLES = 60
 LAUNCHES_PER_SAMPLE = 20
 PROFILE_CYCLES = 100
+# netstep's warp layouts (R = 32 // PI routers per warp) and load widths
+# (V in {1, 2, 4, 8} vector loads, V = 3 the generic kernel), held against
+# the plain version on rows of LANE_N routers, no multiple of any R > 1
+LANE_PIS = (1, 2, 5, 7, 8, 15, 16, 17, 31, 32)
+LANE_VS = (1, 2, 3, 4, 8)
+LANE_N = 13
+# one router per row (the row is the router) and long rows (the row by a
+# multiply-high), each row its own rr pair
+ROW_SHAPES = ((40, 1, 7, 4), (9, 1, 2, 3), (7, 1000, 5, 4), (3, 4099, 31, 2))
+# timed shapes [B, N, PI, V]: the main path's widest group (hexamesh and
+# folded_hexa_torus at N = 256), mesh's, and the widest Table III radix
+NETSTEP_SHAPES = ((32, MAIN_N, 7, 4), (32, MAIN_N, 5, 4), (32, MAIN_N, 31, 4))
+NETSTEP_PROFILED_CALLS = 50
 
 # The LM serving path (qwen3-1.7b: flash attention, mamba2-1.3b: SSD
 # scan).  Peak rates of the H100 SXM data sheet by input type: the
@@ -223,14 +249,34 @@ def ptxas_lines(lib_path) -> list:
             if "registers" in ln or "spill" in ln]
 
 
+def spill_bytes(ptxas) -> list:
+    """The spill store and load byte counts of ptxas lines."""
+    return [int(n) for ln in ptxas
+            for n in re.findall(r"(\d+) bytes spill", ln)]
+
+
 def sass_counts(lib_path, nvcc_path) -> dict:
-    """Tensor-core instructions in a library's SASS (cuobjdump -sass)."""
+    """Tensor-core and warp match / reduce instructions in a library's
+    SASS (cuobjdump -sass)."""
     tool = Path(nvcc_path).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HGMMA", "HMMA")}
+            for op in ("HGMMA", "HMMA", "MATCH", "REDUX")}
+
+
+def netstep_bound(shape, n_bytes):
+    """(bound ms, bound_by, ops): every input read once and every output
+    written once, over the memory rate; per input port V compare-selects
+    of phase a, one compare per out slot in phase b and V stores (a lower
+    bound on the operations), over the float32 rate."""
+    b, n, pi, v = shape
+    n_ops = b * n * pi * (3 * v + 3 * pi)
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * n_ops / PEAK_OPS_PER_S
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_ops)
 
 
 def device_rows(prof) -> list:
@@ -749,6 +795,7 @@ def main() -> int:
         from repro_torch.core import topology as T
         from repro_torch.core import traffic as TR
         from repro_torch.core.routing import build_routing
+        from repro_torch.kernels import ablate
         from repro_torch.kernels.build import build_all, nvcc
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.kernels.netstep import ops as nops
@@ -778,25 +825,35 @@ def main() -> int:
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
     libs = (nops.LIB, *fops.LIBS.values(), *sops.LIBS.values())
-    paths = build_all(libs)
+    netstep_cuts = ablate.variant_libs("netstep")
+    cut_libs = (netstep_cuts["empty"], netstep_cuts["redux"])
+    paths = build_all(libs + cut_libs)
     for lib in libs:
         lib.launcher()
     build_s = time.perf_counter() - t0
+    netstep_ptxas = ptxas_lines(paths[0])
+    spills = spill_bytes(netstep_ptxas)
     emit("build", seconds=round(build_s, 3),
-         library=str(paths[0].relative_to(ROOT)), ptxas=ptxas_lines(paths[0]))
+         library=str(paths[0].relative_to(ROOT)), ptxas=netstep_ptxas,
+         spill_bytes=sum(spills))
+    check(spills and not any(spills),
+          f"netstep: ptxas reports spills or nothing: {netstep_ptxas}")
     emit("build_lm", seconds=round(build_s, 3), built_with="netstep",
          libraries={lib.stem: dict(library=str(path.relative_to(ROOT)),
                                    ptxas=ptxas_lines(path))
                     for lib, path in zip(libs[1:], paths[1:])})
 
-    # ---- SASS: the bf16 routes run on the tensor cores ---------------------
+    # ---- SASS: the bf16 routes run on the tensor cores, netstep matches ----
     counts = {lib.stem: sass_counts(path, nvcc())
-              for lib, path in zip(libs, paths)}
+              for lib, path in zip(libs + cut_libs, paths)}
     emit("sass", counts=counts)
     check(counts["flash_attention_bf16"]["HGMMA"] > 0,
           "no HGMMA in the bf16 flash-attention kernel")
     check(counts["ssd_scan_bf16"]["HGMMA"] + counts["ssd_scan_bf16"]["HMMA"]
           > 0, "no HGMMA or HMMA in the bf16 SSD kernels")
+    check(counts["netstep"]["MATCH"] > 0, "no MATCH in the netstep kernel")
+    check(counts["netstep_redux"]["REDUX"] > 0,
+          "no REDUX in netstep's redux cut")
 
     # ---- kernel vs plain ---------------------------------------------------
     t0 = time.perf_counter()
@@ -824,7 +881,30 @@ def main() -> int:
         max_err = max(max_err, compare_kernel(
             torch, netstep, netstep_ref, op_slot, eligible, rr_vc, rr_port))
         cases += 1
-    main_shape = (32, MAIN_N, 7, 4)
+    # every warp layout and load width; slots one past [0, PI) on both
+    # sides, and ineligible VCs that carry a slot
+    for pi in LANE_PIS:
+        for v in LANE_VS:
+            shape = (3, LANE_N, pi, v)
+            op_slot = torch.randint(-2, pi + 1, shape, generator=gen,
+                                    dtype=torch.int32).to(dev)
+            eligible = (torch.rand(shape, generator=gen) < 0.6).to(dev)
+            rr_vc, rr_port = (torch.randint(
+                -40, 1000, (3,), generator=gen, dtype=torch.int32).to(dev)
+                for _ in range(2))
+            max_err = max(max_err, compare_kernel(
+                torch, netstep, netstep_ref, op_slot, eligible, rr_vc,
+                rr_port))
+            cases += 1
+    for shape in ROW_SHAPES:
+        op_slot, eligible = random_alloc_inputs(torch, gen, shape, dev)
+        rr_vc, rr_port = (torch.randint(
+            0, 1000, (shape[0],), generator=gen, dtype=torch.int32).to(dev)
+            for _ in range(2))
+        max_err = max(max_err, compare_kernel(
+            torch, netstep, netstep_ref, op_slot, eligible, rr_vc, rr_port))
+        cases += 1
+    main_shape = NETSTEP_SHAPES[0]
     op_main, el_main = random_alloc_inputs(torch, gen, main_shape, dev)
     rr_vc_main = torch.arange(32, dtype=torch.int32, device=dev) % 4
     rr_port_main = torch.arange(32, dtype=torch.int32, device=dev) % 7
@@ -832,7 +912,27 @@ def main() -> int:
         torch, netstep, netstep_ref, op_main, el_main, rr_vc_main,
         rr_port_main))
     cases += 1
+    # a view at a storage offset breaks the int4 loads' alignment: raises
+    flat = torch.empty(op_main.numel() + 1, dtype=torch.int32, device=dev)
+    misaligned = flat[1:].view(main_shape)
+    misaligned.copy_(op_main)
+    try:
+        netstep(misaligned, el_main, rr_vc_main, rr_port_main)
+        raised = False
+    except ValueError as e:
+        raised = "aligned" in str(e)
+    check(raised, "a misaligned op_slot did not raise")
+    # an empty input gives empty outputs and launches nothing
+    before = netstep.launches
+    empty = netstep(op_main[:0], el_main[:0], rr_vc_main[:0],
+                    rr_port_main[:0])
+    torch.cuda.synchronize()
+    check(netstep.launches == before and empty[0].shape == (0,) + main_shape[1:]
+          and empty[1].shape == (0,) + main_shape[1:3],
+          "an empty netstep input launched or gave the wrong shapes")
     emit("kernel_vs_plain", cases=cases, max_abs_err=max_err,
+         lane_pis=LANE_PIS, lane_vs=LANE_VS, lane_n=LANE_N,
+         misaligned_raises=True, empty_launches=0,
          seconds=round(time.perf_counter() - t0, 3))
 
     # ---- simulator: kernel vs plain vs CPU ---------------------------------
@@ -908,40 +1008,51 @@ def main() -> int:
          wall_seconds=wall_s, seconds_per_run=wall_s / len(specs),
          ms_per_simulated_cycle=1e3 * wall_s / (cfg.cycles * groups))
 
-    # ---- timing at the main path's shape -----------------------------------
-    args = (op_main, el_main, rr_vc_main, rr_port_main)
-    outs = netstep(*args)
-    torch.cuda.synchronize()
-    kernel_ms = time_ms(torch, lambda: netstep(*args), TIMING_SAMPLES,
-                        LAUNCHES_PER_SAMPLE)
-    plain_ms = time_ms(torch, lambda: netstep_ref(*args), TIMING_SAMPLES,
-                       LAUNCHES_PER_SAMPLE)
-    n_bytes = sum(t.numel() * t.element_size() for t in args + outs)
-    # per input port: V compare-selects of phase a, PI shuffled
-    # compares of phase b, V stores (a lower bound on the operations)
-    b_, n_, pi_, v_ = main_shape
-    n_ops = b_ * n_ * pi_ * (3 * v_ + 3 * pi_)
-    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / PEAK_OPS_PER_S
-    bound_ms = max(bytes_ms, ops_ms)
-    emit("timing", shape=list(main_shape), kernel_ms=kernel_ms,
-         plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-         bytes=n_bytes, ops=n_ops, samples=TIMING_SAMPLES,
-         launches_per_sample=LAUNCHES_PER_SAMPLE, library_ms=None,
+    # ---- timing at the allocator's shapes ------------------------------------
+    # device time per launch beside the bound, the launch floor (the same
+    # grid with the kernel's body cut out) and the redux cut, and
+    # CUDA-event time of back-to-back wrapper calls, which the host bounds
+    shape_rows = []
+    kernel_lib = nops.LIB
+    for shape in NETSTEP_SHAPES:
+        if shape == main_shape:
+            args = (op_main, el_main, rr_vc_main, rr_port_main)
+        else:
+            args = ablate.netstep_inputs(shape, gen, dev)
+        outs = netstep(*args)
+        torch.cuda.synchronize()
+        call = lambda args=args: netstep(*args)
+        kernel_ms = time_ms(torch, call, TIMING_SAMPLES, LAUNCHES_PER_SAMPLE)
+        device_ms = wrapper_device_ms(torch, call,
+                                      calls=NETSTEP_PROFILED_CALLS)[0]
+        ablate.use_lib("netstep", netstep_cuts["empty"])
+        floor_ms = wrapper_device_ms(torch, call,
+                                     calls=NETSTEP_PROFILED_CALLS)[0]
+        ablate.use_lib("netstep", netstep_cuts["redux"])
+        redux_ms = wrapper_device_ms(torch, call,
+                                     calls=NETSTEP_PROFILED_CALLS)[0]
+        ablate.use_lib("netstep", kernel_lib)
+        plain_ms = time_ms(torch, lambda args=args: netstep_ref(*args),
+                           TIMING_SAMPLES, LAUNCHES_PER_SAMPLE)
+        n_bytes = sum(t.numel() * t.element_size() for t in args + outs)
+        bound_ms, bound_by, n_ops = netstep_bound(shape, n_bytes)
+        shape_rows.append(dict(
+            shape=list(shape), device_ms=device_ms, events_ms=kernel_ms,
+            wrapper_host_us=1e3 * (kernel_ms - device_ms)
+            if device_ms is not None else None,
+            empty_kernel_floor_ms=floor_ms, redux_cut_ms=redux_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, ops=n_ops,
+            plain_ms=plain_ms))
+    main_row = shape_rows[0]
+    emit("timing", shapes=shape_rows, samples=TIMING_SAMPLES,
+         launches_per_sample=LAUNCHES_PER_SAMPLE,
+         profiled_calls=NETSTEP_PROFILED_CALLS, library_ms=None,
          library_note="no single PyTorch call computes this allocation",
          nvidia_smi=smi)
 
-    # ---- profile: device time of the kernel and of a simulated cycle ---
+    # ---- profile: device busy/idle share of simulated cycles -------------------
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        for _ in range(LAUNCHES_PER_SAMPLE):
-            netstep(*args)
-        torch.cuda.synchronize()
-    kern = [e for e in device_rows(prof) if "netstep_kernel" in e.key]
-    kernel_device_ms = (device_us(kern[0]) / kern[0].count / 1e3
-                        if kern and device_us(kern[0]) > 0 else None)
     group = [specs[-1]] * 4                      # the main path's widest group
     group_rates = [rates[-1]] * 4
     prof_cfg = sim.SimConfig(cycles=PROFILE_CYCLES, warmup=0)
@@ -955,7 +1066,7 @@ def main() -> int:
     events = device_rows(prof)
     busy_s = sum(device_us(e) for e in events) / 1e6
     top = sorted(events, key=device_us, reverse=True)[:8]
-    emit("profile", kernel_device_ms=kernel_device_ms,
+    emit("profile", kernel_device_ms=main_row["device_ms"],
          sim_shape=[32, MAIN_N, group[0].p + 1, prof_cfg.n_vcs],
          sim_cycles=PROFILE_CYCLES, sim_wall_s=prof_wall_s,
          sim_device_busy_s=busy_s if busy_s > 0 else None,
@@ -972,10 +1083,13 @@ def main() -> int:
         name="netstep", route="cuda",
         source="src/repro_torch/kernels/netstep/csrc/netstep.cu",
         replaces="src/repro/kernels/netstep/netstep.py:28",
-        launches=main_launches, max_abs_err=max_err, ms=kernel_ms,
-        plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None)] + lm_rows}), flush=True)
+        launches=main_launches, max_abs_err=max_err,
+        ms=first(main_row["device_ms"], main_row["events_ms"]),
+        events_ms=main_row["events_ms"],
+        empty_kernel_floor_ms=main_row["empty_kernel_floor_ms"],
+        plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+        bound_by=main_row["bound_by"], library_ms=None)] + lm_rows}),
+        flush=True)
     emit("done", seconds=round(time.perf_counter() - t_all, 3))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

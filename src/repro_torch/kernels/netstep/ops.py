@@ -3,9 +3,14 @@
 `netstep` checks its inputs, then on a CUDA tensor launches the
 hand-written kernel (`csrc/netstep.cu`) on PyTorch's current stream, and
 on a CPU tensor computes the plain version (`ref.netstep_ref`).  A CUDA
-input never falls back: a build or launch failure raises.
-`netstep.launches` counts kernel launches (CPU calls are not counted),
-so a run can show that its cycles went through the kernel.
+input never falls back: an input the kernel does not take (PI or V above
+32, a non-contiguous or misaligned tensor), a build failure or a launch
+failure raises.  `netstep.launches` counts kernel launches (CPU calls are
+not counted), so a run can show that its cycles went through the kernel.
+
+The simulator calls it every cycle on a small grid, so the CUDA path
+keeps its host work short: the raw current stream, and no device switch
+when the input's device is already current.
 """
 from __future__ import annotations
 
@@ -17,11 +22,15 @@ import torch
 from ..build import CudaLibrary
 from .ref import netstep_ref
 
-MAX_LANES = 32   # one warp per router: PI and V each fit in a warp
+MAX_LANES = 32   # a router's ports share a warp: PI and V each fit in one
 LIB = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "netstep.cu", "netstep",
     "netstep_launch", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
     + [ctypes.c_void_p])
+# byte alignment the kernel's vector loads need of op_slot and eligible,
+# by V (one port's V slots and V flags per load); any other V loads
+# element by element
+ALIGN = {1: (4, 1), 2: (8, 2), 4: (16, 4), 8: (16, 8)}
 
 
 def _check(op_slot, eligible, rr_vc, rr_port):
@@ -40,8 +49,9 @@ def _check(op_slot, eligible, rr_vc, rr_port):
         if rr.dtype != torch.int32 or tuple(rr.shape) != (B,):
             raise ValueError(f"{name} must be int32 [{B}], got {rr.dtype} "
                              f"{tuple(rr.shape)}")
-    devs = {t.device for t in (op_slot, eligible, rr_vc, rr_port)}
-    if len(devs) != 1:
+    dev = op_slot.device
+    if not eligible.device == rr_vc.device == rr_port.device == dev:
+        devs = {t.device for t in (op_slot, eligible, rr_vc, rr_port)}
         raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
 
 
@@ -60,21 +70,28 @@ def netstep(op_slot: torch.Tensor, eligible: torch.Tensor,
     if PI > MAX_LANES or V > MAX_LANES:
         raise ValueError(f"netstep kernel takes PI <= {MAX_LANES} and "
                          f"V <= {MAX_LANES}, got PI={PI}, V={V}")
-    tensors = (op_slot, eligible, rr_vc, rr_port)
-    if not all(t.is_contiguous() for t in tensors):
+    if not (op_slot.is_contiguous() and eligible.is_contiguous()
+            and rr_vc.is_contiguous() and rr_port.is_contiguous()):
         raise ValueError("netstep kernel needs contiguous inputs")
+    op_ptr, el_ptr = op_slot.data_ptr(), eligible.data_ptr()
+    op_align, el_align = ALIGN.get(V, (4, 1))
+    if op_ptr % op_align or el_ptr % el_align:
+        raise ValueError(f"netstep kernel needs op_slot {op_align}-byte and "
+                         f"eligible {el_align}-byte aligned at V={V}")
     launch = LIB.launcher()
     win = torch.empty((B, N, PI, V), dtype=torch.bool, device=dev)
     vc = torch.empty((B, N, PI), dtype=torch.int32, device=dev)
     req = torch.empty((B, N, PI), dtype=torch.int32, device=dev)
-    if op_slot.numel() == 0:
+    if win.numel() == 0:
         return win, vc, req
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            op_slot.data_ptr(), eligible.data_ptr(), rr_vc.data_ptr(),
-            rr_port.data_ptr(), win.data_ptr(), vc.data_ptr(),
-            req.data_ptr(), B, N, PI, V, stream)
+    args = (op_ptr, el_ptr, rr_vc.data_ptr(), rr_port.data_ptr(),
+            win.data_ptr(), vc.data_ptr(), req.data_ptr(), B, N, PI, V)
+    index = dev.index
+    if index == torch.cuda.current_device():
+        rc = launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = launch(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"netstep kernel launch failed: CUDA error {rc}")
     netstep.launches += 1

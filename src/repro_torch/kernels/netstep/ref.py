@@ -6,6 +6,10 @@ router grid over (spec, rate), the port carries a leading row axis B
 and one rotating-priority pair (rr_vc, rr_port) per row.  It is the CPU
 path of `ops.netstep`, the simulator's `alloc="torch"`, and the version
 the CUDA kernel is held against bit for bit on the card.
+
+`netstep_lanes` computes the same allocation lane by lane, as the CUDA
+kernel's warps do; the CPU tests hold it against `netstep_ref`, and
+nothing else calls it.
 """
 from __future__ import annotations
 
@@ -55,3 +59,77 @@ def netstep_ref(op_slot: torch.Tensor, eligible: torch.Tensor,
     win_mask = (torch.nn.functional.one_hot(vc_choice.long(), V).bool()
                 & eligible & port_wins.unsqueeze(3))
     return win_mask, vc_choice, out_req.to(torch.int32)
+
+
+def _ffs(x: torch.Tensor) -> torch.Tensor:
+    """CUDA's __ffs on int64 lane masks below 2^32: the 1-based index of
+    the least set bit, 0 for 0."""
+    low = x & -x
+    return torch.where(x != 0, torch.log2(low.double()).long() + 1, 0)
+
+
+def netstep_lanes(op_slot: torch.Tensor, eligible: torch.Tensor,
+                  rr_vc: torch.Tensor, rr_port: torch.Tensor):
+    """The allocation computed the way the CUDA kernel computes it, lane by
+    lane, in plain torch: a rehearsal of `csrc/netstep.cu`'s warp layout
+    for the CPU tests.  Same arguments and results as `netstep_ref`.
+
+    R = 32 // PI routers share a warp of 32 lanes; lane l < R * PI takes
+    router slot l // PI and port l % PI of router warp * R + l // PI, whose
+    row gives the lane its rr pair.  The other lanes, and those past the
+    last router, request nothing and take keys of their own.  Phase b
+    groups lanes by the key slot * 32 + out slot (`__match_any_sync`),
+    shifts the group's lane mask down to the router's first lane, and
+    grants the first rival port at or after rr_port mod PI, else the first
+    rival port (shifts and `__ffs`).
+    """
+    B, N, PI, V = op_slot.shape
+    dev = op_slot.device
+    per_warp = 32 // PI
+    n_routers = B * N
+    warps = -(-n_routers // per_warp)
+    lane = torch.arange(32, device=dev)
+    slot, port = lane // PI, lane % PI
+    router = torch.arange(warps, device=dev).view(-1, 1) * per_warp + slot
+    active = (slot < per_warp) & (router < n_routers)         # [W, 32]
+    p = torch.where(active, router * PI + port, 0)
+    row = torch.where(active, router // N, 0)
+    rv = rr_vc.long()[row]
+    rp = rr_port.long()[row]
+    slots = op_slot.reshape(-1, V)[p]                           # [W, 32, V]
+    el = eligible.reshape(-1, V)[p] & active.unsqueeze(2)
+
+    # phase a: the kernel's scan over the VCs, strict < on the score
+    best = torch.full_like(p, V)
+    choice = torch.zeros_like(p)
+    req = torch.full_like(p, -1)
+    for c in range(V):
+        s = (c - rv) % V
+        take = el[..., c] & (s < best)
+        best = torch.where(take, s, best)
+        choice = torch.where(take, c, choice)
+        req = torch.where(take, slots[..., c].long(), req)
+    found = best < V
+
+    # phase b: match by key, then the first rival at or after rr_port
+    requests = found & (req >= 0) & (req < PI)
+    key = torch.where(requests, slot * 32 + req, 1024 + lane)
+    same = key.unsqueeze(2) == key.unsqueeze(1)                 # [W, 32, 32]
+    group = (same.long() << lane).sum(2)                        # lane masks
+    rivals = group >> (lane - port)
+    rpm = rp % PI
+    after = rivals >> rpm
+    first = torch.where(after != 0, rpm + _ffs(after) - 1, _ffs(rivals) - 1)
+    wins = requests & (first == port)
+
+    n_ports = n_routers * PI
+    win = torch.zeros((n_ports, V), dtype=torch.bool, device=dev)
+    vc = torch.zeros(n_ports, dtype=torch.int32, device=dev)
+    out_req = torch.zeros(n_ports, dtype=torch.int32, device=dev)
+    at = p[active]
+    win[at] = (torch.nn.functional.one_hot(choice[active], V).bool()
+               & wins[active].unsqueeze(1))
+    vc[at] = choice[active].to(torch.int32)
+    out_req[at] = req[active].to(torch.int32)
+    return (win.view(B, N, PI, V), vc.view(B, N, PI),
+            out_req.view(B, N, PI))

@@ -75,6 +75,68 @@ def test_kernel_equals_plain_random_batches(cuda, seed):
     _assert_kernel_equals_plain(op_slot, eligible, rr_vc, rr_port)
 
 
+@pytest.mark.parametrize("v", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("pi", [1, 2, 5, 7, 8, 15, 16, 17, 31, 32])
+def test_kernel_equals_plain_warp_layouts(cuda, pi, v):
+    """Every router width (R = 32 // PI routers per warp), the vector-load
+    widths V in {1, 2, 4, 8} and the generic V = 3, on rows of N = 13
+    (no multiple of R > 1, so warps straddle rows with different rr
+    pairs), with slots outside [0, PI): the cases of
+    tests/test_torch_netstep_lanes.py through the kernel."""
+    rng = np.random.default_rng(100 * pi + v)
+    shape = (3, 13, pi, v)
+    op_slot = torch.from_numpy(
+        rng.integers(-2, pi + 1, shape).astype(np.int32)).to(cuda)
+    eligible = torch.from_numpy(rng.uniform(size=shape) < 0.6).to(cuda)
+    rr_vc, rr_port = (torch.from_numpy(rng.integers(-40, 1000, 3).astype(
+        np.int32)).to(cuda) for _ in range(2))
+    _assert_kernel_equals_plain(op_slot, eligible, rr_vc, rr_port)
+
+
+@pytest.mark.parametrize("shape", [(40, 1, 7, 4), (9, 1, 2, 3),
+                                   (7, 1000, 5, 4), (3, 4099, 31, 2)])
+def test_kernel_finds_each_routers_row(cuda, shape):
+    """The kernel finds a router's row by a multiply-high (N > 1) or
+    takes the router itself (N = 1); rows with their own rr pairs."""
+    rng = np.random.default_rng(sum(shape))
+    op_slot, eligible = _inputs(rng, shape, cuda)
+    rr_vc, rr_port = (torch.from_numpy(rng.integers(0, 999, shape[0]).astype(
+        np.int32)).to(cuda) for _ in range(2))
+    _assert_kernel_equals_plain(op_slot, eligible, rr_vc, rr_port)
+
+
+def test_kernel_rejects_misaligned_inputs_and_takes_empty_ones(cuda):
+    """The vector loads need aligned bases: a view at a storage offset
+    raises, except at a V the kernel reads element by element.  An empty
+    input returns empty outputs and launches nothing."""
+    rng = np.random.default_rng(3)
+    op_slot, eligible = _inputs(rng, (2, 9, 7, 4), cuda)
+    rr = torch.tensor([1, 5], dtype=torch.int32, device=cuda)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    with pytest.raises(ValueError, match="aligned"):
+        netstep(shifted(op_slot), eligible, rr, rr)
+    with pytest.raises(ValueError, match="aligned"):
+        netstep(op_slot, shifted(eligible), rr, rr)
+    op3, el3 = _inputs(rng, (2, 9, 7, 3), cuda)
+    _assert_kernel_equals_plain(shifted(op3), shifted(el3), rr, rr)
+    for shape in ((0, 9, 7, 4), (2, 0, 7, 4), (2, 9, 0, 4), (2, 9, 7, 0)):
+        before = netstep.launches
+        rr_b = torch.zeros((shape[0],), dtype=torch.int32, device=cuda)
+        win, vc, req = netstep(
+            torch.zeros(shape, dtype=torch.int32, device=cuda),
+            torch.zeros(shape, dtype=torch.bool, device=cuda), rr_b, rr_b)
+        assert netstep.launches == before
+        assert win.shape == shape and win.dtype == torch.bool
+        assert vc.shape == req.shape == shape[:3]
+        assert vc.dtype == req.dtype == torch.int32
+
+
 def test_kernel_counts_launches_and_rejects_wide_routers(cuda):
     op_slot, eligible = _inputs(np.random.default_rng(0), (2, 8, 5, 4), cuda)
     rr = torch.zeros((2,), dtype=torch.int32, device=cuda)

@@ -83,15 +83,14 @@ def test_resolve_device_names():
 
 
 def test_ablation_cuts_match_the_kernel_sources():
-    """`kernels.ablate` cuts parts out of the bf16 kernel sources by
-    pattern; every cut must still find its part, or the tool raises on
-    the card."""
+    """`kernels.ablate` cuts parts out of the kernel sources (the bf16
+    routes and netstep) by pattern; every cut must still find its part,
+    or the tool raises on the card."""
     import re
-    from repro_torch.kernels.ablate import CUTS
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.ssd_scan import ops as sops
-    for name, ops in (("flash_attention", fops), ("ssd_scan", sops)):
-        src = ops.LIBS[torch.bfloat16].source.read_text()
-        for cut, subs in CUTS[name].items():
+    from repro_torch.kernels.ablate import CUTS, base_lib
+    assert set(CUTS) == {"flash_attention", "ssd_scan", "netstep"}
+    for name, cuts in CUTS.items():
+        src = base_lib(name).source.read_text()
+        for cut, subs in cuts.items():
             for pattern, _ in subs:
                 assert re.search(pattern, src), (name, cut, pattern)
