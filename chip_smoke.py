@@ -9,19 +9,17 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
 
   device               card name and power limit (nvidia-smi), versions
   build                nvcc builds the five kernel sources from the
-                       checkout, and two cuts of netstep (kernels.ablate):
-                       its body cut out (the launch floor) and its
-                       arbitration through __reduce_min_sync, one process
-                       per source, all started together; netstep's library
-                       and ptxas lines, which must report no spill
+                       checkout, and netstep with its body cut out (the
+                       launch floor; kernels.ablate's `empty` cut), one
+                       process per source, all started together; netstep's
+                       library and ptxas lines, which must report no spill
   build_lm             the same build's flash_attention and ssd_scan
                        libraries (bf16 tensor-core and f32 CUDA-core
                        route of each) and their ptxas lines
   sass                 cuobjdump -sass of every library: HGMMA / HMMA /
                        MATCH / REDUX counts; the bf16 flash kernel must
                        hold HGMMA, the bf16 SSD kernels HGMMA or HMMA,
-                       netstep MATCH (its arbitration) and its redux cut
-                       REDUX
+                       netstep MATCH (its arbitration)
   kernel_vs_plain      the CUDA netstep equals its plain PyTorch version
                        on the card, bit for bit, plus the allocation
                        invariants: the cases of tests/test_torch_cuda.py,
@@ -38,12 +36,12 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        SweepEngine.run_specs; counters equal the JAX
                        reference's, and every cycle went through the
                        kernel
-  timing               netstep at NETSTEP_SHAPES (the main path's
-                       [32, 256, 7, 4], mesh's PI 5, the widest radix's
-                       PI 31): the profiler's device time per launch
-                       beside the bound, the launch floor (the kernel
-                       with its body cut out, same grid) and the redux
-                       cut's device time; CUDA-event time of back-to-back
+  timing               netstep at kernels.ablate's NETSTEP_SHAPES (the
+                       main path's [32, 256, 7, 4], mesh's PI 5, the
+                       widest radix's PI 31): the profiler's device time
+                       per launch beside the bound and the launch floor
+                       (the kernel with its body cut out, same grid);
+                       CUDA-event time of back-to-back
                        wrapper calls (host-bound: minus the device time,
                        the wrapper's host time) and the plain version's
   profile              torch.profiler: the device busy/idle share of
@@ -152,9 +150,6 @@ LANE_N = 13
 # one router per row (the row is the router) and long rows (the row by a
 # multiply-high), each row its own rr pair
 ROW_SHAPES = ((40, 1, 7, 4), (9, 1, 2, 3), (7, 1000, 5, 4), (3, 4099, 31, 2))
-# timed shapes [B, N, PI, V]: the main path's widest group (hexamesh and
-# folded_hexa_torus at N = 256), mesh's, and the widest Table III radix
-NETSTEP_SHAPES = ((32, MAIN_N, 7, 4), (32, MAIN_N, 5, 4), (32, MAIN_N, 31, 4))
 NETSTEP_PROFILED_CALLS = 50
 
 # The LM serving path (qwen3-1.7b: flash attention, mamba2-1.3b: SSD
@@ -825,9 +820,8 @@ def main() -> int:
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
     libs = (nops.LIB, *fops.LIBS.values(), *sops.LIBS.values())
-    netstep_cuts = ablate.variant_libs("netstep")
-    cut_libs = (netstep_cuts["empty"], netstep_cuts["redux"])
-    paths = build_all(libs + cut_libs)
+    floor_lib = ablate.variant_libs("netstep")["empty"]
+    paths = build_all(libs + (floor_lib,))
     for lib in libs:
         lib.launcher()
     build_s = time.perf_counter() - t0
@@ -845,15 +839,13 @@ def main() -> int:
 
     # ---- SASS: the bf16 routes run on the tensor cores, netstep matches ----
     counts = {lib.stem: sass_counts(path, nvcc())
-              for lib, path in zip(libs + cut_libs, paths)}
+              for lib, path in zip(libs, paths)}
     emit("sass", counts=counts)
     check(counts["flash_attention_bf16"]["HGMMA"] > 0,
           "no HGMMA in the bf16 flash-attention kernel")
     check(counts["ssd_scan_bf16"]["HGMMA"] + counts["ssd_scan_bf16"]["HMMA"]
           > 0, "no HGMMA or HMMA in the bf16 SSD kernels")
     check(counts["netstep"]["MATCH"] > 0, "no MATCH in the netstep kernel")
-    check(counts["netstep_redux"]["REDUX"] > 0,
-          "no REDUX in netstep's redux cut")
 
     # ---- kernel vs plain ---------------------------------------------------
     t0 = time.perf_counter()
@@ -904,7 +896,7 @@ def main() -> int:
         max_err = max(max_err, compare_kernel(
             torch, netstep, netstep_ref, op_slot, eligible, rr_vc, rr_port))
         cases += 1
-    main_shape = NETSTEP_SHAPES[0]
+    main_shape = ablate.NETSTEP_SHAPES[0]
     op_main, el_main = random_alloc_inputs(torch, gen, main_shape, dev)
     rr_vc_main = torch.arange(32, dtype=torch.int32, device=dev) % 4
     rr_port_main = torch.arange(32, dtype=torch.int32, device=dev) % 7
@@ -1009,12 +1001,11 @@ def main() -> int:
          ms_per_simulated_cycle=1e3 * wall_s / (cfg.cycles * groups))
 
     # ---- timing at the allocator's shapes ------------------------------------
-    # device time per launch beside the bound, the launch floor (the same
-    # grid with the kernel's body cut out) and the redux cut, and
-    # CUDA-event time of back-to-back wrapper calls, which the host bounds
+    # device time per launch beside the bound and the launch floor (the
+    # same grid with the kernel's body cut out), and CUDA-event time of back-to-back wrapper calls, which the host bounds
     shape_rows = []
     kernel_lib = nops.LIB
-    for shape in NETSTEP_SHAPES:
+    for shape in ablate.NETSTEP_SHAPES:
         if shape == main_shape:
             args = (op_main, el_main, rr_vc_main, rr_port_main)
         else:
@@ -1025,11 +1016,8 @@ def main() -> int:
         kernel_ms = time_ms(torch, call, TIMING_SAMPLES, LAUNCHES_PER_SAMPLE)
         device_ms = wrapper_device_ms(torch, call,
                                       calls=NETSTEP_PROFILED_CALLS)[0]
-        ablate.use_lib("netstep", netstep_cuts["empty"])
+        ablate.use_lib("netstep", floor_lib)
         floor_ms = wrapper_device_ms(torch, call,
-                                     calls=NETSTEP_PROFILED_CALLS)[0]
-        ablate.use_lib("netstep", netstep_cuts["redux"])
-        redux_ms = wrapper_device_ms(torch, call,
                                      calls=NETSTEP_PROFILED_CALLS)[0]
         ablate.use_lib("netstep", kernel_lib)
         plain_ms = time_ms(torch, lambda args=args: netstep_ref(*args),
@@ -1040,7 +1028,7 @@ def main() -> int:
             shape=list(shape), device_ms=device_ms, events_ms=kernel_ms,
             wrapper_host_us=1e3 * (kernel_ms - device_ms)
             if device_ms is not None else None,
-            empty_kernel_floor_ms=floor_ms, redux_cut_ms=redux_ms,
+            empty_kernel_floor_ms=floor_ms,
             bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, ops=n_ops,
             plain_ms=plain_ms))
     main_row = shape_rows[0]

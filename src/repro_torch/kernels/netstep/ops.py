@@ -7,10 +7,6 @@ input never falls back: an input the kernel does not take (PI or V above
 32, a non-contiguous or misaligned tensor), a build failure or a launch
 failure raises.  `netstep.launches` counts kernel launches (CPU calls are
 not counted), so a run can show that its cycles went through the kernel.
-
-The simulator calls it every cycle on a small grid, so the CUDA path
-keeps its host work short: the raw current stream, and no device switch
-when the input's device is already current.
 """
 from __future__ import annotations
 
@@ -49,9 +45,8 @@ def _check(op_slot, eligible, rr_vc, rr_port):
         if rr.dtype != torch.int32 or tuple(rr.shape) != (B,):
             raise ValueError(f"{name} must be int32 [{B}], got {rr.dtype} "
                              f"{tuple(rr.shape)}")
-    dev = op_slot.device
-    if not eligible.device == rr_vc.device == rr_port.device == dev:
-        devs = {t.device for t in (op_slot, eligible, rr_vc, rr_port)}
+    devs = {t.device for t in (op_slot, eligible, rr_vc, rr_port)}
+    if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
 
 
@@ -70,8 +65,8 @@ def netstep(op_slot: torch.Tensor, eligible: torch.Tensor,
     if PI > MAX_LANES or V > MAX_LANES:
         raise ValueError(f"netstep kernel takes PI <= {MAX_LANES} and "
                          f"V <= {MAX_LANES}, got PI={PI}, V={V}")
-    if not (op_slot.is_contiguous() and eligible.is_contiguous()
-            and rr_vc.is_contiguous() and rr_port.is_contiguous()):
+    tensors = (op_slot, eligible, rr_vc, rr_port)
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("netstep kernel needs contiguous inputs")
     op_ptr, el_ptr = op_slot.data_ptr(), eligible.data_ptr()
     op_align, el_align = ALIGN.get(V, (4, 1))
@@ -86,12 +81,8 @@ def netstep(op_slot: torch.Tensor, eligible: torch.Tensor,
         return win, vc, req
     args = (op_ptr, el_ptr, rr_vc.data_ptr(), rr_port.data_ptr(),
             win.data_ptr(), vc.data_ptr(), req.data_ptr(), B, N, PI, V)
-    index = dev.index
-    if index == torch.cuda.current_device():
-        rc = launch(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            rc = launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(dev):
+        rc = launch(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"netstep kernel launch failed: CUDA error {rc}")
     netstep.launches += 1

@@ -34,20 +34,51 @@ def _port(op_slot, eligible, rr_vc, rr_port):
     return [o.numpy() for o in out]
 
 
-@pytest.mark.parametrize("rr", [0, 3, 11])
-@pytest.mark.parametrize("n,pi,v", [(16, 5, 4), (100, 7, 4), (64, 31, 2)])
+@pytest.mark.parametrize("rr", [0, 3, 11, -37, 2 ** 31 - 1])
+@pytest.mark.parametrize("n,pi,v", [(16, 5, 4), (100, 7, 4), (64, 31, 2),
+                                    (9, 1, 1), (13, 17, 3), (16, 8, 8),
+                                    (5, 32, 8)])
 def test_netstep_ref_matches_pallas_and_jnp(n, pi, v, rr):
+    """On the simulator's inputs (slots in [-1, PI), eligible only where a
+    slot is named) and on the kernel tests' wider ones (slots -2 and PI,
+    eligible regardless), at the V the CUDA kernel specialises and the
+    generic V = 3, with negative and large rotating counters."""
     rng = np.random.default_rng(4)
-    op_slot, eligible = _alloc_inputs(rng, (n, pi, v))
-    got = _port(op_slot[None], eligible[None], [rr], [rr])
-    pallas = netstep_pallas(jnp.asarray(op_slot), jnp.asarray(eligible), rr,
-                            interpret=True)
-    jnp_out = _alloc_jnp(jnp.asarray(op_slot), jnp.asarray(eligible),
-                         jnp.int32(rr), jnp.int32(rr))
-    for g, p, j in zip(got, pallas, jnp_out):
-        np.testing.assert_array_equal(g[0], np.asarray(p))
-        np.testing.assert_array_equal(g[0], np.asarray(j))
-        assert g.dtype == np.asarray(j).dtype
+    simulator = _alloc_inputs(rng, (n, pi, v))
+    wide = (rng.integers(-2, pi + 1, (n, pi, v)).astype(np.int32),
+            rng.uniform(size=(n, pi, v)) < 0.6)
+    for op_slot, eligible in (simulator, wide):
+        got = _port(op_slot[None], eligible[None], [rr], [rr])
+        pallas = netstep_pallas(jnp.asarray(op_slot), jnp.asarray(eligible),
+                                rr, interpret=True)
+        jnp_out = _alloc_jnp(jnp.asarray(op_slot), jnp.asarray(eligible),
+                             jnp.int32(rr), jnp.int32(rr))
+        for g, p, j in zip(got, pallas, jnp_out):
+            np.testing.assert_array_equal(g[0], np.asarray(p))
+            np.testing.assert_array_equal(g[0], np.asarray(j))
+            assert g.dtype == np.asarray(j).dtype
+
+
+@pytest.mark.parametrize("v", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("pi", [1, 2, 5, 7, 8, 15, 16, 17, 31, 32])
+def test_netstep_ref_matches_jnp_on_the_kernel_grid(pi, v):
+    """The inputs of tests/test_torch_netstep_lanes.py and of the card's
+    warp-layout test (same seed and draws): every router width, rows of
+    N = 13 with their own rr pairs (negative ones too), slots outside
+    [0, PI).  Row by row, `netstep_ref` equals `_alloc_jnp`, so the CUDA
+    kernel held to `netstep_ref` there is held to the JAX package."""
+    rng = np.random.default_rng(100 * pi + v)
+    shape = (3, 13, pi, v)
+    op_slot = rng.integers(-2, pi + 1, shape).astype(np.int32)
+    eligible = rng.uniform(size=shape) < 0.6
+    rr_vc = rng.integers(-40, 1000, 3).astype(np.int32)
+    rr_port = rng.integers(-40, 1000, 3).astype(np.int32)
+    got = _port(op_slot, eligible, rr_vc, rr_port)
+    for i in range(shape[0]):
+        want = _alloc_jnp(jnp.asarray(op_slot[i]), jnp.asarray(eligible[i]),
+                          jnp.int32(rr_vc[i]), jnp.int32(rr_port[i]))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[i], np.asarray(w))
 
 
 @pytest.mark.parametrize("pi", [2, 7, 31, 32])

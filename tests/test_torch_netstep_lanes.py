@@ -2,13 +2,16 @@
 
 `netstep_lanes` computes the allocation lane by lane as
 `csrc/netstep.cu` does: R = 32 // PI routers per warp, padding lanes that
-request nothing, match keys and the packed (score << 5) | lane group
-minimum.  It must equal the plain version `netstep_ref` bit for bit for
-every router width the kernel takes (PI up to 32), for the vector-load
-widths V in {1, 2, 4, 8} and the generic V = 3, on batches whose N is no
-multiple of R, so that warps straddle rows with different rr pairs.  The
-kernel itself is held against `netstep_ref` on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+request nothing, match keys, and the winner found in the group's lane
+mask (shifted to the router's first lane: the first rival at or after
+rr_port mod PI, else the first).  It must equal the plain version
+`netstep_ref` bit for bit for every router width the kernel takes (PI up
+to 32), for the vector-load widths V in {1, 2, 4, 8} and the generic
+V = 3, on batches whose N is no multiple of R, so that warps straddle
+rows with different rr pairs.  The kernel itself is held against
+`netstep_ref` on the card (tests/test_torch_cuda.py, chip_smoke.py), and
+`netstep_ref` against the JAX package on these same inputs
+(tests/test_torch_netstep.py)."""
 import numpy as np
 import pytest
 
