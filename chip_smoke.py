@@ -46,6 +46,26 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        the wrapper's host time) and the plain version's
   profile              torch.profiler: the device busy/idle share of
                        simulated cycles at the main path's widest group
+  workload_kernel_vs_plain
+                       the heterogeneous workload batch of
+                       tests/test_torch_workloads.py (multi-phase
+                       schedules, ON/OFF bursts, a zero-intensity phase,
+                       k_pad 6 > k): raw and per-phase counters with the
+                       kernel, with the plain allocator on the card, and
+                       on the CPU are equal
+  experiments          the experiment API (Scenario -> plan -> execute ->
+                       ResultFrame) at N = 256, organic, SimConfig(cycles=
+                       2000, warmup=700), SaturationGrid(8): Fig. 4's six
+                       principled topologies under uniform traffic, mesh
+                       and folded_hexa_torus under three workloads, and
+                       folded_hexa_torus under three fault sets (empty,
+                       8 random links, 4 chiplets); every row ok, counters
+                       and row values equal the JAX reference table, and
+                       every cycle of every group went through the kernel.
+                       Wall time, ms per simulated cycle per group (each
+                       group's own, by kind), and the device launches per
+                       cycle and idle share of the widest workload group
+                       beside the `profile` phase's static group
   flash_vs_plain       the flash-attention kernels against their plain
                        version on the card: every case of
                        tests/test_torch_cuda.py (five (tq, tk, causal,
@@ -128,6 +148,134 @@ REFERENCE = {
         sim_saturation=0.142984375),
 }
 MAIN_N = 256
+
+# JAX reference of the `experiments` phase: `tools/smoke_reference.py`
+# (repro.experiments.run with alloc="jnp", jax 0.9.0 on a CPU) on the
+# Experiment `experiment_scenarios` builds, scenario by scenario: raw
+# counters over the 8-point rate grid, the tidy row's values at the
+# saturating rate, and (workloads) the per-phase deliveries there.  The
+# counters are integers and the row values are numpy of them, so these
+# must match bit for bit.
+REFERENCE_EXPERIMENTS = [
+    dict(label='mesh/uniform/none',
+         delivered=[2368, 4676, 6993, 8314, 8139, 8034, 7764, 7331],
+         lat_sum=[199047, 400337, 630889, 1194673, 1470656, 1558682, 1703548,
+                  1778263],
+         sim_saturation=0.024981971153846153,
+         abs_throughput_gbps=77.54403846153846,
+         latency_ns=143.69413038248737),
+    dict(label='folded_torus/uniform/none',
+         delivered=[2880, 5768, 8619, 9407, 9087, 8639, 8057, 7858],
+         lat_sum=[221909, 453846, 731646, 1297808, 1597691, 1661566, 1601833,
+                  1727471],
+         sim_saturation=0.028266225961538462,
+         abs_throughput_gbps=85.10168075353464,
+         latency_ns=137.9619432337621),
+    dict(label='hexamesh/uniform/none',
+         delivered=[14632, 29449, 44374, 45169, 42412, 40138, 36891, 35263],
+         lat_sum=[1013608, 2055933, 3361492, 6923902, 8324840, 8881828,
+                  8943044, 8898048],
+         sim_saturation=0.13572415865384616,
+         abs_throughput_gbps=271.4483173076923,
+         latency_ns=153.28880426841417),
+    dict(label='folded_hexa_torus/uniform/none',
+         delivered=[16051, 32295, 47467, 46313, 42922, 40499, 39139, 38797],
+         lat_sum=[814028, 1652852, 3040795, 6089932, 7556166, 8205217, 8090907,
+                  8417803],
+         sim_saturation=0.14262920673076923,
+         abs_throughput_gbps=270.1372001162826,
+         latency_ns=64.06124254745401),
+    dict(label='octamesh/uniform/none',
+         delivered=[11242, 22673, 34108, 43345, 46436, 46203, 44236, 43200],
+         lat_sum=[678266, 1366971, 2104131, 3391103, 4942355, 6648644, 7389478,
+                  7929886],
+         sim_saturation=0.13953125,
+         abs_throughput_gbps=201.22534451492882,
+         latency_ns=106.43369368593332),
+    dict(label='folded_octa_torus/uniform/none',
+         delivered=[19632, 39506, 59325, 71466, 67546, 64828, 63227, 62964],
+         lat_sum=[867497, 1764568, 2757385, 5267873, 7738581, 8394601, 9105663,
+                  9595848],
+         sim_saturation=0.21474158653846154,
+         abs_throughput_gbps=277.6942460985383,
+         latency_ns=73.7115971231075),
+    dict(label='mesh/hotspot_drift/none',
+         delivered=[2090, 4120, 5622, 6359, 6615, 6859, 6851, 6954],
+         lat_sum=[184088, 668773, 1548695, 2131989, 2483375, 2977063, 3351400,
+                  3803460],
+         sim_saturation=0.020895432692307692,
+         abs_throughput_gbps=64.85942307692308,
+         latency_ns=546.9456427955133,
+         delivered_ph=[1334, 949, 1196, 962, 1120, 1393]),
+    dict(label='mesh/phase_alternating/none',
+         delivered=[3924, 7817, 11649, 13950, 13914, 13465, 13300, 12962],
+         lat_sum=[290319, 608867, 1130870, 2193565, 2620896, 2726656, 2795384,
+                  2748036],
+         sim_saturation=0.041917067307692304,
+         abs_throughput_gbps=130.1105769230769,
+         latency_ns=157.24480286738353,
+         delivered_ph=[3543, 3425, 3634, 3348]),
+    dict(label='mesh/bursty_uniform/none',
+         delivered=[2382, 4729, 7246, 8534, 8415, 8147, 7919, 7436],
+         lat_sum=[203976, 409210, 675555, 1178413, 1425333, 1475446, 1668526,
+                  1736090],
+         sim_saturation=0.025643028846153847,
+         abs_throughput_gbps=79.59596153846154,
+         latency_ns=138.0844855870635,
+         delivered_ph=[8534]),
+    dict(label='folded_hexa_torus/hotspot_drift/none',
+         delivered=[3196, 6377, 8806, 9646, 9009, 8055, 7229, 6697],
+         lat_sum=[254877, 1258626, 2879065, 3898222, 4102848, 3902521, 3746991,
+                  3727328],
+         sim_saturation=0.028984375,
+         abs_throughput_gbps=54.895894670437606,
+         latency_ns=404.12834335475844,
+         delivered_ph=[1771, 1629, 1597, 1242, 1593, 1814]),
+    dict(label='folded_hexa_torus/phase_alternating/none',
+         delivered=[13422, 27049, 40594, 39848, 30403, 30528, 29199, 27697],
+         lat_sum=[618416, 1267661, 2107344, 3968530, 4451056, 4980174, 5592307,
+                  5888774],
+         sim_saturation=0.12197716346153846,
+         abs_throughput_gbps=231.02259467673068,
+         latency_ns=51.912696457604575,
+         delivered_ph=[10021, 10190, 10209, 10174]),
+    dict(label='folded_hexa_torus/bursty_uniform/none',
+         delivered=[16877, 34116, 47792, 46861, 42689, 43077, 43077, 43077],
+         lat_sum=[863020, 1823839, 3569350, 6256966, 7873059, 7617283, 7617283,
+                  7617283],
+         sim_saturation=0.14360576923076923,
+         abs_throughput_gbps=271.9867922547744,
+         latency_ns=74.685093739538,
+         delivered_ph=[47792]),
+    dict(label='folded_hexa_torus/uniform/none',
+         delivered=[16051, 32295, 47467, 46313, 42922, 40499, 39139, 38797],
+         lat_sum=[814028, 1652852, 3040795, 6089932, 7556166, 8205217, 8090907,
+                  8417803],
+         sim_saturation=0.14262920673076923,
+         abs_throughput_gbps=270.1372001162826,
+         latency_ns=64.06124254745401),
+    dict(label='folded_hexa_torus/uniform/rand:k8:s0',
+         delivered=[15031, 30298, 45089, 46841, 43557, 39958, 38024, 38869],
+         lat_sum=[766458, 1559547, 2708164, 5568926, 7063005, 8002289, 8150890,
+                  8398520],
+         sim_saturation=0.1407481971153846,
+         abs_throughput_gbps=266.57460110491064,
+         latency_ns=118.88998953907901),
+    dict(label='folded_hexa_torus/uniform/chip:k4:s0',
+         delivered=[13038, 26298, 38889, 34051, 30352, 28046, 27207, 26049],
+         lat_sum=[670087, 1366551, 2454827, 5141469, 6552670, 6987495, 7073043,
+                  6936805],
+         sim_saturation=0.11685396634615385,
+         abs_throughput_gbps=221.31934976556585,
+         latency_ns=63.12394250302142),
+]
+EXP_CYCLES, EXP_WARMUP, EXP_RATES = 2000, 700, 8
+EXP_FAULTS = ((8, "random"), (4, "chiplets"))
+# the workload batch of tests/test_torch_workloads.py
+WL_HETERO = [("mesh", 16), ("folded_hexa_torus", 36), ("octamesh", 25)]
+WL_RATES = [0.05, 0.2, 0.5]
+WL_K_PAD = 6
+WL_RAW = ("delivered_ph", "offered_ph", "accepted_ph", "lat_sum_ph")
 HETERO = [("mesh", 16), ("folded_hexa_torus", 36), ("honeycomb_mesh", 16),
           ("octamesh", 25)]
 HETERO_RATES = [0.05, 0.15, 0.3, 0.6]
@@ -200,6 +348,74 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def wl_phases(i, u, t):
+    """Schedule i of the workload batch (tests/test_torch_workloads.py):
+    3, 4 and 2 phases of (traffic, intensity, duration[, on, off])."""
+    return [
+        [(u, 1.0, 70), (t, 0.8, 90, 10, 30), (u, 0.0, 40)],
+        [(t, 1.3, 50, 5, 7), (u, 1.0, 100), (u, 0.0, 30),
+         (t, 0.6, 120, 3, 1)],
+        [(u, 0.7, 60, 20, 60), (t, 1.0, 40)],
+    ][i]
+
+
+def experiment_scenarios(X, W, F, T) -> list:
+    """The `experiments` phase's 15 scenarios at N = 256, organic (also
+    built by tools/smoke_reference.py with the JAX package)."""
+    grid = X.SaturationGrid(EXP_RATES)
+    workloads = [
+        W.Workload("hotspot_drift",
+                   lambda t: W.hotspot_drift(t, n_phases=6, dwell=200)),
+        W.Workload("phase_alternating",
+                   lambda t: W.phase_alternating(
+                       t, ("tornado", "uniform"), phase_cycles=300,
+                       repeats=2)),
+        W.Workload("bursty_uniform",
+                   lambda t: W.bursty_uniform(t, on=20, off=60)),
+    ]
+    out = [X.Scenario(name, MAIN_N, "organic", "uniform", area=74.0,
+                      rates=grid)
+           for name in ("mesh", "folded_torus", "hexamesh",
+                        "folded_hexa_torus", "octamesh",
+                        "folded_octa_torus")]
+    out += [X.Scenario(name, MAIN_N, "organic", wl, rates=grid)
+            for name in ("mesh", "folded_hexa_torus") for wl in workloads]
+    topo = T.build("folded_hexa_torus", MAIN_N, substrate="organic")
+    fault_sets = [F.FaultSet()] + [F.sample_faults(topo, k, kind, seed=0)
+                                   for k, kind in EXP_FAULTS]
+    out += [X.Scenario("folded_hexa_torus", MAIN_N, "organic", "uniform",
+                       faults=fs, rates=grid) for fs in fault_sets]
+    return out
+
+
+def profile_cycles(torch, run, cycles: int, sessions: int = 3) -> dict:
+    """torch.profiler over `run()` (simulating `cycles` cycles): wall s,
+    device busy s, device launches per cycle, idle share, and the eight
+    costliest device ops' us per cycle.  The profiler on the card
+    sometimes records no device event in a session, so a session that
+    saw none is repeated, up to `sessions` times; None if none did."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        events = device_rows(prof)
+        busy_s = sum(device_us(e) for e in events) / 1e6
+        if busy_s > 0:
+            break
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    seen = busy_s > 0
+    return dict(wall_s=wall_s, device_busy_s=busy_s if seen else None,
+                device_launches_per_cycle=sum(e.count for e in events)
+                / cycles if seen else None,
+                device_idle_share=1 - busy_s / wall_s if seen else None,
+                top_device_us={e.key[:60]: device_us(e) / cycles
+                               for e in top})
 
 
 def random_alloc_inputs(torch, gen, shape, device):
@@ -421,6 +637,154 @@ def wrapper_device_ms(torch, fn, calls: int = 5, sessions: int = 3):
             break
     total = sum(per_kernel.values())
     return (total if total > 0 else None), per_kernel
+
+
+# ---------------------------------------------------------------------------
+# the experiment path: phase-schedule workloads, faults, Scenario -> plan ->
+# execute -> ResultFrame
+# ---------------------------------------------------------------------------
+
+def workload_phase(torch, dev, netstep) -> int:
+    """`workload_kernel_vs_plain`; returns the kernel's launches."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import topology as T
+    from repro_torch.core import traffic as TR
+    from repro_torch.core.routing import build_routing
+    t0 = time.perf_counter()
+    specs, scheds = [], []
+    for i, (topo_name, n) in enumerate(WL_HETERO):
+        r = build_routing(T.build(topo_name, n))
+        u, t = TR.uniform(r.topo), TR.tornado(r.topo)
+        specs.append(sim.make_spec(r, u))
+        scheds.append(sim.make_sched_spec(wl_phases(i, u, t)))
+    cfg = sim.SimConfig(cycles=300, warmup=100)
+    wl_kw = dict(schedules=scheds, k_pad=WL_K_PAD)
+    before = netstep.launches
+    on_kernel = sim.run_batch(specs, WL_RATES, cfg, device=dev, **wl_kw)
+    wl_launches = netstep.launches - before
+    check(wl_launches == cfg.cycles,
+          f"the workload batch launched {wl_launches} kernels for "
+          f"{cfg.cycles} cycles")
+    on_plain = sim.run_batch(specs, WL_RATES, cfg._replace(alloc="torch"),
+                             device=dev, **wl_kw)
+    on_cpu = sim.run_batch(specs, WL_RATES, cfg, device="cpu", **wl_kw)
+    for (topo_name, n), k, p, c in zip(WL_HETERO, on_kernel, on_plain,
+                                       on_cpu):
+        for key in RAW + WL_RAW:
+            check((k[key] == p[key]).all() and (k[key] == c[key]).all(),
+                  f"workload {topo_name}{n} {key}: kernel "
+                  f"{k[key].tolist()} plain {p[key].tolist()} cpu "
+                  f"{c[key].tolist()}")
+    emit("workload_kernel_vs_plain",
+         specs=[f"{a}{b}" for a, b in WL_HETERO], rates=WL_RATES,
+         k_pad=WL_K_PAD, phases=[s.k for s in scheds], cycles=cfg.cycles,
+         bitwise_equal=True, kernel_launches=wl_launches,
+         delivered_ph={f"{a}{b}": k["delivered_ph"].tolist()
+                       for (a, b), k in zip(WL_HETERO, on_kernel)},
+         seconds=round(time.perf_counter() - t0, 3))
+    return wl_launches
+
+
+def experiments_phase(torch, dev, smi, netstep, static_profile) -> int:
+    """`experiments`; returns netstep's launches in the Experiment's run.
+    `static_profile` is the `profile` phase's reading of a static group
+    at the same shape, printed beside the workload group's."""
+    from repro_torch import experiments as X
+    from repro_torch import faults as F
+    from repro_torch import workloads as W
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import topology as T
+    from repro_torch.sweep.engine import SweepEngine
+    t0 = time.perf_counter()
+    exp_cfg = sim.SimConfig(cycles=EXP_CYCLES, warmup=EXP_WARMUP)
+    exp = X.Experiment(experiment_scenarios(X, W, F, T), cfg=exp_cfg,
+                       name="chip_smoke", backend="sim")
+    engine = SweepEngine(cfg=exp_cfg, device=dev)
+    plan = X.plan(exp, engine)
+    kinds = [b.key.kind for b in plan.buckets]
+    setup_s = time.perf_counter() - t0
+    group_ms = {"static": [], "workload": []}
+
+    def progress(done, total, key, info):
+        group_ms[key.kind].append(1e3 * info["elapsed_s"] / exp_cfg.cycles)
+
+    torch.cuda.synchronize()
+    netstep.launches = 0
+    t1 = time.perf_counter()
+    frame = X.execute(plan, engine=engine, on_error="raise",
+                      progress=progress)
+    torch.cuda.synchronize()
+    exp_wall_s = time.perf_counter() - t1
+    exp_launches = netstep.launches
+    exp_groups = engine.stats["groups"]
+    check(exp_groups == len(plan.buckets),
+          f"{exp_groups} engine groups for {len(plan.buckets)} buckets")
+    check(exp_launches == exp_cfg.cycles * exp_groups,
+          f"the experiment launched netstep {exp_launches} times for "
+          f"{exp_cfg.cycles} cycles x {exp_groups} groups")
+    check(len(frame.rows) == len(REFERENCE_EXPERIMENTS),
+          f"{len(frame.rows)} rows for {len(REFERENCE_EXPERIMENTS)} "
+          f"reference scenarios")
+    for row, res, ref in zip(frame.rows, frame.results,
+                             REFERENCE_EXPERIMENTS):
+        label = f"{row['topology']}/{row['traffic']}/{row['faults']}"
+        check(row["status"] == "ok" and label == ref["label"],
+              f"row {label} status {row['status']} ({ref['label']})")
+        for key in ("delivered", "lat_sum"):
+            check(res[key].tolist() == ref[key],
+                  f"{label} {key} {res[key].tolist()} != {ref[key]}")
+        for key in ("sim_saturation", "abs_throughput_gbps", "latency_ns"):
+            check(row[key] == ref[key],
+                  f"{label} {key} {row[key]!r} != {ref[key]!r}")
+        if "delivered_ph" in ref:
+            got = res["delivered_ph"][int(res["throughput"].argmax())]
+            check(got.tolist() == ref["delivered_ph"],
+                  f"{label} delivered_ph {got.tolist()} != "
+                  f"{ref['delivered_ph']}")
+    check_s = time.perf_counter() - t1 - exp_wall_s
+    # launches per cycle and idle share of the widest workload group (most
+    # phases at the widest shape), one engine group as the engine pads it
+    widest = max((b for b in plan.buckets if b.key.kind == "workload"),
+                 key=lambda b: (b.key.shape, b.key.k_pad))
+    items = list(widest.items)
+    while len(items) % engine.s_round:
+        items.append(items[-1])
+
+    def group_run(cycles):
+        return lambda: sim.run_batch(
+            [ps.spec for ps in items], [ps.rates for ps in items],
+            sim.SimConfig(cycles=cycles, warmup=0),
+            pad_shape=widest.key.shape,
+            schedules=[ps.sched_spec for ps in items],
+            k_pad=widest.key.k_pad, device=dev)
+
+    t2 = time.perf_counter()
+    group_run(2)()
+    torch.cuda.synchronize()
+    workload_profile = dict(
+        shape=str(widest.key.shape), k_pad=widest.key.k_pad,
+        live_specs=len(widest.items),
+        **profile_cycles(torch, group_run(PROFILE_CYCLES), PROFILE_CYCLES))
+    workload_profile.pop("top_device_us")
+    profile_s = time.perf_counter() - t2
+    emit("experiments", scenarios=len(exp.scenarios),
+         rate_rows=sum(len(ps.rates) for b in plan.buckets
+                       for ps in b.items),
+         all_ok=True, rows_equal_reference=True, cycles=exp_cfg.cycles,
+         groups=exp_groups, static_groups=kinds.count("static"),
+         workload_groups=kinds.count("workload"),
+         netstep_launches=exp_launches, setup_seconds=round(setup_s, 3),
+         wall_seconds=exp_wall_s, check_seconds=check_s,
+         ms_per_simulated_cycle=1e3 * exp_wall_s
+         / (exp_cfg.cycles * exp_groups),
+         ms_per_cycle_by_group=group_ms,
+         profile_cycles=PROFILE_CYCLES, profile_seconds=profile_s,
+         workload_group_profile=workload_profile,
+         static_group_profile=static_profile,
+         sim_saturation=[[f"{r['topology']}/{r['traffic']}/{r['faults']}",
+                          r["sim_saturation"]] for r in frame.rows],
+         seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
+    return exp_launches
 
 
 def lm_phases(torch, dev, smi, fops, sops, serve):
@@ -1039,31 +1403,27 @@ def main() -> int:
          nvidia_smi=smi)
 
     # ---- profile: device busy/idle share of simulated cycles -------------------
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     group = [specs[-1]] * 4                      # the main path's widest group
     group_rates = [rates[-1]] * 4
     prof_cfg = sim.SimConfig(cycles=PROFILE_CYCLES, warmup=0)
     sim.run_batch(group, group_rates, prof_cfg._replace(cycles=2))
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        sim.run_batch(group, group_rates, prof_cfg)
-        torch.cuda.synchronize()
-        prof_wall_s = time.perf_counter() - t0
-    events = device_rows(prof)
-    busy_s = sum(device_us(e) for e in events) / 1e6
-    top = sorted(events, key=device_us, reverse=True)[:8]
+    static_profile = dict(
+        shape=[32, MAIN_N, group[0].p + 1, prof_cfg.n_vcs],
+        **profile_cycles(torch, lambda: sim.run_batch(
+            group, group_rates, prof_cfg), PROFILE_CYCLES))
     emit("profile", kernel_device_ms=main_row["device_ms"],
-         sim_shape=[32, MAIN_N, group[0].p + 1, prof_cfg.n_vcs],
-         sim_cycles=PROFILE_CYCLES, sim_wall_s=prof_wall_s,
-         sim_device_busy_s=busy_s if busy_s > 0 else None,
-         device_idle_share=(1 - busy_s / prof_wall_s) if busy_s > 0
-         else None,
-         device_launches_per_cycle=sum(e.count for e in events)
-         / PROFILE_CYCLES if busy_s > 0 else None,
-         top_device_us_per_cycle={
-             e.key[:60]: device_us(e) / PROFILE_CYCLES for e in top})
+         sim_shape=static_profile["shape"], sim_cycles=PROFILE_CYCLES,
+         sim_wall_s=static_profile["wall_s"],
+         sim_device_busy_s=static_profile["device_busy_s"],
+         device_idle_share=static_profile["device_idle_share"],
+         device_launches_per_cycle=static_profile[
+             "device_launches_per_cycle"],
+         top_device_us_per_cycle=static_profile.pop("top_device_us"))
+
+    workload_phase(torch, dev, netstep)
+    exp_launches = experiments_phase(torch, dev, smi, netstep,
+                                     static_profile)
 
     lm_rows = lm_phases(torch, dev, smi, fops, sops, serve)
 
@@ -1071,7 +1431,8 @@ def main() -> int:
         name="netstep", route="cuda",
         source="src/repro_torch/kernels/netstep/csrc/netstep.cu",
         replaces="src/repro/kernels/netstep/netstep.py:28",
-        launches=main_launches, max_abs_err=max_err,
+        launches=main_launches, launches_experiments=exp_launches,
+        max_abs_err=max_err,
         ms=first(main_row["device_ms"], main_row["events_ms"]),
         events_ms=main_row["events_ms"],
         empty_kernel_floor_ms=main_row["empty_kernel_floor_ms"],

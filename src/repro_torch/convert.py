@@ -4,7 +4,9 @@ The simulator has no weights: what the JAX package hands it is a
 `SimSpec` of routing tables, channel maps, depths and traffic rows, all
 numpy.  `spec_from_reference` takes such a spec as a plain dict
 (`dataclasses.asdict(repro_spec)`) and returns the port's `SimSpec`, so
-both simulators can be fed the very same inputs.
+both simulators can be fed the very same inputs;
+`sched_from_reference` does the same for a compiled phase schedule
+(`SchedSpec`).
 `params_from_reference` does the same for the LM stack's weights.  Both
 read only plain dicts and numpy arrays, and need nothing of the JAX
 package.
@@ -16,30 +18,39 @@ import dataclasses
 import numpy as np
 import torch
 
-from .core.simulator import SimSpec
+from .core.simulator import SchedSpec, SimSpec
 from .models.model import Model
 
-_INT_FIELDS = ("n", "p", "c", "d")
-
-
-def spec_from_reference(fields: dict) -> SimSpec:
-    """Port `SimSpec` from the fields of a reference `SimSpec`.
-
-    Integer fields stay ints, array fields become numpy arrays of their
-    own dtype; a missing or unknown field raises."""
-    names = [f.name for f in dataclasses.fields(SimSpec)]
+def _from_fields(cls, fields: dict, int_fields: tuple,
+                 optional: tuple = ()):
+    """`cls` from a dict of its fields: integer fields stay ints, array
+    fields become numpy arrays of their own dtype; a missing or unknown
+    field raises."""
+    names = [f.name for f in dataclasses.fields(cls)]
     unknown = set(fields) - set(names)
-    missing = set(names) - set(fields) - {"prod"}
+    missing = set(names) - set(fields) - set(optional)
     if unknown or missing:
-        raise ValueError(f"not a SimSpec: unknown fields {sorted(unknown)}, "
-                         f"missing fields {sorted(missing)}")
+        raise ValueError(f"not a {cls.__name__}: unknown fields "
+                         f"{sorted(unknown)}, missing fields "
+                         f"{sorted(missing)}")
     out = {}
     for k, v in fields.items():
-        if k in _INT_FIELDS:
+        if k in int_fields:
             out[k] = int(v)
         else:
             out[k] = None if v is None else np.asarray(v)
-    return SimSpec(**out)
+    return cls(**out)
+
+
+def spec_from_reference(fields: dict) -> SimSpec:
+    """Port `SimSpec` from the fields of a reference `SimSpec`."""
+    return _from_fields(SimSpec, fields, ("n", "p", "c", "d"), ("prod",))
+
+
+def sched_from_reference(fields: dict) -> SchedSpec:
+    """Port `SchedSpec` from the fields of a reference `SchedSpec`
+    (`dataclasses.asdict` of a compiled phase schedule)."""
+    return _from_fields(SchedSpec, fields, ("k", "n", "total"))
 
 
 def params_from_reference(params: dict, cfg) -> "Model":

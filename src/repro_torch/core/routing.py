@@ -316,6 +316,7 @@ def productive_ports(r: Routing) -> np.ndarray:
 
 _ROUTING_CACHE: dict[tuple, Routing] = {}
 _ROUTING_CACHE_MAX = int(os.environ.get("REPRO_ROUTING_CACHE_MAX", "4096"))
+_ROUTING_CACHE_STATS = dict(hits=0, misses=0, evictions=0)
 
 
 def routing_for(topo: Topology) -> Routing:
@@ -330,14 +331,28 @@ def routing_for(topo: Topology) -> Routing:
     hit = _ROUTING_CACHE.pop(key, None)
     if hit is not None:
         _ROUTING_CACHE[key] = hit          # LRU: move to the back
+        _ROUTING_CACHE_STATS["hits"] += 1
         return hit
+    _ROUTING_CACHE_STATS["misses"] += 1
     with _span("routing.build", cat="routing", topology=topo.name,
                n=topo.n, substrate=topo.substrate):
         r = build_routing(topo)
     _ROUTING_CACHE[key] = r
     while len(_ROUTING_CACHE) > _ROUTING_CACHE_MAX:
         _ROUTING_CACHE.pop(next(iter(_ROUTING_CACHE)))
+        _ROUTING_CACHE_STATS["evictions"] += 1
     return r
+
+
+def routing_cache_info() -> dict:
+    """Routing-cache introspection: size/max plus monotonic
+    hit/miss/eviction counters (they survive `routing_cache_clear`)."""
+    return dict(size=len(_ROUTING_CACHE), max_size=_ROUTING_CACHE_MAX,
+                **_ROUTING_CACHE_STATS)
+
+
+def routing_cache_clear() -> None:
+    _ROUTING_CACHE.clear()
 
 
 @functools.lru_cache(maxsize=4096)

@@ -1,5 +1,4 @@
-"""Cycle-based ICI network simulator in PyTorch (paper §V-B) — the
-static runner.
+"""Cycle-based ICI network simulator in PyTorch (paper §V-B).
 
 The port of `repro.core.simulator`: the same BookSim semantics and the
 same counters, bit for bit —
@@ -28,9 +27,17 @@ or slot (buffer slot B, channel row C) that is never read back; and
 the rotating-priority counter advancing modulo the spec's own
 V*(P_spec+1).
 
-Deferred to later slices, each raising `NotImplementedError`: phase
-schedules (workloads), the flight recorder (`telemetry`,
-`telemetry_windows`) and `routing="adaptive"`.
+Phase schedules (time-varying workloads, DESIGN.md §9) follow the
+reference's phase pointer: `t_eff = t % total`, phase = #{ends <=
+t_eff}, ON window `(t_eff - start) % period < on`.  These depend only
+on the schedule and the cycle, never on the rate row, so the runner
+computes them once per run on the host as tables over [cycles, rows]
+(the phase, the effective rate `rate * gain` in float32, the flat
+phase index) and each cycle only indexes them with `t`.
+
+Deferred to later slices, each raising `NotImplementedError`: the
+flight recorder (`telemetry`, `telemetry_windows`) and
+`routing="adaptive"`.
 """
 from __future__ import annotations
 
@@ -121,6 +128,113 @@ def make_spec(routing: Routing, traffic: np.ndarray) -> SimSpec:
 
 
 # =====================================================================
+# phase schedules (time-varying workloads, DESIGN.md §9)
+# =====================================================================
+
+@dataclasses.dataclass
+class SchedSpec:
+    """Compiled phase schedule for one spec (numpy, [K, ...] leaves).
+
+    A workload is a sequence of K phases; phase k is active for cycles
+    [start[k], end[k]) of the schedule, which replays cyclically
+    (`t_eff = t % total`).  During a phase, injection draws destinations
+    from that phase's cumulative traffic rows and offers
+    `rate * gain * inj_w[node]` flits/cycle, where the gain is
+    `gain_on[k]` inside the ON window of the phase's ON/OFF burst
+    modulation and 0 inside the OFF window (no modulation: always ON,
+    `gain_on == intensity`).
+    """
+    k: int
+    n: int
+    cum: np.ndarray       # [K, N, N] cumulative traffic rows per phase
+    inj_w: np.ndarray     # [K, N] relative injection weight per phase
+    gain_on: np.ndarray   # [K] float32 rate gain inside the ON window
+    start: np.ndarray     # [K] int32 cumulative phase start (cycles)
+    end: np.ndarray       # [K] int32 cumulative phase end (cycles)
+    on: np.ndarray        # [K] int32 ON window length
+    period: np.ndarray    # [K] int32 ON+OFF period (>= 1)
+    total: int            # schedule length in cycles
+
+
+def make_sched_spec(phases) -> SchedSpec:
+    """Compile (traffic, intensity, duration[, burst_on, burst_off])
+    tuples into a `SchedSpec`.
+
+    intensity scales the offered rate for the whole phase; burst_on/off
+    add ON/OFF modulation *within* the phase: during ON the gain is
+    intensity * period/on, during OFF it is 0, which preserves the
+    phase's mean offered load exactly when the phase duration is a
+    multiple of the period.  burst_on or burst_off <= 0 disables
+    modulation (gain_on == intensity exactly, so an unmodulated
+    unit-intensity phase multiplies the rate by exactly 1.0f).
+    """
+    if not phases:
+        raise ValueError("schedule needs at least one phase")
+    cums, injs, gains, ons, periods, durs = [], [], [], [], [], []
+    n = np.asarray(phases[0][0]).shape[0]
+    for ph in phases:
+        traffic, intensity, duration = ph[0], float(ph[1]), int(ph[2])
+        burst_on = int(ph[3]) if len(ph) > 3 else 0
+        burst_off = int(ph[4]) if len(ph) > 4 else 0
+        traffic = np.asarray(traffic, np.float64)
+        if traffic.shape != (n, n):
+            raise ValueError(f"phase traffic shape {traffic.shape} != "
+                             f"({n}, {n})")
+        if duration < 1:
+            raise ValueError("phase duration must be >= 1 cycle")
+        cum, inj = _traffic_arrays(traffic)
+        cums.append(cum), injs.append(inj), durs.append(duration)
+        if burst_on > 0 and burst_off > 0:
+            ons.append(burst_on)
+            periods.append(burst_on + burst_off)
+            gains.append(intensity * (burst_on + burst_off) / burst_on)
+        else:
+            ons.append(1), periods.append(1)
+            gains.append(intensity)
+    end = np.cumsum(np.asarray(durs, np.int64)).astype(np.int32)
+    start = np.concatenate([[0], end[:-1]]).astype(np.int32)
+    return SchedSpec(
+        k=len(phases), n=n, cum=np.stack(cums), inj_w=np.stack(injs),
+        gain_on=np.asarray(gains, np.float32), start=start, end=end,
+        on=np.asarray(ons, np.int32), period=np.asarray(periods, np.int32),
+        total=int(end[-1]))
+
+
+def phase_measured_cycles(sched: SchedSpec, cfg: SimConfig) -> np.ndarray:
+    """[K] measured (post-warmup) cycles spent in each phase — the
+    normalizer for per-phase throughput.  Mirrors the runner's phase
+    pointer exactly: t_eff = t % total, phase = #{ends <= t_eff}."""
+    t_eff = np.arange(cfg.warmup, cfg.cycles) % sched.total
+    ph = (sched.end[None, :] <= t_eff[:, None]).sum(axis=1)
+    return np.bincount(ph, minlength=sched.k).astype(np.int64)
+
+
+def _phase_tables(sb, srow: np.ndarray, rate: np.ndarray,
+                  cycles: int) -> dict:
+    """Per-cycle phase tables of a padded `SchedBatch` (host numpy).
+
+    srow [B] is each row's spec, rate [B] its float32 rate.  Returns
+    `rate` [cycles, B] float32 — `rate * gain` with the gain
+    `gain_on[ph]` inside the ON window and 0.0 outside, multiplied in
+    float32 in the reference's order, so `rate_eff * inj_w` rounds as
+    there; `kidx_spec` [cycles, S] and `kidx_row` [cycles, B], the flat
+    index `spec * K + ph` into the [S*K, ...] phase leaves; and `bk`
+    [cycles, B], the flat index `row * K + ph` into the [B*K, ...]
+    per-phase counters."""
+    S, K = sb.end.shape
+    s = np.arange(S)[None, :]
+    t_eff = (np.arange(cycles, dtype=np.int64)[:, None]
+             % sb.total.astype(np.int64)[None, :])       # [T, S]
+    ph = (sb.end[None, :, :] <= t_eff[:, :, None]).sum(2)  # [T, S]
+    in_on = (t_eff - sb.start[s, ph]) % sb.period[s, ph] < sb.on[s, ph]
+    gain = np.where(in_on, sb.gain_on[s, ph], np.float32(0.0))
+    kidx = s * K + ph
+    return dict(rate=rate[None, :] * gain[:, srow],
+                kidx_spec=kidx, kidx_row=kidx[:, srow],
+                bk=np.arange(len(srow))[None, :] * K + ph[:, srow])
+
+
+# =====================================================================
 # padding-invariant injection randomness
 # =====================================================================
 # The reference hashes in wrapping uint32.  torch has no >> or % on
@@ -201,10 +315,7 @@ def resolve_alloc(alloc: str, device) -> str:
     return alloc
 
 
-def _check_static(cfg: SimConfig, schedules) -> None:
-    if schedules is not None:
-        raise NotImplementedError(
-            "phase schedules come with the workloads slice of the port")
+def _check_static(cfg: SimConfig) -> None:
     if cfg.telemetry or cfg.telemetry_windows:
         raise NotImplementedError(
             "the flight recorder (telemetry, telemetry_windows) comes with "
@@ -224,13 +335,20 @@ def _check_static(cfg: SimConfig, schedules) -> None:
 
 def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                    n: int, p: int, c: int, d: int, cfg: SimConfig,
-                   alloc_fn):
+                   alloc_fn, sched: dict | None = None):
     """Simulate B = len(srow) rows for cfg.cycles cycles.
 
     lv: the BatchSpec leaves as device tensors ([S, ...]); srow [B] the
     spec of each row; rate [B] float32.  Returns the raw counters
     (delivered, offered, accepted [B], lat_node [B, N]) as int32
     device tensors.
+
+    sched (workload mode): the SchedBatch leaves `cum` [S*K, N, N] and
+    `inj_w` [S*K, N] flattened over (spec, phase), the `_phase_tables`
+    as device tensors and `k`.  Injection then reads the row's phase at
+    cycle t from the tables, and four per-phase counters follow the
+    totals: delivered_ph, offered_ph, accepted_ph [B, K] and lat_ph
+    [B, K, N], int32.
     """
     N, P, C, D = n, p, c, d
     V, Bd = cfg.n_vcs, cfg.buf_depth
@@ -284,6 +402,15 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     offered = torch.zeros((B,), dtype=i32, device=dev)
     accepted = torch.zeros((B,), dtype=i32, device=dev)
     lat_node = torch.zeros((B, N), dtype=i32, device=dev)
+    if sched is not None:
+        K = sched["k"]
+        s_cum, s_inj = sched["cum"], sched["inj_w"]
+        rate_t, kidx_spec, kidx_row, bk = (
+            sched[k] for k in ("rate", "kidx_spec", "kidx_row", "bk"))
+        delivered_ph = torch.zeros((B * K,), dtype=i32, device=dev)
+        offered_ph = torch.zeros((B * K,), dtype=i32, device=dev)
+        accepted_ph = torch.zeros((B * K,), dtype=i32, device=dev)
+        lat_ph = torch.zeros((B * K, N), dtype=i32, device=dev)
 
     for t in range(cfg.cycles):
         slot = t % D
@@ -313,8 +440,16 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         credit_pipe[:, :, slot] = 0
 
         # ---- 3. injection ---------------------------------------------------
-        want = u_inj_c[k] < rate_b * inj_w              # [B, N]
-        dsts = (cum < u_dst_c[k].view(1, N, 1)).sum(2).clamp(0, N - 1)
+        if sched is None:
+            want = u_inj_c[k] < rate_b * inj_w          # [B, N]
+            cum_t = cum                                 # [S, N, N]
+        else:
+            # this cycle's phase of every row (spec): rate * gain was
+            # formed in float32 on the host, as the reference forms it
+            want = (u_inj_c[k] < rate_t[t].view(B, 1)
+                    * s_inj[kidx_row[t]])
+            cum_t = s_cum[kidx_spec[t]]                 # [S, N, N]
+        dsts = (cum_t < u_dst_c[k].view(1, N, 1)).sum(2).clamp(0, N - 1)
         dsts = dsts[srow]                               # [B, N]
         want &= dsts != node_r
         inj_at = (b2, node_r, P, vcs_c[k])
@@ -326,8 +461,13 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         buf_t[inj_at + (posi_w,)] = t
         cnt[inj_at] += do_inj.long()                    # unique per row/node
         if measuring:
-            offered += want.sum(1, dtype=i32)
-            accepted += do_inj.sum(1, dtype=i32)
+            n_want = want.sum(1, dtype=i32)
+            n_inj = do_inj.sum(1, dtype=i32)
+            offered += n_want
+            accepted += n_inj
+            if sched is not None:                       # one phase per row
+                offered_ph.index_add_(0, bk[t], n_want)
+                accepted_ph.index_add_(0, bk[t], n_inj)
 
         # ---- 4. route + allocate --------------------------------------------
         head_dst = buf_dst.gather(4, head.unsqueeze(4)).squeeze(4)
@@ -356,8 +496,13 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         eject = port_wins & (out_req == P)
         traverse = port_wins & (out_req >= 0) & (out_req < P)
         if measuring:
-            delivered += eject.sum((1, 2), dtype=i32)
-            lat_node += torch.where(eject, t - w_t, 0).sum(2, dtype=i32)
+            n_ej = eject.sum((1, 2), dtype=i32)
+            lat_row = torch.where(eject, t - w_t, 0).sum(2, dtype=i32)
+            delivered += n_ej
+            lat_node += lat_row
+            if sched is not None:
+                delivered_ph.index_add_(0, bk[t], n_ej)
+                lat_ph.index_add_(0, bk[t], lat_row)
 
         out_port = out_req.long().clamp(0, P - 1)
         oc_w = torch.where(traverse, out_ch.gather(2, out_port), C)
@@ -371,11 +516,36 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                            accumulate=True)
         rr = (rr + 1) % (V * pi)
 
-    return delivered, offered, accepted, lat_node
+    if sched is None:
+        return delivered, offered, accepted, lat_node
+    return (delivered, offered, accepted, lat_node,
+            delivered_ph.view(B, K), offered_ph.view(B, K),
+            accepted_ph.view(B, K), lat_ph.view(B, K, N))
+
+
+def _pad_fill(specs, shape, schedules, kmax) -> list[dict]:
+    """Live-work fraction of a padded batch, one dict per spec.
+
+    `state` is the live fraction of the router-state grid the runner
+    iterates (n*(p+1) of N*(P+1) cells — +1 for the ejection lane);
+    `chan`/`depth` are the live channel-row and ring-depth fractions;
+    `phase` is live schedule phases over k_pad (1.0 on the static
+    path).  1 - fill is pad waste: device work spent keeping
+    heterogeneous specs in one batch (DESIGN.md §16).
+    """
+    fills = []
+    for i, spec in enumerate(specs):
+        fills.append(dict(
+            state=(spec.n * (spec.p + 1)) / (shape.n * (shape.p + 1)),
+            chan=spec.c / shape.c,
+            depth=spec.d / shape.d,
+            phase=(schedules[i].k / kmax) if schedules is not None else 1.0))
+    return fills
 
 
 def run_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
-              pad_shape=None, device=None, schedules=None) -> list[dict]:
+              pad_shape=None, device=None, schedules=None,
+              k_pad=None) -> list[dict]:
     """Run many SimSpecs x injection rates in one batched simulation.
 
     rates: [R] shared across specs, or [S, R] one row per spec.  Returns
@@ -383,16 +553,25 @@ def run_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
     `offered_n`, `accepted_n`, `lat_sum`, each [R]) plus derived float
     metrics (`throughput`, `latency`, `offered`, `accepted`) computed in
     numpy — so derived values are bitwise reproducible for any padding
-    of the same spec.
+    of the same spec — and `pad_fill`, the live-work fraction of the
+    padded batch (`state`, `chan`, `depth`, `phase`).
+
+    schedules: optional list of `SchedSpec` (one per spec) switching the
+    batch to time-varying workload injection (DESIGN.md §9).  Each spec's
+    `traffic_cum`/`inj_weight` are then ignored in favour of its
+    schedule's per-phase arrays, and result dicts gain per-phase
+    counters (`delivered_ph`, `offered_ph`, `accepted_ph`, `lat_sum_ph`
+    [R, K]), `phase_cycles` [K] and the derived `throughput_ph`,
+    `latency_ph`, `offered_rate_ph`.  k_pad pads the phase axis.
 
     device: None runs on the CUDA card (and raises without one); pass
-    "cpu" to run on the CPU.  `schedules` (workloads) is a later slice.
+    "cpu" to run on the CPU.
     """
     dev = resolve_device(device)
-    _check_static(cfg, schedules)
+    _check_static(cfg)
     alloc_fn = netstep if resolve_alloc(cfg.alloc, dev) == "cuda" \
         else netstep_ref
-    from ..sweep.padding import stack_specs
+    from ..sweep.padding import stack_schedules, stack_specs
     with _span("sim.stack", cat="sim", specs=len(specs)):
         batch, shape = stack_specs(specs, pad_shape)
     s = len(specs)
@@ -402,33 +581,73 @@ def run_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
     if rates.shape[0] != s:
         raise ValueError(f"rates rows {rates.shape[0]} != specs {s}")
     r = rates.shape[1]
+    kmax = 0
+    if schedules is not None:
+        if len(schedules) != s:
+            raise ValueError(f"schedules {len(schedules)} != specs {s}")
+        for spec, sched in zip(specs, schedules):
+            if sched.n != spec.n:
+                raise ValueError(f"schedule for {sched.n} nodes paired "
+                                 f"with a {spec.n}-node spec")
+        sbatch, kmax = stack_schedules(schedules, shape.n, k_pad)
+    fills = _pad_fill(specs, shape, schedules, kmax)
     with _span("sim.dispatch", cat="sim", specs=s, shape=str(shape),
-               device=str(dev), rows=s * r):
+               device=str(dev), rows=s * r,
+               kind="static" if schedules is None else "workload"):
         lv = {k: torch.as_tensor(v, device=dev)
               for k, v in batch._asdict().items()}
-        srow = torch.arange(s, device=dev).repeat_interleave(r)
-        rate = torch.as_tensor(np.array(rates).reshape(-1), device=dev)
+        srow_np = np.repeat(np.arange(s), r)
+        rate_np = np.array(rates).reshape(-1)
+        srow = torch.as_tensor(srow_np, device=dev)
+        rate = torch.as_tensor(rate_np, device=dev)
+        sched = None
+        if schedules is not None:
+            n_pad = shape.n
+            sched = {k: torch.as_tensor(v, device=dev) for k, v in
+                     _phase_tables(sbatch, srow_np, rate_np,
+                                   cfg.cycles).items()}
+            sched.update(
+                k=kmax,
+                cum=torch.as_tensor(sbatch.cum, device=dev).view(
+                    s * kmax, n_pad, n_pad),
+                inj_w=torch.as_tensor(sbatch.inj_w, device=dev).view(
+                    s * kmax, n_pad))
         raw = _simulate_rows(lv, srow, rate, shape.n, shape.p, shape.c,
-                             shape.d, cfg, alloc_fn)
+                             shape.d, cfg, alloc_fn, sched)
     with _span("sim.wait", cat="sim", specs=s):
-        delivered, offered, accepted, lat_node = (
-            x.cpu().numpy() for x in raw)
-    delivered = delivered.reshape(s, r)
-    offered = offered.reshape(s, r)
-    accepted = accepted.reshape(s, r)
-    lat_sum = lat_node.astype(np.int64).sum(axis=1).reshape(s, r)
+        raw = [x.cpu().numpy() for x in raw]
+    delivered, offered, accepted = (x.reshape(s, r) for x in raw[:3])
+    lat_sum = raw[3].astype(np.int64).sum(axis=1).reshape(s, r)
     meas = cfg.cycles - cfg.warmup
     out = []
     for i, spec in enumerate(specs):
         norm = spec.n * meas
-        out.append(dict(
+        res = dict(
             rate=rates[i].astype(np.float64),
             delivered=delivered[i], offered_n=offered[i],
             accepted_n=accepted[i], lat_sum=lat_sum[i],
             throughput=delivered[i] / norm,
             latency=lat_sum[i] / np.maximum(delivered[i], 1),
             offered=offered[i] / norm,
-            accepted=accepted[i] / norm))
+            accepted=accepted[i] / norm,
+            pad_fill=fills[i])
+        if schedules is not None:
+            sched_i = schedules[i]
+            k = sched_i.k
+            rows = slice(i * r, (i + 1) * r)
+            dp = raw[4][rows, :k]                          # [R, K]
+            op = raw[5][rows, :k]
+            ap = raw[6][rows, :k]
+            lp = raw[7][rows, :k].astype(np.int64).sum(axis=2)
+            ph_cy = phase_measured_cycles(sched_i, cfg)    # [K]
+            ph_norm = np.maximum(spec.n * ph_cy, 1)[None, :]
+            res.update(
+                delivered_ph=dp, offered_ph=op, accepted_ph=ap,
+                lat_sum_ph=lp, phase_cycles=ph_cy,
+                throughput_ph=dp / ph_norm,
+                latency_ph=lp / np.maximum(dp, 1),
+                offered_rate_ph=op / ph_norm)
+        out.append(res)
     return out
 
 

@@ -6,8 +6,8 @@ sources are all-zero).  Heterogeneous variants implement the paper's 50/50
 core-to-core + core-to-memory mix (§V-C) and the C/M/I cache-coherence
 placement used with traces (§V-E).
 
-The port's own copy of `repro.core.traffic`'s static patterns; the
-trace-region profiles stay with the workloads slice.
+The port's own copy of `repro.core.traffic`: the static patterns and
+the trace-region profiles the workloads and Fig. 10 read.
 """
 from __future__ import annotations
 
@@ -132,3 +132,35 @@ PATTERNS = {
     "hetero_mix": hetero_mix,
     "coherence_cmi": coherence_cmi,
 }
+
+
+# --------------------------------------------------------------------------
+# Synthetic Netrace-like traces (§V-E).  Real PARSEC Netrace files are not
+# available offline; these dependency-light traces have the same region
+# structure: per-region packet intensity and flow mix between C/M/I
+# chiplets, modelled after blackscholes (compute-heavy, low traffic) and
+# fluidanimate (memory-heavy bursts).
+# --------------------------------------------------------------------------
+
+TRACE_PROFILES = {
+    # per-region (intensity multiplier, mem_fraction) pairs; 5 regions each
+    "blackscholes": [(0.15, 0.6), (0.35, 0.55), (0.25, 0.5), (0.4, 0.6),
+                     (0.2, 0.5)],
+    "fluidanimate": [(0.5, 0.7), (0.8, 0.75), (0.65, 0.7), (0.9, 0.8),
+                     (0.55, 0.65)],
+}
+
+
+def region_traffic(topo: Topology, mem_frac: float) -> np.ndarray:
+    """Traffic matrix of one trace region: coherence flows blended with a
+    memory mix of the region's intensity (shared by
+    `trace_region_traffic` and `repro_torch.workloads.traces`)."""
+    base = coherence_cmi(topo)
+    mix = hetero_mix(topo, frac_mem=mem_frac)
+    return _normalize(0.5 * base + 0.5 * mix)
+
+
+def trace_region_traffic(topo: Topology, profile: str, region: int):
+    """Return (traffic matrix, relative intensity) for one trace region."""
+    intensity, mem_frac = TRACE_PROFILES[profile][region]
+    return region_traffic(topo, mem_frac), intensity

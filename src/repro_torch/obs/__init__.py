@@ -1,1 +1,2 @@
-"""repro_torch.obs — the port's span tracer (`obs.trace`)."""
+"""repro_torch.obs — the port's span tracer (`obs.trace`) and metrics
+registry (`obs.metrics`)."""

@@ -1,6 +1,7 @@
 """Shape padding for heterogeneous SimSpecs (DESIGN.md §6).
 
-The port's copy of `repro.sweep.padding`'s static part.  A `SimSpec`'s
+The port's copy of `repro.sweep.padding`: spec padding and, for
+workloads, phase-schedule padding.  A `SimSpec`'s
 arrays are sized by its topology: node count N, max port count P,
 directed channel count C and link-pipeline ring depth D.  To run several
 topologies through one batched simulation they are padded to a common
@@ -24,8 +25,9 @@ lane influence a real one:
     the shared padded index P, and the per-spec `pi = P_spec + 1` scalar
     lets the rotating-priority counter keep the spec's own period.
 
-The productive-ports leaf (adaptive routing) and the phase-schedule
-batch (workloads) come with their slices.
+Phase schedules pad the same way (`SchedBatch`): padded phase rows end
+at 2^30, so the phase pointer never counts them.  The productive-ports
+leaf (adaptive routing) comes with its slice.
 """
 from __future__ import annotations
 
@@ -118,3 +120,66 @@ def stack_specs(specs: Sequence, shape: PadShape | None = None
     padded = [pad_spec(s, shape) for s in specs]
     leaves = {k: np.stack([p[k] for p in padded]) for k in padded[0]}
     return BatchSpec(**leaves), shape
+
+
+# =====================================================================
+# phase-schedule padding (workload mode, DESIGN.md §9)
+# =====================================================================
+
+_END_INF = np.int32(2 ** 30)
+
+
+class SchedBatch(NamedTuple):
+    """Stacked padded `core.simulator.SchedSpec`s; leading spec axis S.
+
+    Padded phase rows are inert by the same discipline as spec padding:
+    their `end` is 2^30, so the phase pointer (#{ends <= t_eff}) never
+    counts them for any real cycle; their gain is 0 and their traffic
+    rows are all-1.0.  Padded node columns mirror `pad_spec`: inj_w 0,
+    cum 1.0.
+    """
+    cum: np.ndarray       # [S, K, N, N] float32
+    inj_w: np.ndarray     # [S, K, N] float32
+    gain_on: np.ndarray   # [S, K] float32
+    start: np.ndarray     # [S, K] int32
+    end: np.ndarray       # [S, K] int32 (padded rows: 2^30)
+    on: np.ndarray        # [S, K] int32
+    period: np.ndarray    # [S, K] int32
+    total: np.ndarray     # [S] int32
+
+
+def pad_schedule(sched, n_pad: int, k_pad: int) -> dict:
+    """Pad one SchedSpec to (k_pad phases, n_pad nodes); dict of leaves."""
+    if sched.k > k_pad or sched.n > n_pad:
+        raise ValueError(f"pad shape (k={k_pad}, n={n_pad}) does not "
+                         f"cover schedule (k={sched.k}, n={sched.n})")
+    k, n = sched.k, sched.n
+    cum = np.ones((k_pad, n_pad, n_pad), np.float32)
+    cum[:k, :n, :n] = sched.cum
+    inj_w = np.zeros((k_pad, n_pad), np.float32)
+    inj_w[:k, :n] = sched.inj_w
+
+    def padk(a, fill, dtype):
+        out = np.full((k_pad,), fill, dtype)
+        out[:k] = a
+        return out
+
+    return dict(
+        cum=cum, inj_w=inj_w,
+        gain_on=padk(sched.gain_on, 0.0, np.float32),
+        start=padk(sched.start, 0, np.int32),
+        end=padk(sched.end, _END_INF, np.int32),
+        on=padk(sched.on, 1, np.int32),
+        period=padk(sched.period, 1, np.int32),
+        total=np.int32(sched.total))
+
+
+def stack_schedules(scheds: Sequence, n_pad: int, k_pad: int | None = None
+                    ) -> tuple[SchedBatch, int]:
+    """Pad every schedule to (k_pad, n_pad) and stack into a SchedBatch."""
+    if not scheds:
+        raise ValueError("stack_schedules needs at least one schedule")
+    k_pad = k_pad or max(s.k for s in scheds)
+    padded = [pad_schedule(s, n_pad, k_pad) for s in scheds]
+    leaves = {k: np.stack([p[k] for p in padded]) for k in padded[0]}
+    return SchedBatch(**leaves), k_pad

@@ -19,6 +19,18 @@ from repro_torch.kernels.netstep.ops import LIB, netstep  # noqa: E402
 from repro_torch.kernels.netstep.ref import netstep_ref  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes on one CPU; torch's
+    per-process thread pool oversubscribes it (spinning OpenMP threads
+    slow every worker several-fold), and these tests' ops are small, so
+    they run on one torch thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _alloc_inputs(rng, shape):
     pi = shape[-2]
     op_slot = rng.integers(-1, pi, shape).astype(np.int32)

@@ -8,7 +8,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.core import simulator as RS  # noqa: E402
 from repro.core import topology as RT, traffic as RTR  # noqa: E402
@@ -19,6 +19,19 @@ from repro_torch.core import topology as PT, traffic as PTR  # noqa: E402
 from repro_torch.core.routing import build_routing as p_build_routing  # noqa: E402,E501
 from repro_torch.sweep.engine import SweepCase, SweepEngine  # noqa: E402
 from repro_torch.sweep.padding import PadShape, stack_specs  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes on one CPU; torch's
+    per-process thread pool oversubscribes it (spinning OpenMP threads
+    slow every worker several-fold), and these tests' ops are small, so
+    they run on one torch thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 HETERO = [("mesh", 16), ("folded_hexa_torus", 36), ("honeycomb_mesh", 16),
           ("octamesh", 25)]
@@ -114,8 +127,10 @@ def test_engine_run_specs_equals_run_batch(port_specs):
     for g, w in zip(got, want):
         _assert_results_equal(g, w)
         assert g["delivered"].shape == (3,)
-    # four distinct radices -> four groups, as in the reference engine
-    assert eng.stats == dict(runs=1, groups=4, specs=4)
+    # four distinct radices -> four groups, as in the reference engine;
+    # the port compiles nothing per shape, so every group is a reuse
+    assert eng.stats == dict(runs=1, groups=4, specs=4, compiles=0,
+                             reuses=4)
     one = SweepEngine(cfg=PCFG, device="cpu").run_specs(
         port_specs, rates, single_program=True)
     for g, w in zip(one, want):
@@ -166,9 +181,12 @@ def test_deferred_and_invalid_configs_raise(port_specs, kw, exc, match):
 
 
 def test_schedules_are_a_later_slice(port_specs):
-    with pytest.raises(NotImplementedError, match="workloads slice"):
+    """Phase schedules are ported now (tests/test_torch_workloads.py):
+    what stays is that a schedule list must pair one schedule with each
+    spec."""
+    with pytest.raises(ValueError, match="schedules 2 != specs 1"):
         PS.run_batch(port_specs[:1], RATES[:1], PCFG, device="cpu",
-                     schedules=[object()])
+                     schedules=[object(), object()])
 
 
 def test_spec_from_reference_rejects_other_dicts(ref_specs):
