@@ -15,7 +15,8 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        library and ptxas lines, which must report no spill
   build_lm             the same build's flash_attention and ssd_scan
                        libraries (bf16 tensor-core and f32 CUDA-core
-                       route of each) and their ptxas lines
+                       route of each) and their ptxas lines; the hd 256
+                       flash instantiations' registers and spill bytes
   sass                 cuobjdump -sass of every library: HGMMA / HMMA /
                        MATCH / REDUX counts; the bf16 flash kernel must
                        hold HGMMA, the bf16 SSD kernels HGMMA or HMMA,
@@ -66,13 +67,29 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        group's own, by kind), and the device launches per
                        cycle and idle share of the widest workload group
                        beside the `profile` phase's static group
+  collectives          the collective workloads through the experiment
+                       API at N = 64, SimConfig(cycles=2000, warmup=700),
+                       SaturationGrid(8): on the six principled
+                       topologies (organic) the training step of
+                       qwen3-1.7b, of qwen3-moe-235b-a22b (with its MoE
+                       all-to-all) and the MoE step beside a serving
+                       tenant, and folded_hexa_torus and mesh on glass
+                       under the qwen3-1.7b step: 20 scenarios, 160 rate
+                       rows, every row ok, raw counters, per-phase
+                       deliveries and row values equal to the JAX table,
+                       every cycle of every group through the kernel; and
+                       build_ici_model(use_sim=True) for folded_hexa_torus
+                       and mesh at N = 64 equal to the JAX values
   flash_vs_plain       the flash-attention kernels against their plain
                        version on the card: every case of
                        tests/test_torch_cuda.py (five (tq, tk, causal,
-                       window) x hd 16/32/64/128, GQA 4:2) through both
+                       window) x hd 16/32/64/128/256, GQA 4:2) through both
                        routes, f32 (2e-5) and bf16 (2e-2), and qwen3-1.7b's
                        prefill shape [4, 1024, 16 (8 kv), 128] causal
-                       through both
+                       through both; at hd 256, GQA 4:1, causal with
+                       window None / 1024 / 96 at T 2048 and on ragged
+                       128 / 256 pairs, and gemma3-1b's prefill shape
+                       [4, 2048, 4 (1 kv), 256] global and local
   ssd_vs_plain         the SSD-scan kernels against their plain version:
                        the shapes of tests/test_torch_cuda.py through both
                        routes, f32 (1e-4) and bf16 (3e-2), the bf16
@@ -81,7 +98,8 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        bf16 at 3e-2, f32 no further from the f64
                        evaluation of the plain version than the plain f32
                        version (x 2); y and the final state
-  lm_card_vs_cpu       qwen3-1.7b and mamba2-1.3b at full width, depth 2,
+  lm_card_vs_cpu       qwen3-1.7b, gemma3-1b and mamba2-1.3b at full
+                       width, depth 2,
                        f32 compute, batch 1, prompt 256: prefill logits and
                        4 decode steps with the kernels on the card, with
                        the plain path on the card, and on the CPU (the path
@@ -89,9 +107,11 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        within 1e-3; in bf16 the kernel path's prefill
                        logits agree with the plain path's within 0.08
   serve                the serving path: `launch.serve.main` at full depth
-                       and width for each arch (batch 4, prompt 1024, gen
-                       32, bf16); 28 flash and 48 SSD launches per
-                       prefill.  Prefill logits with the kernels on and
+                       and width for each arch (batch 4, prompt 1024 --
+                       2048 for gemma3-1b, so that its 1024 window masks
+                       in prefill and its ring caches wrap in decode --,
+                       gen 32, bf16); 28 (qwen3-1.7b) and 26 (gemma3-1b)
+                       flash and 48 SSD launches per prefill.  Prefill logits with the kernels on and
                        off, in bf16 and f32: in f32 the two agree within
                        1e-3; in bf16 each differs from the f32 logits by
                        its own rounding, and the kernel path may differ no
@@ -103,10 +123,17 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
   lm_timing            CUDA-event times of the bf16 (serving) routes at the
                        serving shapes, their plain versions and bounds, and
                        SDPA beside flash attention
+  lm_timing_hd256      the same at gemma3-1b's prefill shape, both routes,
+                       global (causal) and local (window 1024) layers, SDPA
+                       at the global layers' shape
   lm_profile           torch.profiler: the device time of every CUDA kernel
                        one wrapper call launches, summed, per route (the
                        bf16 SSD call launches four), and the device idle
-                       share of each arch's decode loop
+                       share of each arch's decode loop; and each call's
+                       device ms from the replay of a CUDA graph of 20
+                       back-to-back calls (kernels.ablate.graph_ms: no host
+                       work between launches, no profiler misses), the
+                       kernels line's `ms` for flash attention and SSD
 
 then the kernel summary line and, last, the `{"ok": true, ...}` line.
 A failed check raises and exits non-zero before the last line; without
@@ -270,7 +297,278 @@ REFERENCE_EXPERIMENTS = [
          latency_ns=63.12394250302142),
 ]
 EXP_CYCLES, EXP_WARMUP, EXP_RATES = 2000, 700, 8
+# The `collectives` phase: LLM training collectives (and a serving tenant
+# beside them) on N = 64 chiplets at the benchmarks' SimConfig.  Its JAX
+# reference table, REFERENCE_COLLECTIVES, comes from the same tool.
+COLL_N = 64
+PRINCIPLED = ("mesh", "folded_torus", "hexamesh", "folded_hexa_torus",
+              "octamesh", "folded_octa_torus")
+ICI_TOPOLOGIES = ("folded_hexa_torus", "mesh")
+ICI_BYTES = 2 ** 30
 EXP_FAULTS = ((8, "random"), (4, "chiplets"))
+# JAX reference of the `collectives` phase: `tools/smoke_reference.py
+# collectives` (repro.experiments.run with alloc="jnp", jax 0.9.0 on a
+# CPU) on the Experiment `collective_scenarios` builds, scenario by
+# scenario (labels topology/substrate/traffic/faults): the raw counters over
+# the 8-point rate grid, the tidy row's values and the per-phase deliveries
+# at the saturating rate; and `build_ici_model(name, 64, "organic",
+# use_sim=True)` on ICI_TOPOLOGIES (default SimConfig): its effective
+# bandwidth and its all-reduce time for ICI_BYTES.  Bit for bit, as above.
+REFERENCE_COLLECTIVES = dict(
+    table=[
+        dict(label='mesh/organic/collective:qwen3-1.7b/none',
+             delivered=[18477, 26568, 34457, 42338, 50029, 57503, 63789,
+                        68784],
+             offered_n=[18475, 26569, 34450, 42395, 50275, 58407, 66406,
+                        74469],
+             accepted_n=[18475, 26569, 34446, 42341, 50033, 57485, 63764,
+                         68789],
+             lat_sum=[260123, 375530, 495186, 629988, 786013, 988668, 1205386,
+                      1419703],
+             sim_saturation=0.8267307692307693,
+             abs_throughput_gbps=2566.1723076923076,
+             latency_ns=20.640018027448242,
+             delivered_ph=[4439, 29201, 29903, 5241]),
+        dict(label='mesh/organic/collective:qwen3-moe-235b-a22b/none',
+             delivered=[11570, 16697, 21704, 26736, 31055, 34490, 37573,
+                        40479],
+             offered_n=[11560, 16668, 21679, 26822, 31751, 36806, 41806,
+                        46858],
+             accepted_n=[11560, 16668, 21675, 26735, 31074, 34499, 37545,
+                         40472],
+             lat_sum=[190563, 278568, 371691, 490384, 659595, 876377, 1040300,
+                      1168547],
+             sim_saturation=0.4865264423076923,
+             abs_throughput_gbps=1510.178076923077,
+             latency_ns=28.867980928382618,
+             delivered_ph=[12491, 4330, 8008, 2377, 13273]),
+        dict(label='mesh/organic/mixed:qwen3-moe-235b-a22b+uniform0.3/none',
+             delivered=[4683, 9517, 14249, 15998, 15130, 15079, 14917, 14458],
+             offered_n=[4668, 9497, 14319, 19204, 24164, 28869, 33708, 38520],
+             accepted_n=[4668, 9497, 14273, 16100, 15298, 15146, 14985, 14492],
+             lat_sum=[132670, 274179, 452481, 1166496, 1518367, 1729321,
+                      1870683, 1912880],
+             sim_saturation=0.19228365384615384,
+             abs_throughput_gbps=596.8484615384615,
+             latency_ns=72.91511438929867,
+             delivered_ph=[4555, 1460, 3776, 1445, 4762]),
+        dict(label='folded_torus/organic/collective:qwen3-1.7b/none',
+             delivered=[7736, 15640, 23307, 27511, 29864, 31656, 33060, 34175],
+             offered_n=[7727, 15615, 23514, 31415, 39240, 47105, 54942, 62920],
+             accepted_n=[7727, 15614, 23267, 27503, 29815, 31627, 33036,
+                         34156],
+             lat_sum=[156402, 331569, 649036, 1219743, 1540156, 1751700,
+                      1915955, 2049528],
+             sim_saturation=0.41075721153846156,
+             abs_throughput_gbps=1236.6747910075674,
+             latency_ns=59.97155815654718,
+             delivered_ph=[3303, 13633, 13347, 3892]),
+        dict(label='folded_torus/organic/collective:qwen3-moe-235b-a22b/none',
+             delivered=[11559, 16667, 21565, 26096, 29502, 31888, 33212,
+                        34062],
+             offered_n=[11560, 16668, 21679, 26822, 31751, 36806, 41806,
+                        46858],
+             accepted_n=[11560, 16655, 21538, 26054, 29494, 31909, 33243,
+                         34039],
+             lat_sum=[239036, 364764, 524857, 750626, 994700, 1266587, 1511880,
+                      1686885],
+             sim_saturation=0.40939903846153847,
+             abs_throughput_gbps=1232.585712693482,
+             latency_ns=49.52395631495508,
+             delivered_ph=[9866, 2582, 8756, 2236, 10622]),
+        dict(label='folded_torus/'
+                   'organic/mixed:qwen3-moe-235b-a22b+uniform0.3/none',
+             delivered=[5568, 11342, 17007, 17666, 16997, 15677, 15258, 15284],
+             offered_n=[5546, 11293, 17084, 22931, 28601, 34368, 40063, 45771],
+             accepted_n=[5546, 11293, 17010, 17724, 17049, 15645, 15214,
+                         15262],
+             lat_sum=[155365, 318514, 546795, 1323627, 1731155, 1826339,
+                      1876209, 1942932],
+             sim_saturation=0.21233173076923076,
+             abs_throughput_gbps=639.2713052798736,
+             latency_ns=74.92511038152384,
+             delivered_ph=[4850, 1282, 4582, 1565, 5387]),
+        dict(label='hexamesh/organic/collective:qwen3-1.7b/none',
+             delivered=[18477, 26568, 34457, 42338, 50030, 57498, 63726,
+                        68668],
+             offered_n=[18475, 26569, 34450, 42395, 50275, 58407, 66406,
+                        74469],
+             accepted_n=[18475, 26569, 34446, 42341, 50034, 57480, 63701,
+                         68673],
+             lat_sum=[260142, 375619, 495618, 631542, 790229, 997323, 1222837,
+                      1444367],
+             sim_saturation=0.8253365384615384,
+             abs_throughput_gbps=1650.673076923077,
+             latency_ns=21.03406244538941,
+             delivered_ph=[4364, 29194, 29903, 5207]),
+        dict(label='hexamesh/organic/collective:qwen3-moe-235b-a22b/none',
+             delivered=[11576, 16694, 21693, 26738, 31131, 34834, 37520,
+                        40358],
+             offered_n=[11560, 16668, 21679, 26822, 31751, 36806, 41806,
+                        46858],
+             accepted_n=[11560, 16668, 21670, 26724, 31174, 34802, 37498,
+                         40363],
+             lat_sum=[190846, 278859, 372956, 494721, 671762, 891020, 1080229,
+                      1206107],
+             sim_saturation=0.48507211538461537,
+             abs_throughput_gbps=970.1442307692307,
+             latency_ns=29.885202438178304,
+             delivered_ph=[12304, 4235, 8116, 2438, 13265]),
+        dict(label='hexamesh/organic/'
+                   'mixed:qwen3-moe-235b-a22b+uniform0.3/none',
+             delivered=[12854, 19348, 25833, 31802, 36622, 40645, 42807,
+                        43562],
+             offered_n=[12821, 19325, 25811, 32203, 38548, 44925, 51320,
+                        57654],
+             accepted_n=[12821, 19324, 25773, 31767, 36606, 40644, 42714,
+                         43530],
+             lat_sum=[315488, 481741, 664445, 918114, 1230746, 1547348,
+                      1860020, 2120604],
+             sim_saturation=0.5235817307692308,
+             abs_throughput_gbps=1047.1634615384614,
+             latency_ns=48.68013406179698,
+             delivered_ph=[13810, 3329, 9531, 2707, 14185]),
+        dict(label='folded_hexa_torus/organic/collective:qwen3-1.7b/none',
+             delivered=[5238, 10636, 15926, 21062, 25814, 29833, 33201, 35833],
+             offered_n=[5233, 10618, 15948, 21375, 26788, 32064, 37415, 42763],
+             accepted_n=[5233, 10618, 15917, 21049, 25800, 29812, 33216,
+                         35822],
+             lat_sum=[99938, 205487, 329675, 502892, 702296, 929423, 1152160,
+                      1362314],
+             sim_saturation=0.43068509615384615,
+             abs_throughput_gbps=815.7099704440352,
+             latency_ns=38.018418775988614,
+             delivered_ph=[2521, 15067, 15203, 3042]),
+        dict(label='folded_hexa_torus/'
+                   'organic/collective:qwen3-moe-235b-a22b/none',
+             delivered=[7121, 12777, 18436, 23772, 28512, 32514, 35861, 38073],
+             offered_n=[7119, 12777, 18514, 24236, 29873, 35519, 41187, 46858],
+             accepted_n=[7119, 12776, 18424, 23748, 28498, 32525, 35872,
+                         38077],
+             lat_sum=[133129, 247339, 388712, 567115, 772229, 981302, 1208997,
+                      1428642],
+             sim_saturation=0.4576081730769231,
+             abs_throughput_gbps=866.7018029390717,
+             latency_ns=37.52375699314475,
+             delivered_ph=[10908, 2824, 10658, 2840, 10843]),
+        dict(label='folded_hexa_torus/'
+                   'organic/mixed:qwen3-moe-235b-a22b+uniform0.3/none',
+             delivered=[8518, 15542, 22637, 28891, 34013, 36220, 38132, 40466],
+             offered_n=[8508, 15517, 22683, 29702, 36707, 43657, 50697, 57654],
+             accepted_n=[8508, 15516, 22616, 28915, 34030, 36275, 38211,
+                         40496],
+             lat_sum=[188202, 347690, 538255, 813037, 1137451, 1524135,
+                      1805415, 1998550],
+             sim_saturation=0.4863701923076923,
+             abs_throughput_gbps=921.1765597072066,
+             latency_ns=49.388375426283794,
+             delivered_ph=[12163, 2965, 11417, 3059, 10862]),
+        dict(label='octamesh/organic/collective:qwen3-1.7b/none',
+             delivered=[7723, 15616, 23516, 31201, 38653, 45912, 52839, 59172],
+             offered_n=[7727, 15615, 23514, 31415, 39240, 47105, 54942, 62920],
+             accepted_n=[7727, 15615, 23489, 31188, 38637, 45902, 52839,
+                         59159],
+             lat_sum=[107623, 220863, 354330, 500701, 643142, 792302, 962935,
+                      1158088],
+             sim_saturation=0.7112019230769231,
+             abs_throughput_gbps=1025.6616492064234,
+             latency_ns=19.57155411343203,
+             delivered_ph=[3741, 25473, 25660, 4298]),
+        dict(label='octamesh/organic/collective:qwen3-moe-235b-a22b/none',
+             delivered=[11578, 16688, 21566, 26321, 30565, 34623, 38298,
+                        41682],
+             offered_n=[11560, 16668, 21679, 26822, 31751, 36806, 41806,
+                        46858],
+             accepted_n=[11560, 16667, 21541, 26260, 30509, 34613, 38315,
+                         41685],
+             lat_sum=[191740, 285965, 404495, 542257, 688100, 838829, 978906,
+                      1115862],
+             sim_saturation=0.5009855769230769,
+             abs_throughput_gbps=722.4976147877735,
+             latency_ns=26.770836332229738,
+             delivered_ph=[12289, 4178, 8921, 3468, 12826]),
+        dict(label='octamesh/organic/'
+                   'mixed:qwen3-moe-235b-a22b+uniform0.3/none',
+             delivered=[13423, 19868, 26233, 31984, 36783, 39188, 41606,
+                        41974],
+             offered_n=[13402, 19847, 26220, 32528, 38788, 45108, 51404,
+                        57654],
+             accepted_n=[13402, 19845, 26172, 31916, 36750, 39110, 41553,
+                         41940],
+             lat_sum=[302200, 456575, 627365, 874273, 1134810, 1480696,
+                      1707573, 1978993],
+             sim_saturation=0.5044951923076924,
+             abs_throughput_gbps=727.5590154767528,
+             latency_ns=47.14806785152714,
+             delivered_ph=[14133, 3752, 9021, 2751, 12317]),
+        dict(label='folded_octa_torus/organic/collective:qwen3-1.7b/none',
+             delivered=[6804, 13748, 20733, 27177, 32123, 35902, 38726, 41155],
+             offered_n=[6806, 13741, 20734, 27676, 34555, 41487, 48343, 55317],
+             accepted_n=[6806, 13741, 20716, 27185, 32118, 35891, 38686,
+                         41115],
+             lat_sum=[124763, 255963, 421457, 695732, 981586, 1246415, 1466498,
+                      1662300],
+             sim_saturation=0.4946514423076923,
+             abs_throughput_gbps=639.6611926334393,
+             latency_ns=40.391203984935004,
+             delivered_ph=[3154, 16918, 17414, 3669]),
+        dict(label='folded_octa_torus/'
+                   'organic/collective:qwen3-moe-235b-a22b/none',
+             delivered=[7758, 13330, 18952, 24272, 28905, 32848, 35981, 38443],
+             offered_n=[7755, 13326, 18976, 24601, 30126, 35689, 41288, 46858],
+             accepted_n=[7755, 13326, 18943, 24250, 28891, 32801, 35961,
+                         38482],
+             lat_sum=[143233, 250788, 378497, 545235, 749886, 981775, 1211877,
+                      1400104],
+             sim_saturation=0.4620552884615385,
+             abs_throughput_gbps=597.5092996818688,
+             latency_ns=36.42025856462815,
+             delivered_ph=[10874, 2769, 10564, 3010, 11226]),
+        dict(label='folded_octa_torus/'
+                   'organic/mixed:qwen3-moe-235b-a22b+uniform0.3/none',
+             delivered=[10300, 17095, 24024, 30497, 36424, 40753, 44729,
+                        47022],
+             offered_n=[10282, 17069, 23998, 30680, 37450, 44197, 50966,
+                        57654],
+             accepted_n=[10282, 17069, 23987, 30476, 36402, 40759, 44793,
+                         47001],
+             lat_sum=[210584, 352659, 511854, 701431, 942889, 1234924, 1478191,
+                      1752680],
+             sim_saturation=0.5651682692307692,
+             abs_throughput_gbps=730.850409428006,
+             latency_ns=37.27361660499341,
+             delivered_ph=[13880, 3184, 12752, 3354, 13852]),
+        dict(label='folded_hexa_torus/glass/collective:qwen3-1.7b/none',
+             delivered=[5238, 10636, 15926, 21062, 25814, 29833, 33201, 35833],
+             offered_n=[5233, 10618, 15948, 21375, 26788, 32064, 37415, 42763],
+             accepted_n=[5233, 10618, 15917, 21049, 25800, 29812, 33216,
+                         35822],
+             lat_sum=[99938, 205487, 329675, 502892, 702296, 929423, 1152160,
+                      1362314],
+             sim_saturation=0.43068509615384615,
+             abs_throughput_gbps=1267.936923076923,
+             latency_ns=38.018418775988614,
+             delivered_ph=[2521, 15067, 15203, 3042]),
+        dict(label='mesh/glass/collective:qwen3-1.7b/none',
+             delivered=[18477, 26568, 34457, 42338, 50029, 57503, 63789,
+                        68784],
+             offered_n=[18475, 26569, 34450, 42395, 50275, 58407, 66406,
+                        74469],
+             accepted_n=[18475, 26569, 34446, 42341, 50033, 57485, 63764,
+                         68789],
+             lat_sum=[260123, 375530, 495186, 629988, 786013, 988668, 1205386,
+                      1419703],
+             sim_saturation=0.8267307692307693,
+             abs_throughput_gbps=3730.209230769231,
+             latency_ns=20.640018027448242,
+             delivered_ph=[4439, 29201, 29903, 5241]),
+    ],
+    ici={
+        'folded_hexa_torus': dict(b_eff_gbps=799.1569744624435,
+                                  all_reduce_s=0.021161847254366876),
+        'mesh': dict(b_eff_gbps=285.49525,
+                     all_reduce_s=0.05923602172687428),
+    })
 # the workload batch of tests/test_torch_workloads.py
 WL_HETERO = [("mesh", 16), ("folded_hexa_torus", 36), ("octamesh", 25)]
 WL_RATES = [0.05, 0.2, 0.5]
@@ -300,12 +598,17 @@ LANE_N = 13
 ROW_SHAPES = ((40, 1, 7, 4), (9, 1, 2, 3), (7, 1000, 5, 4), (3, 4099, 31, 2))
 NETSTEP_PROFILED_CALLS = 50
 
-# The LM serving path (qwen3-1.7b: flash attention, mamba2-1.3b: SSD
-# scan).  Peak rates of the H100 SXM data sheet by input type: the
-# tensor cores' dense bf16 rate, and float32 outside the tensor cores.
+# The LM serving path (qwen3-1.7b and gemma3-1b: flash attention,
+# mamba2-1.3b: SSD scan).  Peak rates of the H100 SXM data sheet by input
+# type: the tensor cores' dense bf16 rate, and float32 outside the tensor
+# cores.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SERVE = dict(batch=4, prompt=1024, gen=32)
+# gemma3-1b serves a 2048-token prompt: its local layers' 1024 window then
+# masks keys in prefill, and their ring caches wrap in decode
+SERVE_PROMPT = {"gemma3-1b": 2048}
 SERVE_LAUNCHES = {"qwen3-1.7b": ("flash_attention", 28),
+                  "gemma3-1b": ("flash_attention", 26),
                   "mamba2-1.3b": ("ssd_scan", 48)}
 SERVE_TOL = 0.08            # tests/test_integration.py's kernel tolerance
 # bf16 serving through the kernels may sit no further from the f32
@@ -319,7 +622,7 @@ CARD_VS_CPU = dict(depth=2, batch=1, prompt=256, decode=4, tol=1e-3)
 FLASH_CASES = [(128, 128, True, None), (256, 256, True, None),
                (128, 256, False, None), (256, 256, True, 128),
                (128, 128, True, 64)]
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 SSD_CASES = [(2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32),
              (3, 32, 8, 4, 4, 8), (1, 512, 4, 64, 128, 256)]
 SSD_BF16_CASES = [(1, 96, 2, 8, 8, 48), (2, 16, 4, 16, 16, 8),
@@ -328,7 +631,16 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 F32_MARGIN = 2.0            # f32 SSD at the path shape, against f64
 FLASH_PATH = dict(b=4, t=1024, h=16, kv=8, hd=128)          # qwen3-1.7b
+# gemma3-1b's prefill: 4 q heads over 1 kv head of 256, window 1024 on
+# five of every six layers; and the hd 256 cases beside it (GQA 4:1,
+# causal): (tq, tk) x window.  Tq <= Tk, so that every query row sees a
+# key (a row that sees none has no defined attention: the plain version
+# spreads it over all keys, the kernels over the tiles they visit)
+GEMMA_PATH = dict(b=4, t=2048, h=4, kv=1, hd=256, window=1024)
+HD256_CASES = [(tq, tk, window) for tq, tk in ((2048, 2048), (128, 256))
+               for window in (None, 1024, 96)]
 SSD_PATH = dict(b=4, t=1024, h=64, p=64, n=128, chunk=256)  # mamba2-1.3b
+ROUTE = {"bfloat16": "bf16", "float32": "f32"}
 LM_TIMING_SAMPLES = 10
 DECODE_PROFILE_STEPS = 8
 
@@ -377,9 +689,7 @@ def experiment_scenarios(X, W, F, T) -> list:
     ]
     out = [X.Scenario(name, MAIN_N, "organic", "uniform", area=74.0,
                       rates=grid)
-           for name in ("mesh", "folded_torus", "hexamesh",
-                        "folded_hexa_torus", "octamesh",
-                        "folded_octa_torus")]
+           for name in PRINCIPLED]
     out += [X.Scenario(name, MAIN_N, "organic", wl, rates=grid)
             for name in ("mesh", "folded_hexa_torus") for wl in workloads]
     topo = T.build("folded_hexa_torus", MAIN_N, substrate="organic")
@@ -387,6 +697,26 @@ def experiment_scenarios(X, W, F, T) -> list:
                                    for k, kind in EXP_FAULTS]
     out += [X.Scenario("folded_hexa_torus", MAIN_N, "organic", "uniform",
                        faults=fs, rates=grid) for fs in fault_sets]
+    return out
+
+
+def collective_scenarios(X, W, C) -> list:
+    """The `collectives` phase's 20 scenarios at N = 64 (also built by
+    tools/smoke_reference.py with the JAX package; C is the configs
+    module): on each principled topology, organic, the training step of
+    qwen3-1.7b (fsdp_gather, fwd_tp, bwd_tp, grad_reduce), that of
+    qwen3-moe-235b-a22b (plus moe_a2a) and the MoE step beside a uniform
+    serving tenant at 30% of the load; then folded_hexa_torus and mesh on
+    glass under the qwen3-1.7b step."""
+    grid = X.SaturationGrid(EXP_RATES)
+    dense = C.get_config("qwen3-1.7b")
+    moe = C.get_config("qwen3-moe-235b-a22b")
+    workloads = [*W.collective_workloads([dense, moe]),
+                 W.mixed_tenant(moe, "uniform", serve_frac=0.3)]
+    out = [X.Scenario(name, COLL_N, "organic", wl, rates=grid)
+           for name in PRINCIPLED for wl in workloads]
+    out += [X.Scenario(name, COLL_N, "glass", workloads[0], rates=grid)
+            for name in ICI_TOPOLOGIES]
     return out
 
 
@@ -458,6 +788,28 @@ def ptxas_lines(lib_path) -> list:
     return [ln.strip() for ln in (log.read_text().splitlines()
                                   if log.exists() else [])
             if "registers" in ln or "spill" in ln]
+
+
+def ptxas_functions(lib_path) -> dict:
+    """Per kernel function of a library's build log (ptxas -v): its
+    registers and spill store / load bytes."""
+    log = lib_path.with_suffix(".log")
+    out, name = {}, None
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def spill_bytes(ptxas) -> list:
@@ -577,12 +929,18 @@ def ssd_inputs(torch, gen, b, t, h, p, n, dtype, dev):
             randn(torch, gen, (b, t, n), dtype, dev))
 
 
-def flash_bound(torch, q, k, v, causal=True):
+def flash_bound(torch, q, k, v, causal=True, window=None):
     """(bound ms, bound_by, bytes, flops): q, k, v read once, o written
-    once; 4 flops per (q, k) pair the causal mask keeps and head dim."""
+    once; 4 flops per (q, k) pair the causal (and window) mask keeps and
+    head dim (causal: Tq = Tk)."""
     b, tq, h, hd = q.shape
     tk = k.shape[1]
-    pairs = tq * (tq + 1) // 2 if causal else tq * tk
+    if not causal:
+        pairs = tq * tk
+    elif window is None or window >= tq:
+        pairs = tq * (tq + 1) // 2
+    else:
+        pairs = window * (window + 1) // 2 + (tq - window) * window
     n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
     flops = 4 * b * h * hd * pairs
     return bound(n_bytes, flops, str(q.dtype).split(".")[-1])
@@ -787,11 +1145,95 @@ def experiments_phase(torch, dev, smi, netstep, static_profile) -> int:
     return exp_launches
 
 
+def collectives_phase(torch, dev, smi, netstep) -> int:
+    """`collectives`; returns netstep's launches in the Experiment's run."""
+    from repro_torch import configs as C
+    from repro_torch import experiments as X
+    from repro_torch import workloads as W
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.collectives import build_ici_model
+    from repro_torch.sweep.engine import SweepEngine
+    t0 = time.perf_counter()
+    cfg = sim.SimConfig(cycles=EXP_CYCLES, warmup=EXP_WARMUP)
+    exp = X.Experiment(collective_scenarios(X, W, C), cfg=cfg,
+                       name="chip_smoke_collectives", backend="sim")
+    engine = SweepEngine(cfg=cfg, device=dev)
+    plan = X.plan(exp, engine)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    netstep.launches = 0
+    t1 = time.perf_counter()
+    frame = X.execute(plan, engine=engine, on_error="raise")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t1
+    launches = netstep.launches
+    groups = engine.stats["groups"]
+    check(groups == len(plan.buckets),
+          f"{groups} engine groups for {len(plan.buckets)} buckets")
+    check(launches == cfg.cycles * groups,
+          f"the collectives Experiment launched netstep {launches} times "
+          f"for {cfg.cycles} cycles x {groups} groups")
+    ref_rows = REFERENCE_COLLECTIVES["table"]
+    check(len(frame.rows) == len(ref_rows),
+          f"{len(frame.rows)} rows for {len(ref_rows)} reference scenarios")
+    phases = {}
+    for row, res, ref in zip(frame.rows, frame.results, ref_rows):
+        label = (f"{row['topology']}/{row['substrate']}/{row['traffic']}/"
+                 f"{row['faults']}")
+        check(row["status"] == "ok" and label == ref["label"],
+              f"row {label} status {row['status']} ({ref['label']})")
+        for key in RAW:
+            check(res[key].tolist() == ref[key],
+                  f"{label} {key} {res[key].tolist()} != {ref[key]}")
+        for key in ("sim_saturation", "abs_throughput_gbps", "latency_ns"):
+            check(row[key] == ref[key],
+                  f"{label} {key} {row[key]!r} != {ref[key]!r}")
+        got = res["delivered_ph"][int(res["throughput"].argmax())]
+        check(got.tolist() == ref["delivered_ph"],
+              f"{label} delivered_ph {got.tolist()} != "
+              f"{ref['delivered_ph']}")
+        phases[label] = got.tolist()
+    # the ICI model through the simulator (default SimConfig, one group
+    # each), against the JAX package's values
+    t2 = time.perf_counter()
+    netstep.launches = 0
+    ici = {}
+    for name in ICI_TOPOLOGIES:
+        m = build_ici_model(name, COLL_N, "organic", use_sim=True,
+                            device=dev)
+        got = dict(b_eff_gbps=m.b_eff_gbps,
+                   all_reduce_s=m.collective_time_s("all_reduce", ICI_BYTES))
+        check(got == REFERENCE_COLLECTIVES["ici"][name],
+              f"build_ici_model({name}) {got} != "
+              f"{REFERENCE_COLLECTIVES['ici'][name]}")
+        ici[name] = got
+    ici_launches = netstep.launches
+    check(ici_launches == sim.SimConfig().cycles * len(ICI_TOPOLOGIES),
+          f"build_ici_model launched netstep {ici_launches} times")
+    emit("collectives", n=COLL_N, scenarios=len(exp.scenarios),
+         rate_rows=sum(len(ps.rates) for b in plan.buckets
+                       for ps in b.items),
+         all_ok=True, rows_equal_reference=True, cycles=cfg.cycles,
+         groups=groups, netstep_launches=launches,
+         setup_seconds=round(setup_s, 3), wall_seconds=wall_s,
+         ms_per_simulated_cycle=1e3 * wall_s / (cfg.cycles * groups),
+         sim_saturation=[[f"{r['topology']}/{r['substrate']}/"
+                          f"{r['traffic']}", r["sim_saturation"]]
+                         for r in frame.rows],
+         delivered_ph_at_saturation=phases,
+         ici_model=ici, ici_equal_reference=True,
+         ici_netstep_launches=ici_launches,
+         ici_seconds=round(time.perf_counter() - t2, 3),
+         seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
+    return launches
+
+
 def lm_phases(torch, dev, smi, fops, sops, serve):
     """The LM phases; returns the kernel summary rows of flash_attention
     and ssd_scan."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ablate
     from repro_torch.models import Model
 
     gen = torch.Generator().manual_seed(12)
@@ -826,9 +1268,40 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
             f32_flash = (q, k, v)
         else:
             fq, fk, fv = q, k, v
-    flash_err = path_errs["bfloat16"]
+    # hd 256: GQA 4:1, causal, windows None / 1024 / 96, long and ragged
+    for dname, dtype in dtypes.items():
+        for tq, tk, window in HD256_CASES:
+            q, k, v = flash_inputs(torch, gen, 2, tq, tk, 4, 1, 256, dtype,
+                                   dev)
+            what = f"{dname} hd 256 {tq}x{tk} causal=True window={window}"
+            errs[what] = check_close(
+                torch, fops.flash_attention(q, k, v, causal=True,
+                                            window=window),
+                fops.flash_attention_plain(q, k, v, causal=True,
+                                           window=window),
+                FLASH_TOL[dname], "flash " + what)
+    # gemma3-1b's prefill shape, global and local layers
+    gp = GEMMA_PATH
+    gemma_errs, gemma_flash = {}, {}
+    for dname, dtype in dtypes.items():
+        gemma_flash[dname] = flash_inputs(torch, gen, gp["b"], gp["t"],
+                                          gp["t"], gp["h"], gp["kv"],
+                                          gp["hd"], dtype, dev)
+        for window in (None, gp["window"]):
+            gemma_errs[f"{dname} window={window}"] = check_close(
+                torch, fops.flash_attention(*gemma_flash[dname], causal=True,
+                                            window=window),
+                fops.flash_attention_plain(*gemma_flash[dname], causal=True,
+                                           window=window),
+                FLASH_TOL[dname], f"flash {dname} at gemma3-1b's shape, "
+                f"window {window}")
+    flash_err = max(path_errs["bfloat16"],
+                    *(e for w, e in gemma_errs.items()
+                      if w.startswith("bfloat16")))
     emit("flash_vs_plain", cases=errs, path_shape=list(fq.shape),
          path_kv_heads=fp["kv"], path_max_abs_err=path_errs,
+         gemma3_shape=list(gemma_flash["bfloat16"][0].shape),
+         gemma3_kv_heads=gp["kv"], gemma3_max_abs_err=gemma_errs,
          tol=FLASH_TOL, seconds=round(time.perf_counter() - t0, 3))
 
     # ---- SSD scan vs plain, both routes ------------------------------------
@@ -948,12 +1421,13 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
          seconds=round(time.perf_counter() - t0, 3))
 
     # ---- the serving path, full depth and width ----------------------------
-    launches = {}
+    launches, serve_launches = {}, {}
     serve_rows = {}
     for arch, (name, per_prefill) in SERVE_LAUNCHES.items():
         t0 = time.perf_counter()
+        prompt = SERVE_PROMPT.get(arch, SERVE["prompt"])
         argv = ["--arch", arch, "--batch", str(SERVE["batch"]),
-                "--prompt-len", str(SERVE["prompt"]), "--gen",
+                "--prompt-len", str(prompt), "--gen",
                 str(SERVE["gen"]), "--seed", "0"]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -963,7 +1437,8 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
         counts = {"flash_attention": fops.flash_attention.launches,
                   "ssd_scan": sops.ssd_scan.launches}
         peak = torch.cuda.max_memory_allocated()
-        launches[name] = counts[name]
+        launches[name] = launches.get(name, 0) + counts[name]
+        serve_launches[arch] = counts[name]
         check(counts[name] == per_prefill,
               f"{arch}: serve launched {name} {counts[name]} times, not "
               f"{per_prefill} per prefill")
@@ -976,7 +1451,7 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
 
         model = serve.load_model(arch, seed=0)
         tokens = torch.from_numpy(serve.prompts(
-            model.cfg, SERVE["batch"], SERVE["prompt"], 0)).to(dev)
+            model.cfg, SERVE["batch"], prompt, 0)).to(dev)
         # prefill logits four ways: kernels on / off, bf16 / f32 compute
         serving = model.cfg
         logits = {}
@@ -1005,8 +1480,7 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
                                  ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             for i in range(DECODE_PROFILE_STEPS):
-                _, caches = model.decode_step(caches, tok,
-                                              SERVE["prompt"] + i)
+                _, caches = model.decode_step(caches, tok, prompt + i)
             torch.cuda.synchronize()
             decode_wall_s = time.perf_counter() - t1
         events = device_rows(prof)
@@ -1029,7 +1503,7 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
                     for e in sorted(events, key=device_us,
                                     reverse=True)[:6]}))
         emit("serve", arch=arch, **serve_rows[arch],
-             batch=SERVE["batch"], prompt=SERVE["prompt"], gen=SERVE["gen"],
+             batch=SERVE["batch"], prompt=prompt, gen=SERVE["gen"],
              compute_dtype="bfloat16", nvidia_smi=smi,
              seconds=round(time.perf_counter() - t0, 3))
         # at full depth the kernels compute their plain versions' function
@@ -1104,15 +1578,57 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
              library_ms=None,
              library_note="no single PyTorch call computes the SSD scan"))
 
+    # gemma3-1b's prefill shape, both routes: global layers (causal) and
+    # local ones (window 1024) beside SDPA at the global layers' shape
+    gemma_rows = {}
+    for dname in dtypes:
+        gq, gk, gv = gemma_flash[dname]
+        row = dict(shape=list(gq.shape), kv_heads=gp["kv"],
+                   window=gp["window"])
+        for label, window in (("global", None), ("local", gp["window"])):
+            b_ = flash_bound(torch, gq, gk, gv, window=window)
+            row[label] = dict(
+                kernel_ms=time_ms(torch, lambda: fops.flash_attention(
+                    gq, gk, gv, causal=True, window=window),
+                    LM_TIMING_SAMPLES, 5),
+                plain_ms=time_ms(torch, lambda: fops.flash_attention_plain(
+                    gq, gk, gv, causal=True, window=window),
+                    LM_TIMING_SAMPLES, 2),
+                bound_ms=b_[0], bound_by=b_[1], bytes=b_[2], flops=b_[3])
+        gqt, gkt, gvt = (x.transpose(1, 2).contiguous() for x in (gq, gk, gv))
+        row["global"]["library_ms"] = time_ms(torch, lambda: sdpa(
+            gqt, gkt, gvt, is_causal=True, enable_gqa=True),
+            LM_TIMING_SAMPLES, 5)
+        gemma_rows[dname] = row
+        del gqt, gkt, gvt
+    emit("lm_timing_hd256", nvidia_smi=smi, samples=LM_TIMING_SAMPLES,
+         library="scaled_dot_product_attention(is_causal=True, "
+                 "enable_gqa=True), global layers",
+         **gemma_rows)
+
     # ---- profile: device time per wrapper call, decode idle share ----------
+    gw = gp["window"]
     calls = {"flash_attention_bf16": lambda: flash_call(fq, fk, fv),
              "flash_attention_f32": lambda: flash_call(*f32_flash),
+             "flash_attention_bf16_hd256": lambda: flash_call(
+                 *gemma_flash["bfloat16"]),
+             "flash_attention_bf16_hd256_window": lambda: fops.flash_attention(
+                 *gemma_flash["bfloat16"], causal=True, window=gw),
+             "flash_attention_f32_hd256": lambda: flash_call(
+                 *gemma_flash["float32"]),
+             "flash_attention_f32_hd256_window": lambda: fops.flash_attention(
+                 *gemma_flash["float32"], causal=True, window=gw),
              "ssd_scan_bf16": lambda: ssd_call(*ssd_args),
              "ssd_scan_f32": lambda: ssd_call(*f32_ssd)}
     per_call = {name: wrapper_device_ms(torch, fn) for name, fn in
                 calls.items()}
+    # device ms per call with no host work between calls (a CUDA graph of
+    # back-to-back calls), which the profiler's misses do not affect
+    graph = {name: ablate.graph_ms(fn, samples=LM_TIMING_SAMPLES)
+             for name, fn in calls.items()}
     emit("lm_profile",
          device_ms_per_call={k: v[0] for k, v in per_call.items()},
+         graph_ms_per_call=graph,
          device_ms_per_kernel={k: v[1] for k, v in per_call.items()},
          decode={arch: row["decode_profile"]
                  for arch, row in serve_rows.items()})
@@ -1122,18 +1638,34 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
                     "flash_attention_bf16.cu",
              replaces="src/repro/kernels/flash_attention/"
                       "flash_attention.py:28",
-             launches=launches["flash_attention"], max_abs_err=flash_err,
-             ms=first(per_call["flash_attention_bf16"][0], flash_ms),
+             launches=launches["flash_attention"],
+             launches_by_arch={a: serve_launches[a] for a, (n, _) in
+                               SERVE_LAUNCHES.items()
+                               if n == "flash_attention"},
+             max_abs_err=flash_err,
+             ms=graph["flash_attention_bf16"],
+             profiler_ms=per_call["flash_attention_bf16"][0],
              events_ms=flash_ms,
              plain_ms=flash_plain_ms, bound_ms=f_bound[0],
              bound_by=f_bound[1], library_ms=flash_library_ms,
+             hd256=dict(
+                 shape=gemma_rows["bfloat16"]["shape"], kv_heads=gp["kv"],
+                 launches=serve_launches["gemma3-1b"],
+                 max_abs_err=gemma_errs,
+                 **{f"{d}_{layer}": dict(
+                     ms=graph[f"flash_attention_{ROUTE[d]}_hd256"
+                              + ("_window" if layer == "local" else "")],
+                     **gemma_rows[d][layer])
+                    for d in ("bfloat16", "float32")
+                    for layer in ("global", "local")}),
              routes={"bfloat16": "cuda, wgmma + TMA: flash_attention_bf16.cu",
                      "float32": "cuda, CUDA-core FMA: flash_attention.cu"}),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bf16.cu",
              replaces="src/repro/kernels/ssd_scan/ssd_scan.py:26",
              launches=launches["ssd_scan"], max_abs_err=ssd_err,
-             ms=first(per_call["ssd_scan_bf16"][0], ssd_ms),
+             ms=graph["ssd_scan_bf16"],
+             profiler_ms=per_call["ssd_scan_bf16"][0],
              events_ms=ssd_ms,
              plain_ms=ssd_plain_ms, bound_ms=s_bound[0], bound_by=s_bound[1],
              library_ms=None,
@@ -1196,10 +1728,19 @@ def main() -> int:
          spill_bytes=sum(spills))
     check(spills and not any(spills),
           f"netstep: ptxas reports spills or nothing: {netstep_ptxas}")
+    # the hd 256 instantiations of both flash routes (template argument
+    # 256: "ILi256E" in the mangled name), spills included
+    hd256 = {lib.stem: {f: r for f, r in ptxas_functions(path).items()
+                        if "ILi256E" in f}
+             for lib, path in zip(libs, paths)
+             if lib.stem.startswith("flash_attention")}
     emit("build_lm", seconds=round(build_s, 3), built_with="netstep",
          libraries={lib.stem: dict(library=str(path.relative_to(ROOT)),
                                    ptxas=ptxas_lines(path))
-                    for lib, path in zip(libs[1:], paths[1:])})
+                    for lib, path in zip(libs[1:], paths[1:])},
+         flash_hd256_ptxas=hd256)
+    check(all(hd256.values()), f"no hd 256 flash instantiation in the "
+          f"ptxas logs: {hd256}")
 
     # ---- SASS: the bf16 routes run on the tensor cores, netstep matches ----
     counts = {lib.stem: sass_counts(path, nvcc())
@@ -1424,6 +1965,7 @@ def main() -> int:
     workload_phase(torch, dev, netstep)
     exp_launches = experiments_phase(torch, dev, smi, netstep,
                                      static_profile)
+    coll_launches = collectives_phase(torch, dev, smi, netstep)
 
     lm_rows = lm_phases(torch, dev, smi, fops, sops, serve)
 
@@ -1432,6 +1974,7 @@ def main() -> int:
         source="src/repro_torch/kernels/netstep/csrc/netstep.cu",
         replaces="src/repro/kernels/netstep/netstep.py:28",
         launches=main_launches, launches_experiments=exp_launches,
+        launches_collectives=coll_launches,
         max_abs_err=max_err,
         ms=first(main_row["device_ms"], main_row["events_ms"]),
         events_ms=main_row["events_ms"],

@@ -11,12 +11,16 @@ arbitration takes `__reduce_min_sync` as an earlier design did.  It puts
 each copy in the wrapper's library table in turn and times the wrapper:
 flash attention and the SSD scan at the serving shape, netstep at the
 simulator's shapes.  It reports the profiler's device time
-of every CUDA kernel per call, and CUDA events around back-to-back calls.
+of every CUDA kernel per call, CUDA events around back-to-back calls, and
+CUDA events around the replay of a CUDA graph of back-to-back calls
+(`graph_ms`: device time with no host work between the launches).
 A cut copy computes nothing meaningful; only its time is read.  What a
 cut saves is what that part costs on the card, so the cuts show what
 bounds each kernel.  KERNEL names which kernels to time (all three when
-none is given).  `--against SRC` also times SRC, an earlier netstep source
-with the same C entry point, through the same wrapper, as cut "against".
+none is given).  `--against SRC` also times SRC, an earlier source of the
+one KERNEL named (netstep when none or several are: e.g. the parent
+commit's `netstep.cu` or `flash_attention_bf16.cu`) with the same C entry
+point, through the same wrapper, as cut "against".
 Prints the card's name and power limit, then one JSON line per (kernel,
 cut, shape).
 """
@@ -148,10 +152,42 @@ def variant_libs(name: str) -> dict:
     return libs
 
 
+def graph_ms(fn, launches: int = 20, samples: int = 10) -> float:
+    """Device ms per call of `fn` with no host work between the calls:
+    `launches` calls captured in one CUDA graph, whose replay CUDA events
+    time; the median over `samples` replays, after a warm-up call (which
+    builds the kernel and sets its attributes) and a warm-up replay.  The
+    wrapper's launch count rises by `launches` at the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def measure(fn, calls: int = 20, profiled: int = 5) -> dict:
     """Device ms per call (each CUDA kernel's mean per launch, summed; the
     kernels of one wrapper call launch once each) over `profiled` calls,
-    and CUDA-event ms per call over `calls` back-to-back calls."""
+    CUDA-event ms per call over `calls` back-to-back calls, and
+    `graph_ms` over `calls` calls in one graph."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -176,7 +212,8 @@ def measure(fn, calls: int = 20, profiled: int = 5) -> dict:
     end.synchronize()
     return dict(device_ms=sum(per_kernel.values()) or None,
                 per_kernel_ms=per_kernel,
-                events_ms=start.elapsed_time(end) / calls)
+                events_ms=start.elapsed_time(end) / calls,
+                graph_ms=graph_ms(fn, launches=calls))
 
 
 def netstep_inputs(shape, gen, dev):
@@ -195,7 +232,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernels", nargs="*", choices=names)
     ap.add_argument("--against", type=Path, default=None,
-                    help="an earlier netstep source to time beside it")
+                    help="an earlier source of the one KERNEL named "
+                         "(default netstep) to time beside it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate: needs a CUDA card")
@@ -205,10 +243,12 @@ def main() -> None:
                          text=True, check=True).stdout.strip(), flush=True)
     gen = torch.Generator().manual_seed(0)
     variants = {name: variant_libs(name) for name in args.kernels or names}
-    if args.against is not None and "netstep" in variants:
-        variants["netstep"]["against"] = CudaLibrary(
-            args.against, "netstep_against", nops.LIB.entry,
-            nops.LIB.argtypes)
+    if args.against is not None:
+        name = args.kernels[0] if len(args.kernels) == 1 else "netstep"
+        base = base_lib(name)
+        variants.setdefault(name, variant_libs(name))["against"] = \
+            CudaLibrary(args.against, f"{base.stem}_against", base.entry,
+                        base.argtypes)
     build_all([lib for libs in variants.values() for lib in libs.values()])
 
     def randn(*shape):

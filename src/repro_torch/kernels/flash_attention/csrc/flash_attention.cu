@@ -13,7 +13,8 @@
 // tiles outside [lo, hi) are skipped, and the output is acc / max(l, 1e-30).
 //
 // Layout: q and o [B, Tq, H, hd], k and v [B, Tk, KV, hd], contiguous
-// float32.  The GQA repeat is not materialised: q head h reads kv head
+// float32, hd in {16, 32, 64, 128, 256} (at hd 256 the tiles take
+// smem_bytes<256>() = 217,600 B, one block per SM).  The GQA repeat is not materialised: q head h reads kv head
 // h / (H / KV), the head `jnp.repeat` would have put there.
 //
 // Design: one block of 256 threads per (batch * head, 64-row q tile).  The
@@ -215,6 +216,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32: return launch<32>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
     case 64: return launch<64>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
     case 128: return launch<128>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
+    case 256: return launch<256>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,7 +14,7 @@
 // (on the TPU an f32 dot at default precision also fed the MXU bf16).
 //
 // Layout: q and o [B, Tq, H, hd], k and v [B, Tk, KV, hd], contiguous bf16,
-// Tq and Tk multiples of 64, hd in {16, 32, 64, 128}.  GQA is read in
+// Tq and Tk multiples of 64, hd in {16, 32, 64, 128, 256}.  GQA is read in
 // place: q head h reads kv head h / (H / KV).
 //
 // Bound: at the serving path's shape (qwen3-1.7b prefill, [4, 1024, 16,
@@ -41,6 +41,22 @@
 // rescaled once P V is in.  A stage is released one tile late, hence
 // three stages so that one load is always in flight.  The masks are
 // applied only on tiles that straddle the diagonal or the window edge.
+//
+// hd 256 (gemma3-1b) is the same kernel with two changes that the shape
+// forces; hd <= 128 compiles to what it was.  (1) Shared memory: a [64,
+// 256] bf16 tile is 32 KB, so three K/V stages and two Q tiles (263,168 B)
+// exceed the 232,448 B a block may have; hd 256 keeps two stages
+// (197,672 B), and a load then waits for the release of the tile before.
+// (2) P V: the accumulator is [64, 256], kept as four m64n64k16 products
+// per 16 keys, one per 64-column panel of V, each reading its panel as the
+// hd 64 kernel reads its whole tile (acc[32 p .. 32 p + 31] holds columns
+// 64 p .. 64 p + 63).  Q Kᵀ steps across the four panels as at hd 128.
+// The 128 accumulator floats per thread, S and the P fragment exceed the
+// 168 registers per thread that ptxas allots this 288-thread block (65,536
+// over 384 threads: three whole warpgroups), so hd 256 spills (ptxas on
+// sm_90a: 892 bytes of spill stores); chip_smoke.py prints the report.
+// setmaxnreg, moving registers from a whole producer warpgroup to the
+// consumers, is the known way out and is left to a later change.
 // Blocks are numbered so that the q tiles with the most keys (the last
 // ones, when causal) start first.
 //
@@ -56,7 +72,6 @@
 namespace {
 
 constexpr int kTile = 64;            // q rows per warpgroup, keys per tile
-constexpr int kStages = 3;           // k/v tiles in flight
 constexpr int kConsumers = 2;        // consumer warpgroups per block
 constexpr int kThreads = 128 * kConsumers + 32;   // + one producer warp
 constexpr float kNegInf = -1e30f;
@@ -71,6 +86,8 @@ struct Tile {
   static constexpr int kRowBytes = 2 * kPanel;          // 32, 64 or 128
   static constexpr int kPanelBytes = kTile * kRowBytes;
   static constexpr int kBytes = kTile * HD * 2;
+  // k/v tiles in flight: three, or two where three do not fit (hd 256)
+  static constexpr int kStages = HD > 128 ? 2 : 3;
   // wgmma descriptor layout: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
   static constexpr uint64_t kLayout =
       kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
@@ -184,8 +201,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// O[64 x HD] += P[64 x 16] V[16 x HD]: P in registers, V MN-major in
-// shared memory (the transpose bit).  One overload per head dim.
+// O[64 x N] += P[64 x 16] V[16 x N]: P in registers, V MN-major in
+// shared memory (the transpose bit).  One overload per width N = HD up
+// to 128; hd 256 issues four N = 64 products.
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[8],
                                          const uint32_t (&a)[4],
@@ -269,6 +287,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "r"(scale_d));
 }
 
+// O[64 x 256] += P[64 x 16] V[16 x 64] for the 64 columns of panel P of
+// V: accumulator elements 32 P .. 32 P + 31, named by constant indices as
+// every other wgmma operand list here names its registers
+template <int P>
+__device__ __forceinline__ void wgmma_rs_panel(float (&d)[128],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  constexpr int o = 32 * P;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),
+        "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7]),
+        "+f"(d[o + 8]), "+f"(d[o + 9]), "+f"(d[o + 10]), "+f"(d[o + 11]),
+        "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), "+f"(d[o + 15]),
+        "+f"(d[o + 16]), "+f"(d[o + 17]), "+f"(d[o + 18]), "+f"(d[o + 19]),
+        "+f"(d[o + 20]), "+f"(d[o + 21]), "+f"(d[o + 22]), "+f"(d[o + 23]),
+        "+f"(d[o + 24]), "+f"(d[o + 25]), "+f"(d[o + 26]), "+f"(d[o + 27]),
+        "+f"(d[o + 28]), "+f"(d[o + 29]), "+f"(d[o + 30]), "+f"(d[o + 31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
@@ -300,12 +345,34 @@ __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
   pin(acc);
   pin(pa);
   wgmma_fence();
+  if constexpr (HD <= 128) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(acc, pa[kk],
-             desc(v_tile + kk * 16 * T::kRowBytes, T::kPanelBytes,
-                  8 * T::kRowBytes, T::kLayout),
-             1);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, pa[kk],
+               desc(v_tile + kk * 16 * T::kRowBytes, T::kPanelBytes,
+                    8 * T::kRowBytes, T::kLayout),
+               1);
+  } else {
+    // hd 256: one m64n64k16 per 64-column panel p of V, whose columns
+    // 64 p .. 64 p + 63 of O are acc[32 p .. 32 p + 31]
+    static_assert(HD == 256, "P V is written for hd <= 128 and 256");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t v_kk = v_tile + kk * 16 * T::kRowBytes;
+      constexpr uint32_t sbo = 8 * T::kRowBytes;
+      wgmma_rs_panel<0>(acc, pa[kk],
+                        desc(v_kk, T::kPanelBytes, sbo, T::kLayout), 1);
+      wgmma_rs_panel<1>(acc, pa[kk],
+                        desc(v_kk + T::kPanelBytes, T::kPanelBytes, sbo,
+                             T::kLayout), 1);
+      wgmma_rs_panel<2>(acc, pa[kk],
+                        desc(v_kk + 2 * T::kPanelBytes, T::kPanelBytes, sbo,
+                             T::kLayout), 1);
+      wgmma_rs_panel<3>(acc, pa[kk],
+                        desc(v_kk + 3 * T::kPanelBytes, T::kPanelBytes, sbo,
+                             T::kLayout), 1);
+    }
+  }
   wgmma_commit();
 }
 
@@ -407,6 +474,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       int h, int kvh, int causal, int window,
                       float sm_scale) {
   using T = Tile<HD>;
+  constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
   // tiles start on 1024 bytes, the period of the 128 B swizzle
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -612,7 +680,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       !make_map<HD>(&tm_v, v, kvh, (long long)b * tk))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      1024 + (size_t)(kConsumers + 2 * kStages) * T::kBytes + 16 * kStages + 8;
+      1024 + (size_t)(kConsumers + 2 * T::kStages) * T::kBytes +
+      16 * T::kStages + 8;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -645,6 +714,7 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
     case 32: return launch<32>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
     case 64: return launch<64>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
     case 128: return launch<128>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
+    case 256: return launch<256>(q, k, v, o, b, tq, tk, h, kvh, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

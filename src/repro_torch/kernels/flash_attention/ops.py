@@ -12,9 +12,9 @@ The route is chosen by dtype, never by failure:
   float32   `csrc/flash_attention.cu`: exact float32 FMAs on the CUDA
             cores, to meet the 2e-5 / 1e-3 tolerances float32 is held to
 
-Both take hd in {16, 32, 64, 128} and Tq, Tk multiples of 64 (the
-bf16 kernel's q tile per warpgroup and key tile; its TMA also needs
-16-byte aligned inputs).  A CUDA input never falls back: an input the
+Both take hd in {16, 32, 64, 128, 256} (any other hd raises) and Tq,
+Tk multiples of 64 (the bf16 kernel's q tile per warpgroup and key tile;
+its TMA also needs 16-byte aligned inputs).  A CUDA input never falls back: an input the
 kernel does not take, a build failure or a launch failure raises.
 `flash_attention.launches` counts kernel launches only.
 """
@@ -29,7 +29,7 @@ from ..build import CudaLibrary
 from .ref import attention_ref
 
 TILE = 64                        # q and k rows per tile of both kernels
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # the kernel of each input dtype
@@ -96,7 +96,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
                         f"got {q.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+                         f"not {hd}")
     if tq % TILE or tk % TILE:
         raise ValueError(f"flash_attention kernel needs Tq and Tk multiples "
                          f"of {TILE}, got {tq} and {tk}")

@@ -3,8 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
-Runs on the CUDA card unless `--device cpu` is given (without a card and
-without it, it raises).  The flash-attention and SSD-scan kernels are
+`--arch` names any decoder arch `Model` builds: the serving path is
+held against the JAX package for qwen3-1.7b, gemma3-1b (hd 256, 5 local
+: 1 global sliding-window layers) and mamba2-1.3b; MoE, MLA and
+encoder-decoder archs raise.  Runs on the CUDA card unless `--device
+cpu` is given (without a card and without it, it raises).  The flash-attention and SSD-scan kernels are
 switched on, so on the card prefill goes through both; on the CPU their
 wrappers compute the plain versions.  Parameters come from `Model.init`
 with a `torch.Generator` seeded by `--seed` on the run's device; prompts

@@ -5,9 +5,11 @@ torch dtypes.  `Model` is an `nn.Module` whose layers sit in an
 `nn.ModuleList` in true layer order; the JAX package stacks them per
 pattern slot and runs a `lax.scan` over repetitions, so its layer
 `rep * len(pattern) + slot` is the port's `layers[i]` at that index,
-then the tail.  This slice ports the GQA (+ qk-norm, sliding window) and
+then the tail.  The port has the GQA (+ qk-norm, sliding window) and
 Mamba2 decoders' `logits_fn`, `prefill`, `init_cache` and `decode_step`
-(no loss, no backward); MLA, MoE and the encoder-decoder raise.
+(no loss, no backward): qwen3-1.7b, gemma3-1b, starcoder2-3b,
+chameleon-34b and mamba2-1.3b build; MLA, MoE and the encoder-decoder
+raise.
 """
 from __future__ import annotations
 

@@ -190,7 +190,7 @@ def _randn(rng, shape, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("tq,tk,causal,window", [
     (128, 128, True, None), (256, 256, True, None), (128, 256, False, None),
     (256, 256, True, 128), (128, 128, True, 64)])
@@ -233,6 +233,22 @@ def test_flash_f32_kernel_matches_plain_at_serving_shape(cuda):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_at_gemma3_shape(cuda, dtype):
+    """gemma3-1b's prefill at batch 1: 4 q heads over 1 kv head of 256,
+    prompt 2048, causal, global (no window) and local (window 1024)."""
+    rng = np.random.default_rng(10)
+    q = _randn(rng, (1, 2048, 4, 256), dtype, cuda)
+    k = _randn(rng, (1, 2048, 1, 256), dtype, cuda)
+    v = _randn(rng, (1, 2048, 1, 256), dtype, cuda)
+    tol = FLASH_TOL[dtype]
+    for window in (None, 1024):
+        got = fops.flash_attention(q, k, v, causal=True, window=window)
+        want = fops.flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
 @pytest.mark.parametrize("h,kv,tq", [(3, 1, 192), (6, 2, 64), (4, 4, 320)])
 def test_flash_bf16_kernel_pairs_heads_and_tiles(cuda, h, kv, tq):
     """The bf16 kernel's two warpgroups share a block: two q heads of one
@@ -252,7 +268,9 @@ def test_flash_bf16_kernel_pairs_heads_and_tiles(cuda, h, kv, tq):
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     rng = np.random.default_rng(2)
     q = _randn(rng, (1, 128, 2, 64), torch.float32, cuda)
-    with pytest.raises(ValueError, match="hd in"):
+    # hd 48 is still refused: the kernels take 16, 32, 64, 128 and 256
+    with pytest.raises(ValueError, match=r"hd in \(16, 32, 64, 128, 256\), "
+                                         r"not 48"):
         fops.flash_attention(q[..., :48], q[..., :48], q[..., :48])
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fops.flash_attention(q.half(), q.half(), q.half())

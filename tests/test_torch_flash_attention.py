@@ -49,7 +49,7 @@ def test_attention_ref_matches_reference(tq, tk, causal, window, dtype):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("hd", [16, 128, 256])
 @pytest.mark.parametrize("tq,tk,causal,window", [
     (128, 128, True, None),
     (256, 256, True, None),
@@ -98,6 +98,30 @@ def test_gqa_wrapper_on_cpu_matches_reference(window):
     assert tuple(got.shape) == (b, t, h, hd)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("window", [None, 96, 200])
+def test_plain_at_hd256_matches_reference(window, dtype):
+    """gemma3-1b's head dim: the plain version, GQA 4:1, against the JAX
+    package's oracle per (batch, head), with and without a window."""
+    rng = np.random.default_rng(5)
+    b, t, h, kv, hd = 1, 320, 4, 1, 256
+    q = rng.normal(0, 1, (b, t, h, hd)).astype(np.float32)
+    k = rng.normal(0, 1, (b, t, kv, hd)).astype(np.float32)
+    v = rng.normal(0, 1, (b, t, kv, hd)).astype(np.float32)
+    (jq, tq_), (jk, tk_), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    got = ops.flash_attention_plain(tq_, tk_, tv, causal=True, window=window)
+    kr, vr = jnp.repeat(jk, h // kv, 2), jnp.repeat(jv, h // kv, 2)
+    want = jax_attention_ref(
+        *(x.transpose(0, 2, 1, 3).reshape(b * h, t, hd)
+          for x in (jq, kr, vr)), causal=True, window=window) \
+        .reshape(b, h, t, hd).transpose(0, 2, 1, 3)
+    assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == q.shape
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
 
 
 def test_wrapper_checks_its_inputs():

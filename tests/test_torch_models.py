@@ -1,5 +1,8 @@
 """The port's decoder models on the CPU, held against the JAX package's
-`Model` on the smoke configs of qwen3-1.7b and mamba2-1.3b: both models
+`Model` on the smoke configs of qwen3-1.7b, gemma3-1b (5 local : 1
+global sliding-window layers; its SMOKE: hd 32, window 8, a global layer
+every 3), the other dense GQA decoders starcoder2-3b and chameleon-34b,
+and mamba2-1.3b: both models
 run the JAX package's `Model.init(PRNGKey(0))` parameters (carried over
 by `convert.params_from_reference`) on the same numpy-seeded tokens.
 
@@ -25,7 +28,8 @@ from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
 from repro_torch.models import DecodeDims, Model  # noqa: E402
 
-ARCHS = ["qwen3-1.7b", "mamba2-1.3b"]
+ARCHS = ["qwen3-1.7b", "gemma3-1b", "starcoder2-3b", "chameleon-34b",
+         "mamba2-1.3b"]
 COMPUTE = {"float32": (jnp.float32, torch.float32, 1e-4),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 0.08)}
 N_DECODE = 4
@@ -176,7 +180,9 @@ def test_params_from_reference_rejects_bad_trees(reference_params):
 
 def test_unported_archs_and_layers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        get_config("gemma3-1b")
+        Model(get_config("minicpm3-4b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        Model(get_config("seamless-m4t-medium"))
     moe = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):

@@ -10,7 +10,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b",
+                                  "mamba2-1.3b"])
 def test_serve_decodes_on_cpu(arch):
     b, gen = 2, 4
     toks = serve.main(["--smoke", "--arch", arch, "--batch", str(b),
