@@ -2,9 +2,10 @@
 `Model` on the smoke configs of qwen3-1.7b, gemma3-1b (5 local : 1
 global sliding-window layers; its SMOKE: hd 32, window 8, a global layer
 every 3), the other dense GQA decoders starcoder2-3b and chameleon-34b,
-and mamba2-1.3b: both models
-run the JAX package's `Model.init(PRNGKey(0))` parameters (carried over
-by `convert.params_from_reference`) on the same numpy-seeded tokens.
+and mamba2-1.3b: both models run the JAX package's
+`Model.init(PRNGKey(0))` parameters (carried over by
+`convert.params_from_reference`) on the same numpy-seeded tokens, and
+their logits and decode caches agree.
 
 Tolerances: 1e-4 at float32 compute (the two frameworks sum in other
 orders; the logits are O(1)), and atol = rtol = 0.08 at bfloat16, as
@@ -67,6 +68,25 @@ def _close(got, want, tol):
                                atol=tol, rtol=tol)
 
 
+def _caches_close(got, want, cfg, tol):
+    """The port's per-layer caches against the JAX package's stacked ones:
+    layer rep * len(pattern) + slot holds repetition rep of slot's leaves
+    (then the tail), leaf for leaf in the same nesting."""
+    pat, n_rep, _ = cfg.pattern()
+    for i, layer in enumerate(got):
+        rep, slot = divmod(i, len(pat))
+        if rep < n_rep:
+            ref = [leaf[rep] for leaf in jax.tree.leaves(want["blocks"][slot])]
+        else:
+            ref = jax.tree.leaves(want["tail"][i - n_rep * len(pat)])
+        mine = jax.tree.leaves(layer, is_leaf=lambda x: isinstance(
+            x, torch.Tensor))
+        assert len(mine) == len(ref), i
+        for a, b in zip(mine, ref):
+            assert tuple(a.shape) == tuple(b.shape), i
+            _close(a, b, tol)
+
+
 @pytest.mark.parametrize("compute", list(COMPUTE))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_reference(arch, compute,
@@ -85,6 +105,7 @@ def test_forward_prefill_decode_match_reference(arch, compute,
     got, t_caches = tm.prefill(t_toks)
     assert tuple(got.shape) == (2, jm.cfg.vocab)
     _close(got, want, tol)
+    _caches_close(t_caches, j_caches, tm.cfg, tol)
 
     decode = jax.jit(jm.decode_step)
     tok = toks[:, -1:]
@@ -96,6 +117,7 @@ def test_forward_prefill_decode_match_reference(arch, compute,
         assert tuple(got.shape) == (2, 1, jm.cfg.vocab)
         _close(got, want, tol)
         tok = np.asarray(jnp.argmax(want[:, -1], -1)).astype(np.int32)[:, None]
+    _caches_close(t_caches, j_caches, tm.cfg, tol)
 
 
 def test_flash_flag_matches_reference_dense(reference_params):
