@@ -80,6 +80,30 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        every cycle of every group through the kernel; and
                        build_ici_model(use_sim=True) for folded_hexa_torus
                        and mesh at N = 64 equal to the JAX values
+  adaptive_kernel_vs_plain
+                       routing="adaptive" with the flight recorder on (4
+                       windows): the heterogeneous batch of
+                       tests/test_torch_simulator.py and the k_pad workload
+                       batch, every result key (raw, per-phase, per-link,
+                       per-node, histogram, windows) equal with the kernel,
+                       with the plain allocator on the card and on the CPU
+  adaptive_telemetry   adaptive routing and the recorder at N = 256 through
+                       the experiment API: mesh, torus and folded_hexa_torus
+                       under hotspot_drift, static and adaptive, organic,
+                       SimConfig(cycles=2000, warmup=700, telemetry=True,
+                       telemetry_windows=6), SaturationGrid(8): 6 scenarios,
+                       48 rate rows, every row ok, equal to the JAX table
+                       (raw and per-phase counters, saturation, link-load
+                       columns, per-link counters, latency histogram,
+                       window rows), every cycle of every group through the
+                       kernel, recorder sums conserved (ejections,
+                       injections, histogram) and windows summing to the
+                       aggregates.  Static -> adaptive saturation gains,
+                       wall time, ms per cycle by routing, one obs.profile
+                       record per runner key (untimed pass), and device
+                       launches per cycle, idle share and ms per cycle of
+                       the widest adaptive group in each mode (routing x
+                       recorder) beside the `profile` phase's static group
   flash_vs_plain       the flash-attention kernels against their plain
                        version on the card: every case of
                        tests/test_torch_cuda.py (five (tq, tk, causal,
@@ -569,6 +593,135 @@ REFERENCE_COLLECTIVES = dict(
         'mesh': dict(b_eff_gbps=285.49525,
                      all_reduce_s=0.05923602172687428),
     })
+# The `adaptive_telemetry` phase: adaptive routing and the flight recorder
+# at N = 256 through the experiment API.  mesh, torus and folded_hexa_torus
+# under the `experiments` phase's hotspot_drift (6 x 200 cycles), each once
+# static and once adaptive, organic, SimConfig(cycles=2000, warmup=700,
+# telemetry=True, telemetry_windows=6), SaturationGrid(8).  JAX reference:
+# `tools/smoke_reference.py adaptive` (alloc="jnp", jax 0.9.0 on a CPU)
+# through `adaptive_table`: the raw counters over the rate grid, the tidy
+# row's saturation and link-load columns, and at the saturating rate the
+# latency histogram; per-phase counters, per-link counters and the
+# link_rows' escape / adaptive occupancy columns as SHA-256 digests, and
+# the window_rows of the last scenario as the digest of their JSON.
+ADAPTIVE_TOPOLOGIES = ("mesh", "torus", "folded_hexa_torus")
+ADAPTIVE_WINDOWS = 6
+ADAPTIVE_ROW_KEYS = ("sim_saturation", "link_util_p95", "link_util_max",
+                     "link_gini")
+REFERENCE_ADAPTIVE = dict(
+    table=[
+    dict(label='mesh/hotspot_drift/static',
+         delivered=[2090, 4120, 5622, 6359, 6615, 6859, 6851, 6954],
+         offered_n=[2076, 4131, 6183, 8199, 10225, 12245, 14316, 16425],
+         accepted_n=[2076, 4129, 6071, 7507, 8205, 8404, 8214, 7902],
+         lat_sum=[184088, 668773, 1548695, 2131989, 2483375, 2977063, 3351400,
+                  3803460],
+         sim_saturation=0.020895432692307692,
+         link_util_p95=0.236308,
+         link_util_max=0.813846,
+         link_gini=0.703528,
+         lat_hist=[0, 0, 0, 0, 43, 129, 479, 794, 813, 1322, 2449, 925, 0, 0,
+                   0, 0],
+         per_phase=('043c57934b386cf0545d3c3e6d9a7f62'
+                    '62331b88af404a4d253c8e7e5bbb7fc7'),
+         link_counters=('efede25541b17f37bfb9c602a3a601e3'
+                        '0d282397dfadb3d987a972f084d40fcb'),
+         link_occ_columns=('23ffaff8c5aa9b799c91bf7ff75c9c88'
+                           '43b96d86da69584b75fe935da9e5196c')),
+    dict(label='mesh/hotspot_drift/adaptive',
+         delivered=[2091, 5359, 7721, 9091, 9511, 8489, 7459, 6102],
+         offered_n=[2076, 5305, 8516, 11670, 14896, 18167, 21470, 24773],
+         accepted_n=[2076, 5304, 8227, 10299, 11214, 10597, 9221, 7443],
+         lat_sum=[182236, 1020135, 2360478, 3570514, 4411359, 4291074, 4185923,
+                  3748295],
+         sim_saturation=0.028578725961538463,
+         link_util_p95=0.263231,
+         link_util_max=0.712308,
+         link_gini=0.569658,
+         lat_hist=[0, 0, 0, 0, 106, 283, 748, 1122, 1184, 2083, 3261, 724, 0,
+                   0, 0, 0],
+         per_phase=('7dd46c6186cce6b18066c7191cbcb2b9'
+                    '3a17c0c01ed4d9a84b08dea4de7620f5'),
+         link_counters=('7119b899a1d3c4cf4e6b5fd0c9280724'
+                        'b409ab39f36e56261130ef9fafa1d94c'),
+         link_occ_columns=('a58b577355ac2a0a99a68a0be8d2d816'
+                           '2eaeeafa43fccc7c7765d1bbce1cc9ac')),
+    dict(label='torus/hotspot_drift/static',
+         delivered=[2402, 4647, 5944, 6660, 7242, 7029, 6997, 6139],
+         offered_n=[2378, 4731, 7015, 9415, 11713, 14094, 16471, 18780],
+         accepted_n=[2378, 4727, 6748, 8161, 8708, 8561, 8082, 6953],
+         lat_sum=[207278, 880188, 1669827, 2354719, 3064897, 3359094, 3741118,
+                  3612291],
+         sim_saturation=0.021760817307692307,
+         link_util_p95=0.227,
+         link_util_max=0.779231,
+         link_gini=0.66492,
+         lat_hist=[0, 0, 0, 0, 70, 229, 642, 969, 1039, 1621, 2260, 412, 0, 0,
+                   0, 0],
+         per_phase=('93a020db3e3f7c517832fa0251929f26'
+                    '219afe39cd5aefcebbc6947998290ead'),
+         link_counters=('4669c2a0cac2707d373da07101595a20'
+                        '9ed17080ec929116e12fbfa70c8366d7'),
+         link_occ_columns=('d970787b4cb52f2e565915d9c800bc35'
+                           '15050b118a11776fbe5d19e49a2708fa')),
+    dict(label='torus/hotspot_drift/adaptive',
+         delivered=[2405, 6038, 8404, 9416, 9064, 8447, 6768, 5976],
+         offered_n=[2378, 6087, 9734, 13393, 17158, 20922, 24693, 28469],
+         accepted_n=[2378, 6067, 9120, 10441, 10320, 9729, 7777, 6614],
+         lat_sum=[205167, 1279082, 2950388, 4055858, 4313769, 4101804, 3632517,
+                  3674082],
+         sim_saturation=0.02829326923076923,
+         link_util_p95=0.211423,
+         link_util_max=0.611538,
+         link_gini=0.56548,
+         lat_hist=[0, 0, 0, 0, 88, 364, 867, 1421, 1221, 1924, 2827, 704, 0, 0,
+                   0, 0],
+         per_phase=('0119e670aadd5fbdc951e068f8826c83'
+                    'a27b145fec90ce0374b8304ed350cbc0'),
+         link_counters=('a1ee58da6a188f0442449f5e03e1e66c'
+                        'f73a3e927ad165dd72aa425d15620dc0'),
+         link_occ_columns=('f093b6b0ec7d0f31234adf4b117675d3'
+                           '7550d68e69d579e45bb8df0bf8e00f88')),
+    dict(label='folded_hexa_torus/hotspot_drift/static',
+         delivered=[3196, 6377, 8806, 9646, 9009, 8055, 7229, 6697],
+         offered_n=[3178, 6310, 9454, 12558, 15771, 18897, 22174, 25395],
+         accepted_n=[3178, 6302, 9105, 10788, 10897, 10224, 9190, 8385],
+         lat_sum=[254877, 1258626, 2879065, 3898222, 4102848, 3902521, 3746991,
+                  3727328],
+         sim_saturation=0.028984375,
+         link_util_p95=0.109462,
+         link_util_max=0.465385,
+         link_gini=0.600137,
+         lat_hist=[0, 0, 0, 0, 118, 493, 1242, 1076, 1184, 2013, 3141, 379, 0,
+                   0, 0, 0],
+         per_phase=('4e500393d12478f6855aede902be08ca'
+                    'd4950343f54fc9973fbdbec2834f6deb'),
+         link_counters=('ec3eef5306a6f723425b5b0b87c685e6'
+                        'd8c5cceeee27380fc2d7d1fc48e956b3'),
+         link_occ_columns=('5da92c48091c2135d722b6ea39dcbdce'
+                           '0ccbbb1940ea2313505c906525c23b61')),
+    dict(label='folded_hexa_torus/hotspot_drift/adaptive',
+         delivered=[3194, 8088, 9894, 9415, 8987, 7803, 7320, 7236],
+         offered_n=[3178, 8109, 13015, 18012, 23047, 28144, 33131, 38088],
+         accepted_n=[3178, 8033, 11190, 11538, 11021, 9935, 9151, 9020],
+         lat_sum=[259603, 2170835, 3893439, 3974509, 4048371, 3698246, 3715957,
+                  3583508],
+         sim_saturation=0.029729567307692308,
+         link_util_p95=0.099231,
+         link_util_max=0.502308,
+         link_gini=0.55446,
+         lat_hist=[0, 0, 0, 0, 113, 528, 1435, 1300, 1152, 1898, 3029, 439, 0,
+                   0, 0, 0],
+         per_phase=('3ccb2fb4a0dbca7c28d873a1fd9e8439'
+                    '4b979ecdaceac87ad2704194a375c459'),
+         link_counters=('c70100774d8aedfc82b4b4dd5647cf69'
+                        '78b7ec4157dff784c69166dd1b5c5145'),
+         link_occ_columns=('cd72ddfdac975733e3b626e3874bb26e'
+                           'cbd9b171df708de57a24994c5f3c5f8c')),
+    ],
+    n_window_rows=9168,
+    window_rows=('33d725a5867bcfea3ccf8e595090023e'
+                 '87be87057cca9ef05e1e465877d5b9a2'))
 # the workload batch of tests/test_torch_workloads.py
 WL_HETERO = [("mesh", 16), ("folded_hexa_torus", 36), ("octamesh", 25)]
 WL_RATES = [0.05, 0.2, 0.5]
@@ -587,6 +740,7 @@ PEAK_OPS_PER_S = 67e12
 TIMING_SAMPLES = 60
 LAUNCHES_PER_SAMPLE = 20
 PROFILE_CYCLES = 100
+MODE_TIMED_CYCLES = 100
 # netstep's warp layouts (R = 32 // PI routers per warp) and load widths
 # (V in {1, 2, 4, 8} vector loads, V = 3 the generic kernel), held against
 # the plain version on rows of LANE_N routers, no multiple of any R > 1
@@ -700,6 +854,66 @@ def experiment_scenarios(X, W, F, T) -> list:
     return out
 
 
+def adaptive_scenarios(X, W, n=MAIN_N, n_rates=EXP_RATES) -> list:
+    """The `adaptive_telemetry` phase's 6 scenarios (also built by
+    tools/smoke_reference.py with the JAX package): each of
+    ADAPTIVE_TOPOLOGIES at `n`, organic, under hotspot_drift, static then
+    adaptive."""
+    grid = X.SaturationGrid(n_rates)
+    drift = W.Workload("hotspot_drift",
+                       lambda t: W.hotspot_drift(t, n_phases=6, dwell=200))
+    return [X.Scenario(name, n, "organic", drift, rates=grid,
+                       routing=routing)
+            for name in ADAPTIVE_TOPOLOGIES
+            for routing in ("static", "adaptive")]
+
+
+def adaptive_cfg(SimConfig, cycles=EXP_CYCLES, warmup=EXP_WARMUP,
+                 windows=ADAPTIVE_WINDOWS):
+    return SimConfig(cycles=cycles, warmup=warmup, telemetry=True,
+                     telemetry_windows=windows)
+
+
+def digest(*arrays, dtype="int32") -> str:
+    """SHA-256 of the arrays' bytes as `dtype`, in order."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a, dtype).tobytes())
+    return h.hexdigest()
+
+
+def adaptive_table(frame) -> dict:
+    """The reference entries of an adaptive_telemetry frame (either
+    package's ResultFrame), in scenario order: see REFERENCE_ADAPTIVE."""
+    import hashlib
+
+    import numpy as np
+    rows = []
+    for i, (row, res) in enumerate(zip(frame.rows, frame.results)):
+        k = int(np.argmax(res["throughput"]))
+        links = frame.link_rows(i)
+        ent = dict(label=f"{row['topology']}/{row['traffic']}/"
+                         f"{row['routing']}")
+        ent.update({key: res[key].tolist() for key in RAW})
+        ent.update({key: row[key] for key in ADAPTIVE_ROW_KEYS})
+        ent.update(
+            lat_hist=res["lat_hist"][k].tolist(),
+            per_phase=digest(*(res[key] for key in WL_RAW), dtype="int64"),
+            link_counters=digest(res["link_busy"][k], res["link_stall"][k],
+                                 res["link_occ_sum"][k]),
+            link_occ_columns=digest([r["occ_escape"] for r in links],
+                                    [r["occ_adaptive"] for r in links],
+                                    dtype="float64"))
+        rows.append(ent)
+    win = frame.window_rows(len(frame.rows) - 1)
+    return dict(table=rows, n_window_rows=len(win),
+                window_rows=hashlib.sha256(json.dumps(
+                    win, sort_keys=True).encode()).hexdigest())
+
+
 def collective_scenarios(X, W, C) -> list:
     """The `collectives` phase's 20 scenarios at N = 64 (also built by
     tools/smoke_reference.py with the JAX package; C is the configs
@@ -720,16 +934,19 @@ def collective_scenarios(X, W, C) -> list:
     return out
 
 
-def profile_cycles(torch, run, cycles: int, sessions: int = 3) -> dict:
+def profile_cycles(torch, run, cycles: int, sessions: int = 3,
+                   host_ops: bool = True) -> dict:
     """torch.profiler over `run()` (simulating `cycles` cycles): wall s,
     device busy s, device launches per cycle, idle share, and the eight
     costliest device ops' us per cycle.  The profiler on the card
     sometimes records no device event in a session, so a session that
-    saw none is repeated, up to `sessions` times; None if none did."""
+    saw none is repeated, up to `sessions` times; None if none did.
+    host_ops=False records device activity only, which parses several
+    times faster (the device rows are the same)."""
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
     for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -1143,6 +1360,220 @@ def experiments_phase(torch, dev, smi, netstep, static_profile) -> int:
                           r["sim_saturation"]] for r in frame.rows],
          seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
     return exp_launches
+
+
+def results_equal(got, want) -> list:
+    """The keys of two run_batch result dicts that differ (values,
+    shapes or dtypes; `pad_fill` by value)."""
+    import numpy as np
+    bad = sorted(set(got) ^ set(want))
+    for key in set(got) & set(want):
+        g, w = got[key], want[key]
+        if isinstance(w, dict):
+            ok = g == w
+        else:
+            g, w = np.asarray(g), np.asarray(w)
+            ok = g.shape == w.shape and g.dtype == w.dtype and \
+                np.array_equal(g, w)
+        if not ok:
+            bad.append(key)
+    return bad
+
+
+def adaptive_kernel_phase(torch, dev, netstep) -> int:
+    """`adaptive_kernel_vs_plain`; returns the kernel's launches."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import topology as T
+    from repro_torch.core import traffic as TR
+    from repro_torch.core.routing import build_routing
+    t0 = time.perf_counter()
+    cfg = sim.SimConfig(cycles=300, warmup=100, routing="adaptive",
+                        telemetry=True, telemetry_windows=4)
+    specs = []
+    for topo_name, n in HETERO:
+        r = build_routing(T.build(topo_name, n))
+        specs.append(sim.make_spec(r, TR.uniform(r.topo)))
+    wl_specs, scheds = [], []
+    for i, (topo_name, n) in enumerate(WL_HETERO):
+        r = build_routing(T.build(topo_name, n))
+        u, t = TR.uniform(r.topo), TR.tornado(r.topo)
+        wl_specs.append(sim.make_spec(r, u))
+        scheds.append(sim.make_sched_spec(wl_phases(i, u, t)))
+    batches = {
+        "hetero": (specs, HETERO, HETERO_RATES, {}),
+        "workload": (wl_specs, WL_HETERO, WL_RATES,
+                     dict(schedules=scheds, k_pad=WL_K_PAD))}
+    launches, compared = 0, {}
+    for what, (b_specs, names, rates, kw) in batches.items():
+        before = netstep.launches
+        on_kernel = sim.run_batch(b_specs, rates, cfg, device=dev, **kw)
+        n_launch = netstep.launches - before
+        check(n_launch == cfg.cycles,
+              f"the adaptive {what} batch launched {n_launch} kernels for "
+              f"{cfg.cycles} cycles")
+        launches += n_launch
+        on_plain = sim.run_batch(b_specs, rates, cfg._replace(alloc="torch"),
+                                 device=dev, **kw)
+        on_cpu = sim.run_batch(b_specs, rates, cfg, device="cpu", **kw)
+        for (topo_name, n), k, p, c in zip(names, on_kernel, on_plain,
+                                           on_cpu):
+            bad = results_equal(k, p) + results_equal(k, c)
+            check(not bad, f"adaptive {what} {topo_name}{n}: kernel, plain "
+                  f"and CPU differ in {sorted(set(bad))}")
+        compared[what] = sorted(on_kernel[0])
+    emit("adaptive_kernel_vs_plain", cycles=cfg.cycles, routing=cfg.routing,
+         telemetry_windows=cfg.telemetry_windows,
+         specs={what: [f"{a}{b}" for a, b in names]
+                for what, (_, names, _, _) in batches.items()},
+         k_pad=WL_K_PAD, keys_compared=compared, bitwise_equal=True,
+         kernel_launches=launches,
+         seconds=round(time.perf_counter() - t0, 3))
+    return launches
+
+
+def adaptive_phase(torch, dev, smi, netstep, static_profile) -> int:
+    """`adaptive_telemetry`; returns netstep's launches in the
+    Experiment's run.  `static_profile` is the `profile` phase's reading
+    of a static group at the main path's shape."""
+    import numpy as np
+    from repro_torch import experiments as X
+    from repro_torch import workloads as W
+    from repro_torch.core import simulator as sim
+    from repro_torch.obs import profile as P
+    from repro_torch.sweep.engine import SweepEngine
+    check(REFERENCE_ADAPTIVE is not None, "REFERENCE_ADAPTIVE is missing")
+    t0 = time.perf_counter()
+    cfg = adaptive_cfg(sim.SimConfig)
+    exp = X.Experiment(adaptive_scenarios(X, W), cfg=cfg,
+                       name="chip_smoke_adaptive", backend="sim")
+    engine = SweepEngine(cfg=cfg, device=dev)
+    plan = X.plan(exp, engine)
+    setup_s = time.perf_counter() - t0
+    group_ms = {"static": [], "adaptive": []}
+
+    def progress(done, total, key, info):
+        group_ms[key.routing].append(1e3 * info["elapsed_s"] / cfg.cycles)
+
+    torch.cuda.synchronize()
+    netstep.launches = 0
+    t1 = time.perf_counter()
+    frame = X.execute(plan, engine=engine, on_error="raise",
+                      progress=progress)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t1
+    launches = netstep.launches
+    groups = engine.stats["groups"]
+    check(groups == len(plan.buckets),
+          f"{groups} engine groups for {len(plan.buckets)} buckets")
+    check(launches == cfg.cycles * groups,
+          f"the adaptive Experiment launched netstep {launches} times for "
+          f"{cfg.cycles} cycles x {groups} groups")
+    # the recorder's exact invariants: conservation, and windows that sum
+    # to the aggregates over a partition of the measured cycles
+    windowed = (("link_busy", "link_busy_w"), ("link_stall", "link_stall_w"),
+                ("link_occ_sum", "link_occ_w"), ("inj_node", "inj_node_w"),
+                ("eject_node", "eject_node_w"))
+    for row, res in zip(frame.rows, frame.results):
+        label = f"{row['topology']}/{row['routing']}"
+        check(row["status"] == "ok", f"{label} status {row['status']}")
+        for got, want in ((res["eject_node"].sum(1), "delivered"),
+                          (res["inj_node"].sum(1), "accepted_n"),
+                          (res["lat_hist"].sum(1), "delivered")):
+            check(np.array_equal(got, res[want]),
+                  f"{label}: recorder sum {got.tolist()} != {want} "
+                  f"{res[want].tolist()}")
+        for agg, win in windowed:
+            check(np.array_equal(res[win].sum(axis=1), res[agg]),
+                  f"{label}: {win} does not sum to {agg}")
+        check(int(res["window_cycles"].sum()) == cfg.cycles - cfg.warmup,
+              f"{label}: windows cover {res['window_cycles'].tolist()}")
+    got = adaptive_table(frame)
+    want = REFERENCE_ADAPTIVE
+    check(len(got["table"]) == len(want["table"]),
+          f"{len(got['table'])} rows for {len(want['table'])} reference rows")
+    for g, w in zip(got["table"], want["table"]):
+        bad = [k for k in w if g.get(k) != w[k]]
+        check(not bad, f"{w['label']}: {bad} differ from the JAX table: "
+              f"{ {k: (g.get(k), w[k]) for k in bad} }")
+    for k in ("n_window_rows", "window_rows"):
+        check(got[k] == want[k], f"window_rows {k} {got[k]} != {want[k]}")
+    sat = {e["label"]: e["sim_saturation"] for e in got["table"]}
+    gains = {name: sat[f"{name}/hotspot_drift/adaptive"]
+             / sat[f"{name}/hotspot_drift/static"] - 1
+             for name in ADAPTIVE_TOPOLOGIES}
+    check_s = time.perf_counter() - t1 - wall_s
+    # one obs.profile record per runner key, in an untimed pass of its own
+    t2 = time.perf_counter()
+    P.clear_profiles()
+    for b in plan.buckets:
+        items = list(b.items)
+        while len(items) % engine.s_round:
+            items.append(items[-1])
+        sim.profile_batch([ps.spec for ps in items],
+                          [ps.rates for ps in items],
+                          cfg._replace(routing=b.key.routing),
+                          pad_shape=b.key.shape,
+                          schedules=[ps.sched_spec for ps in items],
+                          k_pad=b.key.k_pad, device=dev)
+    profiles = P.get_profiles()
+    profile_s = time.perf_counter() - t2
+    # device launches per cycle and idle share (profiled, device rows
+    # only) and ms per cycle (a timed run without the profiler) of the
+    # widest adaptive group in each mode: routing x recorder
+    widest = max((b for b in plan.buckets if b.key.routing == "adaptive"),
+                 key=lambda b: (b.key.shape, b.key.k_pad))
+    items = list(widest.items)
+    while len(items) % engine.s_round:
+        items.append(items[-1])
+    modes = {}
+    for routing in ("static", "adaptive"):
+        for recorder in (False, True):
+            mcfg = sim.SimConfig(
+                cycles=PROFILE_CYCLES, warmup=0, routing=routing,
+                telemetry=recorder,
+                telemetry_windows=ADAPTIVE_WINDOWS if recorder else 0)
+
+            def group_run(c, mcfg=mcfg):
+                return lambda: sim.run_batch(
+                    [ps.spec for ps in items], [ps.rates for ps in items],
+                    mcfg._replace(cycles=c,
+                                  telemetry_windows=min(c, mcfg.
+                                                        telemetry_windows)),
+                    pad_shape=widest.key.shape,
+                    schedules=[ps.sched_spec for ps in items],
+                    k_pad=widest.key.k_pad, device=dev)
+            group_run(2)()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            group_run(MODE_TIMED_CYCLES)()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t3) / MODE_TIMED_CYCLES
+            m = profile_cycles(torch, group_run(PROFILE_CYCLES),
+                               PROFILE_CYCLES, host_ops=False)
+            m.pop("top_device_us")
+            modes[f"{routing}/recorder_{'on' if recorder else 'off'}"] = \
+                dict(m, ms_per_cycle=ms)
+    emit("adaptive_telemetry", n=MAIN_N, scenarios=len(exp.scenarios),
+         rate_rows=sum(len(ps.rates) for b in plan.buckets
+                       for ps in b.items),
+         all_ok=True, rows_equal_reference=True, conservation=True,
+         windows_sum_to_aggregates=True, cycles=cfg.cycles,
+         telemetry_windows=cfg.telemetry_windows, groups=groups,
+         groups_by_routing={r: [b.key.routing for b in plan.buckets].count(r)
+                            for r in ("static", "adaptive")},
+         netstep_launches=launches, setup_seconds=round(setup_s, 3),
+         wall_seconds=wall_s, check_seconds=check_s,
+         ms_per_simulated_cycle=1e3 * wall_s / (cfg.cycles * groups),
+         ms_per_cycle_by_routing_recorder_on=group_ms,
+         sim_saturation=sat, static_to_adaptive_gain=gains,
+         widest_adaptive_group=dict(shape=str(widest.key.shape),
+                                    k_pad=widest.key.k_pad,
+                                    live_specs=len(widest.items)),
+         profile_cycles=PROFILE_CYCLES, group_profile_by_mode=modes,
+         static_group_profile=static_profile,
+         obs_profile=profiles, profile_seconds=round(profile_s, 3),
+         seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
+    return launches
 
 
 def collectives_phase(torch, dev, smi, netstep) -> int:
@@ -1966,6 +2397,9 @@ def main() -> int:
     exp_launches = experiments_phase(torch, dev, smi, netstep,
                                      static_profile)
     coll_launches = collectives_phase(torch, dev, smi, netstep)
+    adaptive_kernel_phase(torch, dev, netstep)
+    adaptive_launches = adaptive_phase(torch, dev, smi, netstep,
+                                       static_profile)
 
     lm_rows = lm_phases(torch, dev, smi, fops, sops, serve)
 
@@ -1975,6 +2409,7 @@ def main() -> int:
         replaces="src/repro/kernels/netstep/netstep.py:28",
         launches=main_launches, launches_experiments=exp_launches,
         launches_collectives=coll_launches,
+        launches_adaptive_telemetry=adaptive_launches,
         max_abs_err=max_err,
         ms=first(main_row["device_ms"], main_row["events_ms"]),
         events_ms=main_row["events_ms"],

@@ -23,10 +23,9 @@ is  load_e = sum_{s,d} P[s,d] * [e on path(s,d)]  and the saturation
 injection rate is  min(1, 1/max_e load_e)  flits/node/cycle.
 
 The port's own copy of `repro.core.routing` (numpy/scipy only), equal
-to it table for table (tests/test_torch_core.py).  Certification
-(`routing_for(certify=True)`) stays with the static-analysis slice, and
-the opt-in root/ordering sweeps of the reference's `build_routing` with
-their diagnostics.
+to it table for table (tests/test_torch_core.py), with certification
+(`routing_for(certify=True)`, `analysis.routing_verify`).  The opt-in
+root/ordering sweeps of the reference's `build_routing` are not ported.
 """
 from __future__ import annotations
 
@@ -63,6 +62,11 @@ class Routing:
     total_turns: int
 
     EJECT: int = -2
+
+    #: verification certificate (`analysis.routing_verify
+    #: .RoutingCertificate`), attached by `routing_for(certify=True)`
+    #: and cached with the routing; None until certified.
+    cert: object = None
 
     #: productive-ports mask [N_dst, N, P] (minimal-adaptive routing,
     #: DESIGN.md §15), computed lazily by `productive_ports` and cached
@@ -319,12 +323,18 @@ _ROUTING_CACHE_MAX = int(os.environ.get("REPRO_ROUTING_CACHE_MAX", "4096"))
 _ROUTING_CACHE_STATS = dict(hits=0, misses=0, evictions=0)
 
 
-def routing_for(topo: Topology) -> Routing:
+def routing_for(topo: Topology, certify: bool = False) -> Routing:
     """Build-and-cache the deadlock-free routing for a topology.
 
     Routing construction (Dijkstra over the dual graph) dominates
     analytic evaluation time, so a structure is only ever routed once
     per process — regardless of what it is named.
+
+    certify=True additionally runs the exhaustive static verifier
+    (`analysis.routing_verify`) and attaches the resulting
+    `RoutingCertificate` as `r.cert`.  The certificate lives with the
+    cached routing, so a structure is certified at most once per
+    process; it raises nothing — inspect `r.cert.ok` / diagnostics.
     """
     key = (topo.structural_hash(), topo.substrate,
            float(topo.chiplet_area_mm2))
@@ -332,16 +342,27 @@ def routing_for(topo: Topology) -> Routing:
     if hit is not None:
         _ROUTING_CACHE[key] = hit          # LRU: move to the back
         _ROUTING_CACHE_STATS["hits"] += 1
+        if certify and hit.cert is None:
+            hit.cert = _certify(hit)
         return hit
     _ROUTING_CACHE_STATS["misses"] += 1
     with _span("routing.build", cat="routing", topology=topo.name,
                n=topo.n, substrate=topo.substrate):
         r = build_routing(topo)
+    if certify:
+        r.cert = _certify(r)
     _ROUTING_CACHE[key] = r
     while len(_ROUTING_CACHE) > _ROUTING_CACHE_MAX:
         _ROUTING_CACHE.pop(next(iter(_ROUTING_CACHE)))
         _ROUTING_CACHE_STATS["evictions"] += 1
     return r
+
+
+def _certify(r: Routing):
+    from ..analysis.routing_verify import certify_routing
+    with _span("routing.certify", cat="routing", topology=r.topo.name,
+               n=r.topo.n, substrate=r.topo.substrate):
+        return certify_routing(r)
 
 
 def routing_cache_info() -> dict:

@@ -35,9 +35,13 @@ computes them once per run on the host as tables over [cycles, rows]
 (the phase, the effective rate `rate * gain` in float32, the flat
 phase index) and each cycle only indexes them with `t`.
 
-Deferred to later slices, each raising `NotImplementedError`: the
-flight recorder (`telemetry`, `telemetry_windows`) and
-`routing="adaptive"`.
+All three modes of the reference run here: static up*/down* routing,
+minimal-adaptive routing with escape VCs (`routing="adaptive"`,
+DESIGN.md §15), and the flight recorder (`telemetry=True`, aggregate and
+binned into `telemetry_windows` time windows, DESIGN.md §13, §16).  The
+defaults (`routing="static"`, `telemetry=False`) issue the same device
+ops as before either mode existed; the recorder's window index, like the
+measuring gate, is a host integer of the cycle loop.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.netstep.ops import netstep
 from ..kernels.netstep.ref import netstep_ref
+from ..obs.profile import profiling_enabled
 from ..obs.trace import trace as _span
 from . import linkmodel as lm
 from .routing import Routing, productive_ports
@@ -64,6 +69,27 @@ _MIX_N = 0xC2B2AE3D
 #: hash table [cycles, N] is made at once, outside the per-cycle work)
 _BITS_CHUNK = 256
 
+#: flight-recorder latency-histogram bins: bin h counts ejections with
+#: latency in [2^(h-1), 2^h) cycles (bin 0 stays 0: latency < 1 is
+#: impossible; the last bin is open-ended)
+LAT_HIST_BINS = 16
+
+#: per-spec result keys added by `SimConfig(telemetry=True)`; every one
+#: has a leading rate axis R (DESIGN.md §13).  `link_occ_escape` /
+#: `link_occ_adaptive` split the per-VC occupancy sums into the escape
+#: class (VC 0) and the adaptive class (VCs 1..V-1), on the host.
+TELEMETRY_KEYS = ("link_busy", "link_stall", "link_occ_sum", "link_util",
+                  "link_occ_escape", "link_occ_adaptive",
+                  "inj_node", "eject_node", "lat_hist")
+
+#: additional per-spec result keys when `SimConfig(telemetry_windows=W)`
+#: bins the flight recorder over time (DESIGN.md §16): each counter gains
+#: a window axis W after the rate axis and sums over W to its aggregate
+#: exactly; `window_cycles` [W] is the host-side normalizer.
+TELEMETRY_WINDOW_KEYS = ("link_busy_w", "link_stall_w", "link_occ_w",
+                         "link_util_w", "inj_node_w", "eject_node_w",
+                         "window_cycles")
+
 #: rate-grid headroom above the static analytic bound (DESIGN.md §15)
 STATIC_HEADROOM = 2.0
 ADAPTIVE_HEADROOM = 3.0
@@ -76,9 +102,11 @@ class SimConfig(NamedTuple):
     warmup: int = 1000
     seed: int = 0
     alloc: str = "auto"     # "auto" | "torch" | "cuda"
-    telemetry: bool = False  # flight recorder: a later slice
-    routing: str = "static"  # "static"; "adaptive" is a later slice
-    telemetry_windows: int = 0  # windowed flight recorder: a later slice
+    telemetry: bool = False  # flight recorder (DESIGN.md §13)
+    routing: str = "static"  # "static" | "adaptive" (DESIGN.md §15)
+    telemetry_windows: int = 0  # W > 0 bins the recorder into W windows
+    #                             of the measured cycles (DESIGN.md §16);
+    #                             needs telemetry=True
 
 
 @dataclasses.dataclass
@@ -98,8 +126,8 @@ class SimSpec:
     ch_depth: np.ndarray    # [C] pipeline depth (cycles per hop)
     traffic_cum: np.ndarray  # [N, N] cumulative traffic rows
     inj_weight: np.ndarray   # [N] relative injection rate per node
-    # productive-ports mask [N_dst, N, P]; read only by the adaptive
-    # runner (a later slice), carried so specs convert both ways
+    # productive-ports mask [N_dst, N, P] (DESIGN.md §15); read only by
+    # the adaptive runner
     prod: np.ndarray = None
 
 
@@ -200,6 +228,21 @@ def make_sched_spec(phases) -> SchedSpec:
         total=int(end[-1]))
 
 
+def telemetry_window_cycles(cfg: SimConfig) -> np.ndarray:
+    """[W] measured cycles falling in each telemetry window — the
+    normalizer for per-window utilization.  Mirrors the runner's window
+    index exactly: cycle t (warmup <= t < cycles) lands in window
+    ((t - warmup) * W) // meas, so windows partition the measured
+    cycles and differ by at most one cycle."""
+    w = cfg.telemetry_windows
+    if w <= 0:
+        raise ValueError("telemetry_windows must be > 0 for a window "
+                         "grid")
+    meas = cfg.cycles - cfg.warmup
+    return np.bincount((np.arange(meas, dtype=np.int64) * w) // meas,
+                       minlength=w).astype(np.int64)
+
+
 def phase_measured_cycles(sched: SchedSpec, cfg: SimConfig) -> np.ndarray:
     """[K] measured (post-warmup) cycles spent in each phase — the
     normalizer for per-phase throughput.  Mirrors the runner's phase
@@ -273,12 +316,15 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 # route lookup + allocation
 # =====================================================================
 
-def _route_lookup(table, srow, credits, head_dst, cnt, p: int):
+def _route_lookup(table, srow, credits, head_dst, cnt, p: int,
+                  starved: bool = False):
     """Table lookup + credit check for every (row, node, in-port, VC)
     head flit.  Returns op_slot [B, N, PI, V] int64 (requested output
     slot, ejection = P, negative = no request) and eligible [B, N, PI,
     V] bool.  `table` is the [S, N, N, P+1] stack, indexed through the
-    row's spec `srow`."""
+    row's spec `srow`.  starved=True (the flight recorder) also returns
+    the credit-starved mask: a valid head flit routed to a real output
+    port whose downstream VC has no credit."""
     B, N, PI, V = head_dst.shape
     dev = head_dst.device
     node = torch.arange(N, device=dev).view(1, N, 1, 1)
@@ -296,7 +342,63 @@ def _route_lookup(table, srow, credits, head_dst, cnt, p: int):
     # credit tensor with INF there), so only ports [0, P) are looked up
     have_credit = credits[b, node, op_slot.clamp(0, p - 1), vcs] > 0
     eligible = valid & (op_slot >= 0) & (have_credit | is_eject)
-    return op_slot, eligible
+    if not starved:
+        return op_slot, eligible
+    return (op_slot, eligible,
+            valid & (op_slot >= 0) & ~is_eject & ~have_credit)
+
+
+def _route_lookup_adaptive(table, prod, srow, credits, head_dst, cnt,
+                           p: int):
+    """Minimal-adaptive route selection with escape fallback (§15).
+
+    The Duato-style VC partition: VC 0 is the escape class, following
+    the static up*/down* table (indexed by the arrival in-port); VCs
+    1..V-1 are the adaptive class, free to take any *productive* port
+    (`prod` [S, N, N, P], a minimal escape-safe next hop), chosen by the
+    downstream adaptive-class credit summed over its VCs, first maximum
+    on ties.  A head flit takes an adaptive hop whenever some productive
+    port has adaptive credit; otherwise it falls back to the escape
+    route, gated on VC-0 credit.  Ejection is always eligible.
+
+    Returns op_slot, eligible and starved [B, N, PI, V], shaped like
+    `_route_lookup`'s, plus dvc [B, N, PI, V] int64, the downstream VC
+    of each choice (>= 1 adaptive, 0 escape).
+    """
+    B, N, PI, V = head_dst.shape
+    dev = head_dst.device
+    node = torch.arange(N, device=dev).view(1, N, 1, 1)
+    port = torch.arange(PI, device=dev).view(1, 1, PI, 1)
+    b = torch.arange(B, device=dev).view(B, 1, 1, 1)
+    s = srow.view(B, 1, 1, 1)
+
+    valid = cnt > 0
+    dst = torch.where(valid, head_dst, 0)
+    # escape route: the static table, arrival-in-port indexed (the
+    # ejection slot P has credit by definition, so only ports [0, P)
+    # are looked up; an ejecting flit is eligible without it)
+    op = table[s, dst, node, port].long()
+    op = torch.where(valid, op, -3)
+    is_eject = op == Routing.EJECT
+    esc_slot = torch.where(is_eject, p, op)
+    esc_credit = credits[b, node, esc_slot.clamp(0, p - 1), 0] > 0
+
+    # adaptive candidates: productive ports scored by the summed
+    # downstream adaptive-class credit (first maximum on ties, as
+    # jnp.argmax)
+    cand = prod[s, dst, node]                            # [B, N, PI, V, P]
+    cred_ad = credits[..., 1:].sum(3).view(B, N, 1, 1, p)
+    score = torch.where(cand & (cred_ad > 0), cred_ad, -1)
+    best, ad_port = score.max(4)
+    # downstream adaptive VC with the most credit at the chosen port
+    dvc_ad = 1 + credits[b, node, ad_port, 1:].argmax(4)
+
+    use_ad = valid & ~is_eject & (best > 0)
+    op_slot = torch.where(use_ad, ad_port, esc_slot)
+    eligible = valid & (op_slot >= 0) & \
+        (use_ad | is_eject | ((esc_slot >= 0) & esc_credit))
+    starved = valid & ~is_eject & (esc_slot >= 0) & ~eligible
+    return op_slot, eligible, starved, torch.where(use_ad, dvc_ad, 0)
 
 
 def resolve_alloc(alloc: str, device) -> str:
@@ -315,18 +417,27 @@ def resolve_alloc(alloc: str, device) -> str:
     return alloc
 
 
-def _check_static(cfg: SimConfig) -> None:
-    if cfg.telemetry or cfg.telemetry_windows:
-        raise NotImplementedError(
-            "the flight recorder (telemetry, telemetry_windows) comes with "
-            "the telemetry slice of the port")
-    if cfg.routing == "adaptive":
-        raise NotImplementedError(
-            "routing='adaptive' comes with the adaptive-routing slice of "
-            "the port")
-    if cfg.routing != "static":
-        raise ValueError(f"unknown routing mode {cfg.routing!r}; choose "
-                         f"'static' or 'adaptive'")
+def _check_config(cfg: SimConfig) -> None:
+    """The reference runner's checks of a SimConfig, with its messages."""
+    if cfg.routing not in ("static", "adaptive"):
+        raise ValueError(f"unknown routing mode {cfg.routing!r}; "
+                         f"choose 'static' or 'adaptive'")
+    if cfg.routing == "adaptive" and cfg.n_vcs < 2:
+        raise ValueError(
+            f"adaptive routing needs n_vcs >= 2 (VC 0 escape + at least "
+            f"one adaptive VC), got n_vcs={cfg.n_vcs}")
+    w = cfg.telemetry_windows
+    if w < 0:
+        raise ValueError(f"telemetry_windows must be >= 0, got {w}")
+    if w and not cfg.telemetry:
+        raise ValueError(
+            "telemetry_windows requires telemetry=True — the windowed "
+            "counters bin the flight recorder, they cannot replace it")
+    meas = cfg.cycles - cfg.warmup
+    if w > meas:
+        raise ValueError(
+            f"telemetry_windows={w} exceeds the measured window "
+            f"({meas} cycles) — some windows would be empty")
 
 
 # =====================================================================
@@ -335,7 +446,8 @@ def _check_static(cfg: SimConfig) -> None:
 
 def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                    n: int, p: int, c: int, d: int, cfg: SimConfig,
-                   alloc_fn, sched: dict | None = None):
+                   alloc_fn, sched: dict | None = None,
+                   probe: dict | None = None):
     """Simulate B = len(srow) rows for cfg.cycles cycles.
 
     lv: the BatchSpec leaves as device tensors ([S, ...]); srow [B] the
@@ -349,6 +461,18 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     cycle t from the tables, and four per-phase counters follow the
     totals: delivered_ph, offered_ph, accepted_ph [B, K] and lat_ph
     [B, K, N], int32.
+
+    cfg.routing="adaptive" routes through `_route_lookup_adaptive` (the
+    `prod` leaf) and moves each traversing flit to the downstream VC it
+    chose.  cfg.telemetry=True appends the flight recorder's counters,
+    int32: busy and stall [B, C+1], occupancy sums [B, C+1, V],
+    injections and ejections [B, N] and the latency histogram [B,
+    LAT_HIST_BINS]; with cfg.telemetry_windows=W also the first five
+    binned by window, [B, W, ...].  Row C and pad lanes are sacrificial:
+    `run_batch` slices them away.
+
+    probe (a profile capture): receives `state_bytes`, the bytes of the
+    state carried across cycles.
     """
     N, P, C, D = n, p, c, d
     V, Bd = cfg.n_vcs, cfg.buf_depth
@@ -370,6 +494,8 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     pi = lv["pi"][srow]                                  # [B] int32
     rate_b = rate.view(B, 1)
     table, cum = lv["table"], lv["traffic_cum"]          # [S, ...]
+    adaptive = cfg.routing == "adaptive"
+    prod = lv["prod"] if adaptive else None
 
     b2 = torch.arange(B, device=dev).view(B, 1)
     b3 = b2.view(B, 1, 1)
@@ -411,6 +537,35 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         offered_ph = torch.zeros((B * K,), dtype=i32, device=dev)
         accepted_ph = torch.zeros((B * K,), dtype=i32, device=dev)
         lat_ph = torch.zeros((B * K, N), dtype=i32, device=dev)
+    W = cfg.telemetry_windows
+    if cfg.telemetry:
+        # the recorder's counters with a leading window axis (one window
+        # when W = 0); each measured cycle adds into one window, so the
+        # aggregates are the window sums, formed once after the loop
+        meas = cfg.cycles - cfg.warmup
+        nw = max(W, 1)
+        tel_busy = torch.zeros((nw, B, C + 1), dtype=i32, device=dev)
+        tel_stall = torch.zeros((nw, B, C + 1), dtype=i32, device=dev)
+        tel_occ = torch.zeros((nw, B, C + 1, V), dtype=i32, device=dev)
+        tel_inj = torch.zeros((nw, B, N), dtype=i32, device=dev)
+        tel_eject = torch.zeros((nw, B, N), dtype=i32, device=dev)
+        tel_hist = torch.zeros((B, LAT_HIST_BINS), dtype=i32, device=dev)
+        hist_edges = 2 ** torch.arange(LAT_HIST_BINS - 1, dtype=i64,
+                                       device=dev)
+        # row offsets into the flattened [B, C+1] and [B, bins] counters
+        ch_base = b3 * (C + 1)
+        hist_base = b3 * LAT_HIST_BINS
+    if probe is not None:
+        state = [buf_dst, buf_t, head, cnt, credits, link_dst, link_t,
+                 link_vc, credit_pipe, rr, delivered, offered, accepted,
+                 lat_node]
+        if sched is not None:
+            state += [delivered_ph, offered_ph, accepted_ph, lat_ph]
+        if cfg.telemetry:
+            state += [tel_busy, tel_stall, tel_occ, tel_inj, tel_eject,
+                      tel_hist]
+        probe["state_bytes"] = sum(x.numel() * x.element_size()
+                                   for x in state)
 
     for t in range(cfg.cycles):
         slot = t % D
@@ -470,16 +625,35 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                 accepted_ph.index_add_(0, bk[t], n_inj)
 
         # ---- 4. route + allocate --------------------------------------------
+        recording = cfg.telemetry and measuring
+        if recording:
+            # the occupancy snapshot: post-arrival, post-injection,
+            # pre-pop (the pop below updates cnt in place)
+            occ = cnt[b2, ch_dst, ch_in_port]           # [B, C, V]
         head_dst = buf_dst.gather(4, head.unsqueeze(4)).squeeze(4)
         head_t = buf_t.gather(4, head.unsqueeze(4)).squeeze(4)
-        op_slot, eligible = _route_lookup(table, srow, credits, head_dst,
-                                          cnt, P)
+        if adaptive:
+            op_slot, eligible, starved, dvc = _route_lookup_adaptive(
+                table, prod, srow, credits, head_dst, cnt, P)
+        elif cfg.telemetry:
+            op_slot, eligible, starved = _route_lookup(
+                table, srow, credits, head_dst, cnt, P, starved=True)
+        else:
+            op_slot, eligible = _route_lookup(table, srow, credits,
+                                              head_dst, cnt, P)
         win_mask, vc_choice, out_req = alloc_fn(
             op_slot.to(i32), eligible, rr % V, rr % pi)
         port_wins = win_mask.any(3)                     # [B, N, PI]
 
         # ---- 5. winners: pop, move, credit ----------------------------------
+        # wvc is the source VC popped at (node, in-port); w_dvc the
+        # downstream VC the flit occupies after the hop.  Static routing
+        # keeps them equal; adaptive routing moves the link VC tag and
+        # the downstream credit to the class the lookup chose, while the
+        # upstream credit return (freeing the popped lane) stays on wvc.
         wvc = vc_choice.long()                          # [B, N, PI]
+        w_dvc = dvc.gather(3, wvc.unsqueeze(3)).squeeze(3) if adaptive \
+            else wvc
         w_dst = head_dst.gather(3, wvc.unsqueeze(3)).squeeze(3)
         w_t = head_t.gather(3, wvc.unsqueeze(3)).squeeze(3)
         pw = port_wins.long().unsqueeze(3)
@@ -511,16 +685,50 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         link_at = (b3, oc_w, wslot)                     # C: sacrificial
         link_dst[link_at] = w_dst
         link_t[link_at] = w_t
-        link_vc[link_at] = wvc
-        credits.index_put_((b3, node3, out_port, wvc), -traverse.long(),
+        link_vc[link_at] = w_dvc
+        credits.index_put_((b3, node3, out_port, w_dvc), -traverse.long(),
                            accumulate=True)
         rr = (rr + 1) % (V * pi)
 
-    if sched is None:
-        return delivered, offered, accepted, lat_node
-    return (delivered, offered, accepted, lat_node,
-            delivered_ph.view(B, K), offered_ph.view(B, K),
-            accepted_ph.view(B, K), lat_ph.view(B, K, N))
+        # ---- 6. flight recorder (DESIGN.md §13, §16) ------------------------
+        # Pure observers: integer adds onto the recorder's own counters,
+        # with non-contributing lanes sent to the sacrificial row C or
+        # adding 0.  Duplicate indices (row C above all) need an
+        # accumulating scatter: `index_add_` on the flattened counter,
+        # one device launch where `index_put_(accumulate=True)` sorts its
+        # indices first.
+        if recording:
+            w = min(max(((t - cfg.warmup) * W) // meas, 0), W - 1) if W \
+                else 0
+            tel_busy[w].view(-1).index_add_(
+                0, (ch_base + oc_w).view(-1), traverse.int().view(-1))
+            # credit starvation, charged to the requested out channel
+            st_ch = out_ch.gather(2, op_slot.clamp(0, P - 1).view(
+                B, N, PI * V))
+            tel_stall[w].view(-1).index_add_(
+                0, (ch_base + torch.where(starved.view(B, N, PI * V),
+                                          st_ch, C)).view(-1),
+                starved.int().view(-1))
+            tel_occ[w, :, :C] += occ.int()
+            tel_inj[w] += do_inj.int()
+            tel_eject[w] += eject.sum(2, dtype=i32)
+            # latency bin h counts t - w_t in [2^(h-1), 2^h); lanes that
+            # did not eject add 0 at a stale, in-range bin
+            tel_hist.view(-1).index_add_(
+                0, (hist_base + torch.bucketize(t - w_t, hist_edges,
+                                                right=True)).view(-1),
+                eject.int().view(-1))
+
+    out = (delivered, offered, accepted, lat_node)
+    if sched is not None:
+        out += (delivered_ph.view(B, K), offered_ph.view(B, K),
+                accepted_ph.view(B, K), lat_ph.view(B, K, N))
+    if cfg.telemetry:
+        wins = (tel_busy, tel_stall, tel_occ, tel_inj, tel_eject)
+        out += tuple(x.sum(0, dtype=i32) for x in wins) + (tel_hist,)
+        if W:
+            out += tuple(x.transpose(0, 1) for x in wins)
+    return out
 
 
 def _pad_fill(specs, shape, schedules, kmax) -> list[dict]:
@@ -541,6 +749,63 @@ def _pad_fill(specs, shape, schedules, kmax) -> list[dict]:
             depth=spec.d / shape.d,
             phase=(schedules[i].k / kmax) if schedules is not None else 1.0))
     return fills
+
+
+def _prepare(specs, rates, cfg: SimConfig, pad_shape, device, schedules,
+             k_pad) -> tuple:
+    """Check and pad a batch the way `run_batch` runs it.  Returns the
+    device, the alloc impl, the PadShape, the [S, R] float32 rates, kmax,
+    the pad fills and `run(run_cfg, probe=None)`, which uploads the batch
+    and simulates it for `run_cfg`'s cycles, returning the raw device
+    counters and the device arguments."""
+    dev = resolve_device(device)
+    _check_config(cfg)
+    alloc = resolve_alloc(cfg.alloc, dev)
+    alloc_fn = netstep if alloc == "cuda" else netstep_ref
+    from ..sweep.padding import stack_schedules, stack_specs
+    with _span("sim.stack", cat="sim", specs=len(specs)):
+        batch, shape = stack_specs(specs, pad_shape)
+    s = len(specs)
+    rates = np.asarray(rates, np.float32)
+    if rates.ndim == 1:
+        rates = np.broadcast_to(rates, (s, rates.shape[0]))
+    if rates.shape[0] != s:
+        raise ValueError(f"rates rows {rates.shape[0]} != specs {s}")
+    kmax, sbatch = 0, None
+    if schedules is not None:
+        if len(schedules) != s:
+            raise ValueError(f"schedules {len(schedules)} != specs {s}")
+        for spec, sched in zip(specs, schedules):
+            if sched.n != spec.n:
+                raise ValueError(f"schedule for {sched.n} nodes paired "
+                                 f"with a {spec.n}-node spec")
+        sbatch, kmax = stack_schedules(schedules, shape.n, k_pad)
+    fills = _pad_fill(specs, shape, schedules, kmax)
+
+    def run(run_cfg, probe=None):
+        """Upload the batch and simulate it for `run_cfg`'s cycles;
+        returns the raw device counters and the device arguments."""
+        args = _device_args(batch, sbatch, kmax, rates, cfg, dev)
+        lv, srow, rate, sched = args
+        return _simulate_rows(lv, srow, rate, shape.n, shape.p, shape.c,
+                              shape.d, run_cfg, alloc_fn, sched,
+                              probe), args
+
+    return dev, alloc, shape, rates, kmax, fills, run
+
+
+def profile_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
+                  pad_shape=None, device=None, schedules=None,
+                  k_pad=None) -> dict:
+    """The runner profile (`obs.profile`) of the batch `run_batch` would
+    run with these arguments, captured in the profile's own short passes
+    without running the batch — for benchmarks, which profile in an
+    untimed pass of their own.  Recorded in the registry (once per key)
+    whether or not profiling is enabled."""
+    from ..obs.profile import record_runner_profile
+    dev, alloc, shape, _, kmax, _, run = _prepare(
+        specs, rates, cfg, pad_shape, device, schedules, k_pad)
+    return record_runner_profile(shape, cfg, alloc, kmax, dev, run)
 
 
 def run_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
@@ -564,61 +829,47 @@ def run_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
     [R, K]), `phase_cycles` [K] and the derived `throughput_ph`,
     `latency_ph`, `offered_rate_ph`.  k_pad pads the phase axis.
 
+    cfg.routing="adaptive" runs minimal-adaptive routing with escape VCs
+    (DESIGN.md §15).  cfg.telemetry=True switches on the flight recorder
+    (DESIGN.md §13): result dicts gain `TELEMETRY_KEYS` — per-directed-
+    channel `link_busy` / `link_stall` [R, c] and `link_occ_sum` [R, c,
+    V], their escape / adaptive split, the derived `link_util`, per-node
+    `inj_node` / `eject_node` [R, n] and `lat_hist` [R, LAT_HIST_BINS].
+    cfg.telemetry_windows=W adds `TELEMETRY_WINDOW_KEYS`, the same
+    counters binned into W windows of the measured cycles (DESIGN.md
+    §16).  Sacrificial and padded lanes are sliced away, so the recorder
+    is padding-invariant like every other counter.
+
+    With profiling enabled (`obs.profile`), a batch whose runner key is
+    new is first profiled in passes of its own, outside the timed
+    dispatch (see `profile_batch`).
+
     device: None runs on the CUDA card (and raises without one); pass
     "cpu" to run on the CPU.
     """
-    dev = resolve_device(device)
-    _check_static(cfg)
-    alloc_fn = netstep if resolve_alloc(cfg.alloc, dev) == "cuda" \
-        else netstep_ref
-    from ..sweep.padding import stack_schedules, stack_specs
-    with _span("sim.stack", cat="sim", specs=len(specs)):
-        batch, shape = stack_specs(specs, pad_shape)
-    s = len(specs)
-    rates = np.asarray(rates, np.float32)
-    if rates.ndim == 1:
-        rates = np.broadcast_to(rates, (s, rates.shape[0]))
-    if rates.shape[0] != s:
-        raise ValueError(f"rates rows {rates.shape[0]} != specs {s}")
-    r = rates.shape[1]
-    kmax = 0
-    if schedules is not None:
-        if len(schedules) != s:
-            raise ValueError(f"schedules {len(schedules)} != specs {s}")
-        for spec, sched in zip(specs, schedules):
-            if sched.n != spec.n:
-                raise ValueError(f"schedule for {sched.n} nodes paired "
-                                 f"with a {spec.n}-node spec")
-        sbatch, kmax = stack_schedules(schedules, shape.n, k_pad)
-    fills = _pad_fill(specs, shape, schedules, kmax)
+    dev, alloc, shape, rates, kmax, fills, run = _prepare(
+        specs, rates, cfg, pad_shape, device, schedules, k_pad)
+    s, r = rates.shape
+    if profiling_enabled():
+        # untimed: a capture runs passes of its own, once per key
+        from ..obs.profile import record_runner_profile
+        record_runner_profile(shape, cfg, alloc, kmax, dev, run)
     with _span("sim.dispatch", cat="sim", specs=s, shape=str(shape),
                device=str(dev), rows=s * r,
                kind="static" if schedules is None else "workload"):
-        lv = {k: torch.as_tensor(v, device=dev)
-              for k, v in batch._asdict().items()}
-        srow_np = np.repeat(np.arange(s), r)
-        rate_np = np.array(rates).reshape(-1)
-        srow = torch.as_tensor(srow_np, device=dev)
-        rate = torch.as_tensor(rate_np, device=dev)
-        sched = None
-        if schedules is not None:
-            n_pad = shape.n
-            sched = {k: torch.as_tensor(v, device=dev) for k, v in
-                     _phase_tables(sbatch, srow_np, rate_np,
-                                   cfg.cycles).items()}
-            sched.update(
-                k=kmax,
-                cum=torch.as_tensor(sbatch.cum, device=dev).view(
-                    s * kmax, n_pad, n_pad),
-                inj_w=torch.as_tensor(sbatch.inj_w, device=dev).view(
-                    s * kmax, n_pad))
-        raw = _simulate_rows(lv, srow, rate, shape.n, shape.p, shape.c,
-                             shape.d, cfg, alloc_fn, sched)
+        raw, _ = run(cfg)
     with _span("sim.wait", cat="sim", specs=s):
         raw = [x.cpu().numpy() for x in raw]
     delivered, offered, accepted = (x.reshape(s, r) for x in raw[:3])
     lat_sum = raw[3].astype(np.int64).sum(axis=1).reshape(s, r)
     meas = cfg.cycles - cfg.warmup
+    tel = telw = win_cycles = None
+    if cfg.telemetry:
+        off = 8 if schedules is not None else 4
+        tel = raw[off:off + 6]
+        if cfg.telemetry_windows:
+            telw = raw[off + 6:off + 11]
+            win_cycles = telemetry_window_cycles(cfg)
     out = []
     for i, spec in enumerate(specs):
         norm = spec.n * meas
@@ -647,8 +898,65 @@ def run_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
                 throughput_ph=dp / ph_norm,
                 latency_ph=lp / np.maximum(dp, 1),
                 offered_rate_ph=op / ph_norm)
+        if tel is not None:
+            # flight-recorder slices: drop the sacrificial channel row
+            # and every padded channel / node lane
+            rows = slice(i * r, (i + 1) * r)
+            t_busy, t_stall, t_occ, t_inj, t_ej, t_hist = tel
+            c, n = spec.c, spec.n
+            busy = t_busy[rows, :c]                        # [R, c]
+            occ = t_occ[rows, :c, :]                       # [R, c, V]
+            res.update(
+                link_busy=busy, link_stall=t_stall[rows, :c],
+                link_occ_sum=occ,
+                link_occ_escape=occ[:, :, 0],
+                link_occ_adaptive=occ[:, :, 1:].sum(axis=-1),
+                link_util=busy / float(meas),
+                inj_node=t_inj[rows, :n], eject_node=t_ej[rows, :n],
+                lat_hist=t_hist[rows])
+            if telw is not None:
+                w_busy, w_stall, w_occ, w_inj, w_ej = telw
+                busy_w = w_busy[rows, :, :c]               # [R, W, c]
+                res.update(
+                    link_busy_w=busy_w,
+                    link_stall_w=w_stall[rows, :, :c],
+                    link_occ_w=w_occ[rows, :, :c, :],
+                    link_util_w=busy_w / np.maximum(
+                        win_cycles, 1).astype(np.float64)[None, :, None],
+                    inj_node_w=w_inj[rows, :, :n],
+                    eject_node_w=w_ej[rows, :, :n],
+                    window_cycles=win_cycles)
         out.append(res)
     return out
+
+
+def _device_args(batch, sbatch, kmax: int, rates: np.ndarray,
+                 cfg: SimConfig, dev) -> tuple:
+    """(leaves, srow, rate, sched) of `_simulate_rows` on `dev`: the
+    BatchSpec leaves (`prod` only for adaptive routing, which alone
+    reads it), each row's spec and rate, and in workload mode the phase
+    tables of `cfg.cycles` cycles with the flattened phase leaves."""
+    s, r = rates.shape
+    lv = {k: torch.as_tensor(v, device=dev)
+          for k, v in batch._asdict().items()
+          if k != "prod" or cfg.routing == "adaptive"}
+    srow_np = np.repeat(np.arange(s), r)
+    rate_np = np.array(rates).reshape(-1)
+    srow = torch.as_tensor(srow_np, device=dev)
+    rate = torch.as_tensor(rate_np, device=dev)
+    sched = None
+    if sbatch is not None:
+        n_pad = sbatch.cum.shape[-1]
+        sched = {k: torch.as_tensor(v, device=dev) for k, v in
+                 _phase_tables(sbatch, srow_np, rate_np,
+                               cfg.cycles).items()}
+        sched.update(
+            k=kmax,
+            cum=torch.as_tensor(sbatch.cum, device=dev).view(
+                s * kmax, n_pad, n_pad),
+            inj_w=torch.as_tensor(sbatch.inj_w, device=dev).view(
+                s * kmax, n_pad))
+    return lv, srow, rate, sched
 
 
 # =====================================================================

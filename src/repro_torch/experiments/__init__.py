@@ -19,9 +19,13 @@ invariance makes results independent of how scenarios are grouped;
 tidy rows and raw results equal the JAX package's for the same
 experiment (tests/test_torch_experiments.py).
 
-Deferred to later slices, each raising `NotImplementedError`: scenarios
-with `routing="adaptive"` (at plan time) and the flight-recorder views
-of `ResultFrame` (`link_rows`, `window_rows`, ...).
+Adaptive routing (`Scenario(routing="adaptive")` or the Experiment's
+SimConfig) plans its own buckets.  Run with `SimConfig(telemetry=True)`
+and the frame carries the flight recorder's counters: tidy rows gain
+`link_util_p95` / `link_util_max` / `link_gini`, and
+`ResultFrame.link_rows` / `all_link_rows` / `to_link_csv` render the
+per-channel heatmap; with `telemetry_windows=W` also `window_rows` /
+`all_window_rows` / `to_window_csv` (see `repro_torch.obs`).
 """
 from .execute import engine_for, execute, run
 from .frame import COLUMNS, ResultFrame, scenario_row

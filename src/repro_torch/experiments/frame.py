@@ -11,9 +11,8 @@ sweeps, per-phase counters).
 The tidy columns are stable and versioned: `to_csv` / `to_json` write
 through `repro_torch.experiments.io`, which stamps every artifact with
 `schema_version`.  The port's copy of `repro.experiments.frame`: the
-same columns and the same values for the same results.  The telemetry
-columns (`link_util_*`, `link_gini`) stay empty and the per-link views
-raise until the telemetry slice of the port.
+same columns and the same values for the same results, the
+flight-recorder columns and views included.
 """
 from __future__ import annotations
 
@@ -79,6 +78,15 @@ def scenario_row(exp: Experiment, ps: PlannedScenario,
             row.update(pad_fill_state=round(float(pf["state"]), 4),
                        pad_fill_chan=round(float(pf["chan"]), 4),
                        pad_fill_phase=round(float(pf["phase"]), 4))
+        if "link_util" in res:           # flight recorder was on
+            from ..obs.report import gini
+            util = np.asarray(res["link_util"][k], np.float64)
+            if util.size:
+                row.update(
+                    link_util_p95=round(
+                        float(np.percentile(util, 95)), 6),
+                    link_util_max=round(float(util.max()), 6),
+                    link_gini=round(gini(util), 6))
     else:
         t_r = ps.analytic
         lat = zero_load_latency(ps.routing, ps.traffic)
@@ -163,40 +171,67 @@ class ResultFrame:
                    phase_cycles=res["phase_cycles"])
         return out
 
-    # ---- flight-recorder views (DESIGN.md §13, §16) -------------------
-    # The per-link and windowed telemetry rows read the flight
-    # recorder's counters, which come with the telemetry slice of the
-    # port; until then these raise rather than return empty views.
-    def _telemetry(self, name: str):
-        raise NotImplementedError(
-            f"ResultFrame.{name} reads the flight recorder, which comes "
-            f"with the telemetry slice of the port")
-
+    # ---- flight-recorder views (DESIGN.md §13) ------------------------
     def link_rows(self, i: int, rate_index: int | None = None) -> list:
-        """Tidy per-link telemetry rows for scenario i."""
-        self._telemetry("link_rows")
+        """Tidy per-link telemetry rows for scenario i (requires the
+        experiment to have run with `SimConfig(telemetry=True)`)."""
+        from ..obs.flight import link_rows as _rows
+        ps, res = self.planned[i], self.results[i]
+        if ps is None or res is None:
+            return []
+        cfg = self.experiment.cfg
+        return _rows(ps, res, cfg.cycles - cfg.warmup,
+                     experiment=self.experiment.name,
+                     rate_index=rate_index)
 
     def all_link_rows(self, rate_index: int | None = None) -> list:
         """Per-link rows for every ok scenario, in scenario order."""
-        self._telemetry("all_link_rows")
+        out: list = []
+        for i in range(len(self.rows)):
+            out.extend(self.link_rows(i, rate_index=rate_index))
+        return out
 
     def to_link_csv(self, path: str,
                     rate_index: int | None = None) -> None:
-        """Write the per-link heatmap CSV for this frame."""
-        self._telemetry("to_link_csv")
+        """Write the per-link heatmap CSV (schema v3) for this frame."""
+        from ..obs.flight import LINK_COLUMNS
+        rows = self.all_link_rows(rate_index=rate_index)
+        extra = [k for r in rows for k in r if k not in LINK_COLUMNS]
+        seen: dict = {}
+        for k in extra:
+            seen.setdefault(k, None)
+        xio.write_csv(path, rows, columns=list(LINK_COLUMNS) + list(seen))
 
+    # ---- windowed-telemetry views (DESIGN.md §16) ---------------------
     def window_rows(self, i: int, rate_index: int | None = None) -> list:
-        """Tidy per-(time-window, link) rows for scenario i."""
-        self._telemetry("window_rows")
+        """Tidy per-(time-window, link) rows for scenario i (requires
+        `SimConfig(telemetry=True, telemetry_windows=W)`)."""
+        from ..obs.flight import window_rows as _rows
+        ps, res = self.planned[i], self.results[i]
+        if ps is None or res is None:
+            return []
+        return _rows(ps, res, experiment=self.experiment.name,
+                     rate_index=rate_index)
 
     def all_window_rows(self, rate_index: int | None = None) -> list:
         """Per-(window, link) rows for every ok scenario, in order."""
-        self._telemetry("all_window_rows")
+        out: list = []
+        for i in range(len(self.rows)):
+            out.extend(self.window_rows(i, rate_index=rate_index))
+        return out
 
     def to_window_csv(self, path: str,
                       rate_index: int | None = None) -> None:
-        """Write the time-heatmap CSV (per window x link)."""
-        self._telemetry("to_window_csv")
+        """Write the time-heatmap CSV (per window x link) for this
+        frame — the artifact that shows hotspot drift over time."""
+        from ..obs.flight import WINDOW_COLUMNS
+        rows = self.all_window_rows(rate_index=rate_index)
+        extra = [k for r in rows for k in r if k not in WINDOW_COLUMNS]
+        seen: dict = {}
+        for k in extra:
+            seen.setdefault(k, None)
+        xio.write_csv(path, rows,
+                      columns=list(WINDOW_COLUMNS) + list(seen))
 
     # ---- versioned writers --------------------------------------------
     def to_csv(self, path: str, include_failures: bool = False) -> None:

@@ -1,9 +1,7 @@
 """Experiment planner (DESIGN.md §10): Scenario -> engine-ready buckets.
 
 The port's copy of `repro.experiments.plan`: the same buckets, skip
-reasons and diagnostic codes.  A scenario whose effective routing is
-"adaptive" raises `NotImplementedError` here (the adaptive-routing
-slice of the port).
+reasons and diagnostic codes, static and adaptive routing alike.
 
 `plan(experiment)` resolves every scenario against the real registries
 — N-constraints from `topology.N_CONSTRAINTS`, routing via the shared
@@ -232,10 +230,6 @@ def plan(experiment: Experiment, engine: SweepEngine | None = None,
                                    f"N={s.n} (topology.N_CONSTRAINTS)"))
                 skip_codes[i] = "DP006"
                 continue
-            if s.effective_routing(experiment.cfg) == "adaptive":
-                raise NotImplementedError(
-                    f"scenario #{i} ({s.label}): routing='adaptive' comes "
-                    f"with the adaptive-routing slice of the port")
             try:
                 topo, routing = resolve_topology(s)
             except FaultError as e:

@@ -151,10 +151,6 @@ class Scenario:
     to/from dead chiplets is masked.  `faults=None` and an *empty*
     `FaultSet` are bitwise identical to each other — the zero-fault
     path is exactly the pristine path.
-
-    `routing="adaptive"` (here or in the Experiment's SimConfig) is
-    accepted by the description and raises `NotImplementedError` at
-    plan time: adaptive routing comes with its own slice of the port.
     """
     topology: object                 # str | Topology | callable(n)
     n: int

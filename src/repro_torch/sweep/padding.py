@@ -27,7 +27,16 @@ lane influence a real one:
 
 Phase schedules pad the same way (`SchedBatch`): padded phase rows end
 at 2^30, so the phase pointer never counts them.  The productive-ports
-leaf (adaptive routing) comes with its slice.
+leaf `prod` (adaptive routing, DESIGN.md §15) is all-False in its pad
+region, so adaptive selection never names a padded destination, node or
+port; the static runner never reads it.
+
+The flight recorder (`SimConfig(telemetry=True)`, DESIGN.md §13) rides
+on the same discipline in the output direction: its per-channel and
+per-node counters are sized to the padded shape (sacrificial row C,
+padded node tails), non-contributing lanes go to the sacrificial row or
+add 0, and `run_batch` slices every counter back to the spec's own
+(c, n) before results leave the batch.
 """
 from __future__ import annotations
 
@@ -71,6 +80,7 @@ class BatchSpec(NamedTuple):
     ch_depth: np.ndarray     # [S, C] int32
     traffic_cum: np.ndarray  # [S, N, N] float32
     inj_weight: np.ndarray   # [S, N] float32
+    prod: np.ndarray         # [S, N, N, P] bool (pad region all-False)
     pi: np.ndarray           # [S] int32
 
 
@@ -100,6 +110,11 @@ def pad_spec(spec, shape: PadShape) -> dict:
     cum[:n, :n] = spec.traffic_cum
     inj = np.zeros((N,), np.float32)
     inj[:n] = spec.inj_weight
+    # productive-ports mask: pad region all-False, so padded lanes fall
+    # back to the (all -1) escape table and stay inert as on the static
+    # path
+    pr = np.zeros((N, N, P), bool)
+    pr[:n, :n, :p] = spec.prod
     return dict(
         table=table,
         out_ch=pad2(spec.out_ch, -1), in_ch=pad2(spec.in_ch, -1),
@@ -107,7 +122,7 @@ def pad_spec(spec, shape: PadShape) -> dict:
         ch_in_port=padc(spec.ch_in_port, 0),
         ch_out_port=padc(spec.ch_out_port, 0),
         ch_depth=padc(spec.ch_depth, 1),
-        traffic_cum=cum, inj_weight=inj,
+        traffic_cum=cum, inj_weight=inj, prod=pr,
         pi=np.int32(p + 1))
 
 

@@ -176,6 +176,34 @@ def test_simulator_kernel_equals_plain_and_cpu(cuda):
             np.testing.assert_array_equal(k[key], c[key], err_msg=key)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(routing="adaptive"), dict(telemetry=True, telemetry_windows=3),
+    dict(routing="adaptive", telemetry=True, telemetry_windows=3)],
+    ids=["adaptive", "recorder", "adaptive_recorder"])
+def test_simulator_modes_kernel_equal_plain_and_cpu(cuda, kw):
+    """Adaptive routing and the flight recorder on the card: every result
+    key equal with the kernel, the plain allocator and on the CPU."""
+    specs = []
+    for name, n in HETERO:
+        r = build_routing(T.build(name, n))
+        specs.append(sim.make_spec(r, TR.uniform(r.topo)))
+    rates = np.array([0.05, 0.3, 0.6], np.float32)
+    cfg = sim.SimConfig(cycles=240, warmup=80, **kw)
+    before = netstep.launches
+    kernel = sim.run_batch(specs, rates, cfg, device=cuda)
+    assert netstep.launches - before == cfg.cycles
+    plain = sim.run_batch(specs, rates, cfg._replace(alloc="torch"),
+                          device=cuda)
+    cpu = sim.run_batch(specs, rates, cfg, device="cpu")
+    for k, p, c in zip(kernel, plain, cpu):
+        assert set(k) == set(p) == set(c)
+        for key in set(k) - {"pad_fill"}:
+            for other in (p, c):
+                np.testing.assert_array_equal(k[key], other[key],
+                                              err_msg=key)
+                assert k[key].dtype == other[key].dtype, key
+
+
 # ---------------------------------------------------------------------
 # flash attention and SSD scan against their plain versions
 # ---------------------------------------------------------------------

@@ -5,8 +5,8 @@ goes through `repro.experiments.run` and `repro_torch.experiments.run(...,
 device="cpu")`, row by row and column by column.  Also held: plan
 buckets and skip reasons, `single_program`, `chunk_size` with progress,
 `on_error="skip"`, the CSV and JSON bytes, the analytic backend, the
-legacy shims, `figures`, and the deferred paths (adaptive routing,
-telemetry views) raising."""
+legacy shims, `figures`, adaptive scenarios, and the flight recorder's
+columns and per-link / per-window views."""
 import warnings
 
 import numpy as np
@@ -412,15 +412,37 @@ def test_figures_cli_writes_csv(tmp_path, capsys):
 # deferred paths and device rules
 # ---------------------------------------------------------------------
 
-def test_adaptive_scenario_raises_at_plan_time():
-    exp = PX.Experiment([PX.Scenario("mesh", 16, routing="adaptive")],
-                        cfg=PCFG)
-    with pytest.raises(NotImplementedError, match="adaptive-routing slice"):
-        PX.plan(exp)
-    exp = PX.Experiment([PX.Scenario("mesh", 16)],
-                        cfg=PCFG._replace(routing="adaptive"))
-    with pytest.raises(NotImplementedError, match="adaptive-routing slice"):
-        PX.run(exp, device="cpu")
+def _adaptive_scenarios(X):
+    g3 = X.SaturationGrid(3)
+    return [X.Scenario("mesh", 16, rates=g3),
+            X.Scenario("mesh", 16, routing="adaptive", rates=g3),
+            X.Scenario("folded_hexa_torus", 16, routing="adaptive",
+                       rates=g3)]
+
+
+def test_adaptive_scenario_plans_and_runs_like_reference(tmp_path):
+    """Adaptive scenarios (per Scenario and through the Experiment's
+    SimConfig) plan the reference's buckets and run to its rows, raw
+    results and CSV bytes."""
+    for cfg_kw in ({}, dict(routing="adaptive")):
+        ref = RX.Experiment(_adaptive_scenarios(RX),
+                            cfg=RCFG._replace(**cfg_kw), name="adaptive")
+        port = PX.Experiment(_adaptive_scenarios(PX),
+                             cfg=PCFG._replace(**cfg_kw), name="adaptive")
+        assert [b.key.routing for b in PX.plan(port).buckets] == \
+            [b.key.routing for b in RX.plan(ref).buckets]
+        want = RX.run(ref)
+        got = PX.run(port, device="cpu")
+        assert [r["routing"] for r in got.rows] == \
+            [r["routing"] for r in want.rows]
+        for a, b in zip(got.rows, want.rows):
+            _rows_equal(a, b)
+        for a, b in zip(got.results, want.results):
+            _results_equal(a, b)
+        got.to_csv(str(tmp_path / "got.csv"))
+        want.to_csv(str(tmp_path / "want.csv"))
+        assert (tmp_path / "got.csv").read_bytes() == \
+            (tmp_path / "want.csv").read_bytes()
 
 
 def test_reference_faultset_is_rejected():
@@ -430,15 +452,48 @@ def test_reference_faultset_is_rejected():
         PX.Scenario("mesh", 16, faults=[(0, 1)])
 
 
+def _telemetry_scenarios(X, F, T):
+    g3 = X.SaturationGrid(3)
+    chips = F.sample_faults(T.build("folded_hexa_torus", 16), 1,
+                            "chiplets", seed=0)
+    return [X.Scenario("mesh", 16, rates=g3, tags=(("cell", "a"),)),
+            X.Scenario("folded_hexa_torus", 16, routing="adaptive",
+                       rates=g3),
+            X.Scenario("folded_hexa_torus", 16, faults=chips, rates=g3)]
+
+
+@pytest.fixture(scope="module")
+def telemetry_frames():
+    """(port, reference) frames of a telemetry Experiment with 3 windows:
+    static, adaptive and a degraded scenario (dead-link rows)."""
+    kw = dict(telemetry=True, telemetry_windows=3)
+    want = RX.run(RX.Experiment(_telemetry_scenarios(RX, RF, RT),
+                                cfg=RCFG._replace(**kw), name="tel"))
+    got = PX.run(PX.Experiment(_telemetry_scenarios(PX, PF, PT),
+                               cfg=PCFG._replace(**kw), name="tel"),
+                 device="cpu")
+    return got, want
+
+
 @pytest.mark.parametrize("view", ["link_rows", "window_rows"])
-def test_telemetry_views_raise(view, port_frame, tmp_path):
-    with pytest.raises(NotImplementedError, match="telemetry slice"):
-        getattr(port_frame, view)(0)
-    with pytest.raises(NotImplementedError, match="telemetry slice"):
-        getattr(port_frame, "all_" + view)()
+def test_telemetry_views_equal_reference(view, telemetry_frames, tmp_path):
+    """`ResultFrame`'s per-link and per-window views: rows, the `all_`
+    form and the CSV bytes equal the reference's; the tidy rows carry
+    the link-load columns."""
+    got, want = telemetry_frames
+    for i in range(len(want.rows)):
+        assert getattr(got, view)(i) == getattr(want, view)(i)
+        assert getattr(got, view)(i, rate_index=0) == \
+            getattr(want, view)(i, rate_index=0)
+    assert getattr(got, "all_" + view)() == getattr(want, "all_" + view)()
     csv = "to_link_csv" if view == "link_rows" else "to_window_csv"
-    with pytest.raises(NotImplementedError, match="telemetry slice"):
-        getattr(port_frame, csv)(str(tmp_path / "x.csv"))
+    getattr(got, csv)(str(tmp_path / "got.csv"))
+    getattr(want, csv)(str(tmp_path / "want.csv"))
+    assert (tmp_path / "got.csv").read_bytes() == \
+        (tmp_path / "want.csv").read_bytes()
+    for a, b in zip(got.rows, want.rows):
+        _rows_equal(a, b)
+        assert a["link_gini"] is not None and a["link_util_max"] > 0
 
 
 def test_entry_points_need_a_card_unless_cpu_is_named():

@@ -1,8 +1,10 @@
-"""The port's static cycle simulator on the CPU is bitwise-equal to the
-JAX package's (`alloc="jnp"`) on the heterogeneous batch of
+"""The port's cycle simulator on the CPU is bitwise-equal to the JAX
+package's (`alloc="jnp"`) on the heterogeneous batch of
 tests/test_sweep.py, with the very same specs carried across by
 `convert.spec_from_reference`; batched equals single-spec, a fat pad
-changes nothing, and the sweep engine equals `run_batch`."""
+changes nothing, and the sweep engine equals `run_batch`.  The adaptive
+and recorder modes are held in depth by tests/test_torch_adaptive.py and
+tests/test_torch_telemetry.py."""
 import dataclasses
 
 import numpy as np
@@ -168,16 +170,42 @@ def test_alloc_resolution():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(telemetry=True), NotImplementedError, "telemetry slice"),
-    (dict(telemetry_windows=4), NotImplementedError, "telemetry slice"),
-    (dict(routing="adaptive"), NotImplementedError, "adaptive-routing"),
+    (dict(routing="adaptive", n_vcs=1), ValueError, "n_vcs >= 2"),
+    (dict(telemetry_windows=2), ValueError, "requires telemetry=True"),
+    (dict(telemetry=True, telemetry_windows=-1), ValueError, ">= 0"),
     (dict(routing="bogus"), ValueError, "unknown routing"),
     (dict(alloc="cuda"), ValueError, "needs a CUDA device"),
+    (dict(telemetry=True, telemetry_windows=4), ValueError,
+     "exceeds the measured window"),
 ])
 def test_deferred_and_invalid_configs_raise(port_specs, kw, exc, match):
+    """No mode is deferred any more: what raises is an invalid config,
+    with the reference runner's messages."""
     cfg = PCFG._replace(cycles=4, warmup=1, **kw)
     with pytest.raises(exc, match=match):
         PS.run_batch(port_specs[:1], RATES[:1], cfg, device="cpu")
+    if kw.get("alloc") != "cuda":
+        with pytest.raises(exc, match=match):
+            RS.run_batch(ref_specs_of(port_specs[:1]), RATES[:1],
+                         RCFG._replace(cycles=4, warmup=1, **kw))
+
+
+def ref_specs_of(specs):
+    return [RS.SimSpec(**dataclasses.asdict(s)) for s in specs]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(telemetry=True), dict(telemetry=True, telemetry_windows=4),
+    dict(routing="adaptive")], ids=["telemetry", "windows", "adaptive"])
+def test_modes_run_batch_equals_reference(kw, ref_specs, port_specs):
+    """The modes that once raised here run, and every result key equals
+    the reference's (raw, recorder, window counters)."""
+    want = RS.run_batch(ref_specs[:2], RATES[1:], RCFG._replace(**kw))
+    got = PS.run_batch(port_specs[:2], RATES[1:], PCFG._replace(**kw),
+                       device="cpu")
+    for g, w in zip(got, want):
+        _assert_results_equal(g, w, keys=tuple(k for k in w
+                                               if k != "pad_fill"))
 
 
 def test_schedules_are_a_later_slice(port_specs):

@@ -1,8 +1,8 @@
-"""Compute the JAX reference tables of `chip_smoke.py`'s `experiments`
-and `collectives` phases.
+"""Compute the JAX reference tables of `chip_smoke.py`'s `experiments`,
+`collectives` and `adaptive_telemetry` phases.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/smoke_reference.py \
-        [experiments|collectives]
+        [experiments|collectives|adaptive]
 
 `experiments` builds that phase's Experiment
 (`chip_smoke.experiment_scenarios`: 15 scenarios at N = 256, organic,
@@ -17,9 +17,13 @@ object per table: per scenario, in order, the label, the raw counters
 over the rate grid and the tidy row's values at the saturating rate.
 `chip_smoke.py` holds the port's runs of the same Experiments on the
 card to these tables (its `REFERENCE_EXPERIMENTS` and
-`REFERENCE_COLLECTIVES`), bit for bit.  Without an argument, both
-tables; the first takes about five minutes on an 8-core CPU, the second
-about as long.
+`REFERENCE_COLLECTIVES`), bit for bit.  `adaptive` builds
+`chip_smoke.adaptive_scenarios` (6 scenarios at N = 256: mesh, torus and
+folded_hexa_torus under hotspot_drift, static and adaptive) under
+`chip_smoke.adaptive_cfg` (the flight recorder on, 6 windows) and prints
+`chip_smoke.adaptive_table` of the frame (`REFERENCE_ADAPTIVE`).  Without
+an argument, all three tables; each takes several minutes on an 8-core
+CPU.
 """
 import json
 import os
@@ -61,10 +65,10 @@ def table(frame, raw=("delivered", "lat_sum"), substrate=False) -> list:
     return rows
 
 
-def run(scenarios, name):
+def run(scenarios, name, cfg=None):
     t0 = time.perf_counter()
-    cfg = SimConfig(cycles=chip_smoke.EXP_CYCLES,
-                    warmup=chip_smoke.EXP_WARMUP, alloc="jnp")
+    cfg = cfg or SimConfig(cycles=chip_smoke.EXP_CYCLES,
+                           warmup=chip_smoke.EXP_WARMUP, alloc="jnp")
     frame = X.run(X.Experiment(scenarios, cfg=cfg, name=name,
                                backend="sim"), on_error="raise",
                   progress=lambda done, total, key: print(
@@ -75,8 +79,21 @@ def run(scenarios, name):
     return frame
 
 
+def adaptive(n=chip_smoke.MAIN_N, cycles=chip_smoke.EXP_CYCLES,
+             warmup=chip_smoke.EXP_WARMUP, n_rates=chip_smoke.EXP_RATES,
+             windows=chip_smoke.ADAPTIVE_WINDOWS) -> dict:
+    """`chip_smoke.adaptive_table` of the adaptive_telemetry Experiment
+    run by the JAX package (the arguments cut it down for tests)."""
+    cfg = chip_smoke.adaptive_cfg(SimConfig, cycles, warmup,
+                                  windows)._replace(alloc="jnp")
+    frame = run(chip_smoke.adaptive_scenarios(X, W, n, n_rates),
+                "chip_smoke_adaptive", cfg)
+    return chip_smoke.adaptive_table(frame)
+
+
 def main(argv=None) -> int:
-    which = (argv or sys.argv[1:]) or ["experiments", "collectives"]
+    which = (argv or sys.argv[1:]) or ["experiments", "collectives",
+                                       "adaptive"]
     if "experiments" in which:
         t0 = time.perf_counter()
         frame = run(chip_smoke.experiment_scenarios(X, W, F, T),
@@ -97,6 +114,11 @@ def main(argv=None) -> int:
                                  "all_reduce", chip_smoke.ICI_BYTES))
         print(json.dumps(dict(table=table(frame, RAW, substrate=True),
                               ici=ici, seconds=time.perf_counter() - t0)),
+              flush=True)
+    if "adaptive" in which:
+        t0 = time.perf_counter()
+        out = adaptive()
+        print(json.dumps(dict(out, seconds=time.perf_counter() - t0)),
               flush=True)
     return 0
 
