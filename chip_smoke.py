@@ -104,6 +104,27 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        launches per cycle, idle share and ms per cycle of
                        the widest adaptive group in each mode (routing x
                        recorder) beside the `profile` phase's static group
+  synth                README's topology search on the card:
+                       `synth.run_search(SearchConfig(n=48, substrate=
+                       "organic", seed=0), device="cuda")` (3 generations,
+                       1500 cycles, SaturationGrid(4)); stats, pool digest,
+                       rejection ledger, every simulated candidate's
+                       analytic and simulated metrics, the front and the
+                       rows' CSV bytes equal the JAX table, FHT within 5%
+                       of the front, prefilter >= 5, every cycle of every
+                       padded group through the kernel.  Analytic and
+                       simulate wall times, the padded groups, ms per
+                       simulated cycle per group, and the widest group's
+                       device launches per cycle and idle share beside the
+                       `profile` phase's static group
+  analysis             `python -m repro_torch.analysis --all-builtin
+                       --hazards` in a process of its own, and
+                       `analyze(names=["folded_hexa_torus"], n=36,
+                       fault_kmax=2)`: exit code and DP, RT, JX001-JX003
+                       diagnostics equal the JAX table, the JX004 / JX005
+                       findings are runner_hazards.INTENDED; the hazard
+                       pass's traced cycles ran on the card (every loop op
+                       on cuda but the stated host-side ones)
   flash_vs_plain       the flash-attention kernels against their plain
                        version on the card: every case of
                        tests/test_torch_cuda.py (five (tq, tk, causal,
@@ -722,6 +743,709 @@ REFERENCE_ADAPTIVE = dict(
     n_window_rows=9168,
     window_rows=('33d725a5867bcfea3ccf8e595090023e'
                  '87be87057cca9ef05e1e465877d5b9a2'))
+# The `synth` phase: README's search, SearchConfig's defaults (N = 48,
+# organic, seed 0: 3 generations, 32 random seeds, 16 offspring, sim_top
+# 8, SaturationGrid(4), 1500 / 500 cycles).  REFERENCE_SYNTH is
+# `tools/smoke_reference.py synth` (repro.synth.run_search, jax 0.9.0 on
+# a CPU) through `synth_table`: search stats, a digest of the pool's
+# sorted structural hashes, the rejection ledger, every simulated
+# candidate's analytic and simulated metrics, the front (exact and 5 %),
+# the prefilter ratio, a digest of `SearchResult.rows()`'s CSV bytes and
+# stage 2's padded groups (N, P, C, D), in plan order.  Integer counters
+# and numpy arithmetic on them, so the port must match bit for bit.
+SYNTH_N = 48
+REFERENCE_SYNTH = {'stats': {'n_generated': 153,
+           'n_duplicate': 7,
+           'n_infeasible': 47,
+           'n_feasible': 99,
+           'n_simulated': 16},
+ 'n_pool': 99,
+ 'pool': 'ffd7d5d4d9b2abfb9cb41b93950c22d5aa17a3c8f1d4c09f9328a348df3a3ccc',
+ 'rejected': [['torus',
+               'registry',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['folded_octa_torus',
+               'registry',
+               ['link-range 2 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_pr',
+               'fold_mask',
+               ['link-range 4 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_rp',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_rf',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_fr',
+               'fold_mask',
+               ['link-range 4 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_ppr',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_prp',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_prr',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_prf',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_pfr',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_rpp',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_rpr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_rpf',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_rrp',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_rrr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_rrf',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_rfp',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_rfr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_rff',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_brick_fpr',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_frp',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_frr',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_frf',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_brick_ffr',
+               'fold_mask',
+               ['link-range 5 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_diag_ppr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_ppf',
+               'fold_mask',
+               ['link-range 2 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_diag_prp',
+               'fold_mask',
+               ['link-range 4 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_diag_prr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_prf',
+               'fold_mask',
+               ['link-range 4 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_diag_pfr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_pff',
+               'fold_mask',
+               ['link-range 2 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_diag_rpp',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_rpr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_rpf',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_rrp',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_rrr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_rrf',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_rfp',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_rfr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_rff',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_fpr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_fpf',
+               'fold_mask',
+               ['link-range 2 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_diag_frp',
+               'fold_mask',
+               ['link-range 4 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_diag_frr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']],
+              ['fm_grid_diag_frf',
+               'fold_mask',
+               ['link-range 4 > 1 (Principle 2)'],
+               ['DP001']],
+              ['fm_grid_diag_ffr',
+               'fold_mask',
+               ['link-range 6 > 1 (Principle 2)',
+                'max link 61.9 mm > 50.0 mm (organic rate floor 0.25)'],
+               ['DP001', 'DP002']]],
+ 'simulated': [{'name': 'mesh',
+                'origin': 'registry',
+                'analytic': {'analytic_saturation': 0.15064102564102627,
+                             'abs_throughput_gbps': 467.5897435897455,
+                             'zero_load_latency_ns': 37.33333333333333,
+                             'wire_cost_mm': 147844.27841088403,
+                             'radix': 4,
+                             'diameter': 12,
+                             'avg_hops': 4.666666666666667,
+                             'n_links': 82,
+                             'max_link_mm': 8.752325267042629},
+                'sim': {'analytic_saturation': 0.15064102564102627,
+                        'abs_throughput_gbps': 379.7873333333333,
+                        'zero_load_latency_ns': 37.33333333333333,
+                        'wire_cost_mm': 147844.27841088403,
+                        'radix': 4,
+                        'diameter': 12,
+                        'avg_hops': 4.666666666666667,
+                        'n_links': 82,
+                        'max_link_mm': 8.752325267042629,
+                        'sim_saturation': 0.12235416666666667,
+                        'latency_at_sat_ns': 53.23701685680231}},
+               {'name': 'folded_torus',
+                'origin': 'registry',
+                'analytic': {'analytic_saturation': 0.2034632034632036,
+                             'abs_throughput_gbps': 612.5706562233466,
+                             'zero_load_latency_ns': 31.54609929078014,
+                             'wire_cost_mm': 295688.5568217681,
+                             'radix': 4,
+                             'diameter': 7,
+                             'avg_hops': 3.574468085106383,
+                             'n_links': 96,
+                             'max_link_mm': 17.504650534085258},
+                'sim': {'analytic_saturation': 0.2034632034632036,
+                        'abs_throughput_gbps': 503.9819177554565,
+                        'zero_load_latency_ns': 31.54609929078014,
+                        'wire_cost_mm': 295688.5568217681,
+                        'radix': 4,
+                        'diameter': 7,
+                        'avg_hops': 3.574468085106383,
+                        'n_links': 96,
+                        'max_link_mm': 17.504650534085258,
+                        'sim_saturation': 0.16739583333333333,
+                        'latency_at_sat_ns': 47.751586807716244}},
+               {'name': 'hexamesh',
+                'origin': 'registry',
+                'analytic': {'analytic_saturation': 0.379032258064516,
+                             'abs_throughput_gbps': 758.064516129032,
+                             'zero_load_latency_ns': 30.921985815602834,
+                             'wire_cost_mm': 150905.83508856053,
+                             'radix': 6,
+                             'diameter': 10,
+                             'avg_hops': 3.8652482269503547,
+                             'n_links': 117,
+                             'max_link_mm': 9.78539712914816},
+                'sim': {'analytic_saturation': 0.379032258064516,
+                        'abs_throughput_gbps': 755.2916666666667,
+                        'zero_load_latency_ns': 30.921985815602834,
+                        'wire_cost_mm': 150905.83508856053,
+                        'radix': 6,
+                        'diameter': 10,
+                        'avg_hops': 3.8652482269503547,
+                        'n_links': 117,
+                        'max_link_mm': 9.78539712914816,
+                        'sim_saturation': 0.37764583333333335,
+                        'latency_at_sat_ns': 85.19413030286313}},
+               {'name': 'folded_hexa_torus',
+                'origin': 'registry',
+                'analytic': {'analytic_saturation': 0.4122807017543861,
+                             'abs_throughput_gbps': 780.8523722924122,
+                             'zero_load_latency_ns': 22.97872340425532,
+                             'wire_cost_mm': 299130.4713637345,
+                             'radix': 6,
+                             'diameter': 6,
+                             'avg_hops': 2.7065602836879434,
+                             'n_links': 140,
+                             'max_link_mm': 19.570794258296317},
+                'sim': {'analytic_saturation': 0.4122807017543861,
+                        'abs_throughput_gbps': 756.132995198272,
+                        'zero_load_latency_ns': 22.97872340425532,
+                        'wire_cost_mm': 299130.4713637345,
+                        'radix': 6,
+                        'diameter': 6,
+                        'avg_hops': 2.7065602836879434,
+                        'n_links': 140,
+                        'max_link_mm': 19.570794258296317,
+                        'sim_saturation': 0.3992291666666667,
+                        'latency_at_sat_ns': 77.61336951416793}},
+               {'name': 'octamesh',
+                'origin': 'registry',
+                'analytic': {'analytic_saturation': 0.4700000000000006,
+                             'abs_throughput_gbps': 677.8116867871295,
+                             'zero_load_latency_ns': 26.609929078014183,
+                             'wire_cost_mm': 163165.04686004887,
+                             'radix': 8,
+                             'diameter': 7,
+                             'avg_hops': 3.326241134751773,
+                             'n_links': 152,
+                             'max_link_mm': 12.377657094952406},
+                'sim': {'analytic_saturation': 0.4700000000000006,
+                        'abs_throughput_gbps': 569.4399334962966,
+                        'zero_load_latency_ns': 26.609929078014183,
+                        'wire_cost_mm': 163165.04686004887,
+                        'radix': 8,
+                        'diameter': 7,
+                        'avg_hops': 3.326241134751773,
+                        'n_links': 152,
+                        'max_link_mm': 12.377657094952406,
+                        'sim_saturation': 0.3948541666666667,
+                        'latency_at_sat_ns': 70.85020841027806}},
+               {'name': 'honeycomb_mesh',
+                'origin': 'registry',
+                'analytic': {'analytic_saturation': 0.1350574712643685,
+                             'abs_throughput_gbps': 568.3218390804627,
+                             'zero_load_latency_ns': 45.51773049645389,
+                             'wire_cost_mm': 149227.14580307677,
+                             'radix': 3,
+                             'diameter': 12,
+                             'avg_hops': 5.3120567375886525,
+                             'n_links': 62,
+                             'max_link_mm': 8.752325267042629},
+                'sim': {'analytic_saturation': 0.1350574712643685,
+                        'abs_throughput_gbps': 416.855,
+                        'zero_load_latency_ns': 45.51773049645389,
+                        'wire_cost_mm': 149227.14580307677,
+                        'radix': 3,
+                        'diameter': 12,
+                        'avg_hops': 5.3120567375886525,
+                        'n_links': 62,
+                        'max_link_mm': 8.752325267042629,
+                        'sim_saturation': 0.0990625,
+                        'latency_at_sat_ns': 104.63533123028391}},
+               {'name': 'sid_mesh',
+                'origin': 'registry',
+                'analytic': {'analytic_saturation': 0.18650793650793684,
+                             'abs_throughput_gbps': 573.4147359005024,
+                             'zero_load_latency_ns': 33.13475177304964,
+                             'wire_cost_mm': 221757.31142947238,
+                             'radix': 4,
+                             'diameter': 7,
+                             'avg_hops': 3.7109929078014185,
+                             'n_links': 94,
+                             'max_link_mm': 12.377657094952406},
+                'sim': {'analytic_saturation': 0.18650793650793684,
+                        'abs_throughput_gbps': 494.927068884929,
+                        'zero_load_latency_ns': 33.13475177304964,
+                        'wire_cost_mm': 221757.31142947238,
+                        'radix': 4,
+                        'diameter': 7,
+                        'avg_hops': 3.7109929078014185,
+                        'n_links': 94,
+                        'max_link_mm': 12.377657094952406,
+                        'sim_saturation': 0.16097916666666667,
+                        'latency_at_sat_ns': 134.57486734825935}},
+               {'name': 'kite_large',
+                'origin': 'registry',
+                'analytic': {'analytic_saturation': 0.17803030303030346,
+                             'abs_throughput_gbps': 535.9993241954293,
+                             'zero_load_latency_ns': 34.26950354609929,
+                             'wire_cost_mm': 253442.1308833134,
+                             'radix': 4,
+                             'diameter': 9,
+                             'avg_hops': 4.028368794326241,
+                             'n_links': 88,
+                             'max_link_mm': 17.504650534085258},
+                'sim': {'analytic_saturation': 0.17803030303030346,
+                        'abs_throughput_gbps': 440.19229605573037,
+                        'zero_load_latency_ns': 34.26950354609929,
+                        'wire_cost_mm': 253442.1308833134,
+                        'radix': 4,
+                        'diameter': 9,
+                        'avg_hops': 4.028368794326241,
+                        'n_links': 88,
+                        'max_link_mm': 17.504650534085258,
+                        'sim_saturation': 0.14620833333333333,
+                        'latency_at_sat_ns': 49.3660587061841}},
+               {'name': 'fm_grid_diag_fpp~5974~461c',
+                'origin': 'perturb',
+                'analytic': {'analytic_saturation': 0.8245614035087722,
+                             'abs_throughput_gbps': 1164.4825252731928,
+                             'zero_load_latency_ns': 22.900709219858157,
+                             'wire_cost_mm': 202830.58497028603,
+                             'radix': 8,
+                             'diameter': 6,
+                             'avg_hops': 2.8351063829787235,
+                             'n_links': 159,
+                             'max_link_mm': 17.504650534085258},
+                'sim': {'analytic_saturation': 0.8245614035087722,
+                        'abs_throughput_gbps': 863.5876736097822,
+                        'zero_load_latency_ns': 22.900709219858157,
+                        'wire_cost_mm': 202830.58497028603,
+                        'radix': 8,
+                        'diameter': 6,
+                        'avg_hops': 2.8351063829787235,
+                        'n_links': 159,
+                        'max_link_mm': 17.504650534085258,
+                        'sim_saturation': 0.6115,
+                        'latency_at_sat_ns': 53.0990733169801}},
+               {'name': 'fm_grid_diag_fpp~934e',
+                'origin': 'perturb',
+                'analytic': {'analytic_saturation': 0.8103448275862072,
+                             'abs_throughput_gbps': 1144.4052403546896,
+                             'zero_load_latency_ns': 23.0,
+                             'wire_cost_mm': 201027.60596527526,
+                             'radix': 8,
+                             'diameter': 6,
+                             'avg_hops': 2.851950354609929,
+                             'n_links': 158,
+                             'max_link_mm': 17.504650534085258},
+                'sim': {'analytic_saturation': 0.8103448275862072,
+                        'abs_throughput_gbps': 841.1977097362116,
+                        'zero_load_latency_ns': 23.0,
+                        'wire_cost_mm': 201027.60596527526,
+                        'radix': 8,
+                        'diameter': 6,
+                        'avg_hops': 2.851950354609929,
+                        'n_links': 158,
+                        'max_link_mm': 17.504650534085258,
+                        'sim_saturation': 0.5956458333333333,
+                        'latency_at_sat_ns': 53.93421006610472}},
+               {'name': 'fm_grid_diag_fpp~070e~9233',
+                'origin': 'perturb',
+                'analytic': {'analytic_saturation': 0.7966101694915257,
+                             'abs_throughput_gbps': 1098.3813573100317,
+                             'zero_load_latency_ns': 22.886524822695034,
+                             'wire_cost_mm': 201079.822394188,
+                             'radix': 8,
+                             'diameter': 6,
+                             'avg_hops': 2.8351063829787235,
+                             'n_links': 157,
+                             'max_link_mm': 19.570794258296313},
+                'sim': {'analytic_saturation': 0.7966101694915257,
+                        'abs_throughput_gbps': 784.8640761175254,
+                        'zero_load_latency_ns': 22.886524822695034,
+                        'wire_cost_mm': 201079.822394188,
+                        'radix': 8,
+                        'diameter': 6,
+                        'avg_hops': 2.8351063829787235,
+                        'n_links': 157,
+                        'max_link_mm': 19.570794258296313,
+                        'sim_saturation': 0.5692291666666667,
+                        'latency_at_sat_ns': 56.561175566372654}},
+               {'name': 'fm_grid_diag_fpp~5974',
+                'origin': 'perturb',
+                'analytic': {'analytic_saturation': 0.7704918032786889,
+                             'abs_throughput_gbps': 1088.1230154192133,
+                             'zero_load_latency_ns': 22.9645390070922,
+                             'wire_cost_mm': 201027.60596527523,
+                             'radix': 8,
+                             'diameter': 6,
+                             'avg_hops': 2.8430851063829787,
+                             'n_links': 158,
+                             'max_link_mm': 17.504650534085258},
+                'sim': {'analytic_saturation': 0.7704918032786889,
+                        'abs_throughput_gbps': 843.1689680535956,
+                        'zero_load_latency_ns': 22.9645390070922,
+                        'wire_cost_mm': 201027.60596527523,
+                        'radix': 8,
+                        'diameter': 6,
+                        'avg_hops': 2.8430851063829787,
+                        'n_links': 158,
+                        'max_link_mm': 17.504650534085258,
+                        'sim_saturation': 0.5970416666666667,
+                        'latency_at_sat_ns': 54.38900132598227}},
+               {'name': 'fm_grid_diag_fpp~5974~895d',
+                'origin': 'perturb',
+                'analytic': {'analytic_saturation': 0.7704918032786889,
+                             'abs_throughput_gbps': 1088.1230154192133,
+                             'zero_load_latency_ns': 22.98581560283688,
+                             'wire_cost_mm': 200126.11646276986,
+                             'radix': 8,
+                             'diameter': 6,
+                             'avg_hops': 2.844858156028369,
+                             'n_links': 157,
+                             'max_link_mm': 17.504650534085258},
+                'sim': {'analytic_saturation': 0.7704918032786889,
+                        'abs_throughput_gbps': 840.0502608648984,
+                        'zero_load_latency_ns': 22.98581560283688,
+                        'wire_cost_mm': 200126.11646276986,
+                        'radix': 8,
+                        'diameter': 6,
+                        'avg_hops': 2.844858156028369,
+                        'n_links': 157,
+                        'max_link_mm': 17.504650534085258,
+                        'sim_saturation': 0.5948333333333333,
+                        'latency_at_sat_ns': 42.78992715046231}},
+               {'name': 'fm_grid_diag_fpp~ff2a',
+                'origin': 'perturb',
+                'analytic': {'analytic_saturation': 0.7230769230769236,
+                             'abs_throughput_gbps': 1021.1615990857235,
+                             'zero_load_latency_ns': 23.070921985815602,
+                             'wire_cost_mm': 199752.70728449512,
+                             'radix': 8,
+                             'diameter': 6,
+                             'avg_hops': 2.8599290780141846,
+                             'n_links': 157,
+                             'max_link_mm': 17.504650534085258},
+                'sim': {'analytic_saturation': 0.7230769230769236,
+                        'abs_throughput_gbps': 830.6647175328761,
+                        'zero_load_latency_ns': 23.070921985815602,
+                        'wire_cost_mm': 199752.70728449512,
+                        'radix': 8,
+                        'diameter': 6,
+                        'avg_hops': 2.8599290780141846,
+                        'n_links': 157,
+                        'max_link_mm': 17.504650534085258,
+                        'sim_saturation': 0.5881875,
+                        'latency_at_sat_ns': 42.915843162256934}},
+               {'name': 'fm_grid_diag_fpp~ff2a~9853',
+                'origin': 'perturb',
+                'analytic': {'analytic_saturation': 0.7230769230769236,
+                             'abs_throughput_gbps': 996.9923089429524,
+                             'zero_load_latency_ns': 23.070921985815602,
+                             'wire_cost_mm': 199592.11090981422,
+                             'radix': 8,
+                             'diameter': 6,
+                             'avg_hops': 2.8652482269503547,
+                             'n_links': 156,
+                             'max_link_mm': 19.570794258296313},
+                'sim': {'analytic_saturation': 0.7230769230769236,
+                        'abs_throughput_gbps': 793.0508148246034,
+                        'zero_load_latency_ns': 23.070921985815602,
+                        'wire_cost_mm': 199592.11090981422,
+                        'radix': 8,
+                        'diameter': 6,
+                        'avg_hops': 2.8652482269503547,
+                        'n_links': 156,
+                        'max_link_mm': 19.570794258296313,
+                        'sim_saturation': 0.5751666666666667,
+                        'latency_at_sat_ns': 44.35573022312373}},
+               {'name': 'rg_grid_22b18bf1~aa86~7481',
+                'origin': 'perturb',
+                'analytic': {'analytic_saturation': 0.7121212121212127,
+                             'abs_throughput_gbps': 981.8863648680591,
+                             'zero_load_latency_ns': 21.411347517730494,
+                             'wire_cost_mm': 228496.82440525628,
+                             'radix': 8,
+                             'diameter': 5,
+                             'avg_hops': 2.5629432624113475,
+                             'n_links': 147,
+                             'max_link_mm': 19.570794258296317},
+                'sim': {'analytic_saturation': 0.7121212121212127,
+                        'abs_throughput_gbps': 788.2536731962455,
+                        'zero_load_latency_ns': 21.411347517730494,
+                        'wire_cost_mm': 228496.82440525628,
+                        'radix': 8,
+                        'diameter': 5,
+                        'avg_hops': 2.5629432624113475,
+                        'n_links': 147,
+                        'max_link_mm': 19.570794258296317,
+                        'sim_saturation': 0.5716875,
+                        'latency_at_sat_ns': 42.77806931234284}}],
+ 'front': ['mesh',
+           'hexamesh',
+           'octamesh',
+           'honeycomb_mesh',
+           'fm_grid_diag_fpp~5974~461c',
+           'fm_grid_diag_fpp~070e~9233',
+           'fm_grid_diag_fpp~5974',
+           'fm_grid_diag_fpp~5974~895d',
+           'fm_grid_diag_fpp~ff2a',
+           'fm_grid_diag_fpp~ff2a~9853',
+           'rg_grid_22b18bf1~aa86~7481'],
+ 'front_eps': ['mesh',
+               'hexamesh',
+               'folded_hexa_torus',
+               'octamesh',
+               'honeycomb_mesh',
+               'fm_grid_diag_fpp~5974~461c',
+               'fm_grid_diag_fpp~934e',
+               'fm_grid_diag_fpp~070e~9233',
+               'fm_grid_diag_fpp~5974',
+               'fm_grid_diag_fpp~5974~895d',
+               'fm_grid_diag_fpp~ff2a',
+               'fm_grid_diag_fpp~ff2a~9853',
+               'rg_grid_22b18bf1~aa86~7481'],
+ 'fht_on_front': True,
+ 'prefilter_ratio': 6.1875,
+ 'rows_csv': '30638996691065e3893464278f153c4567e5082916152ae34ad4692f1e327d50',
+ 'buckets': [[48, 4, 192, 12],
+             [48, 6, 256, 12],
+             [48, 6, 288, 12],
+             [48, 8, 320, 12],
+             [48, 3, 128, 12]]}
+# The `analysis` phase: `python -m repro_torch.analysis --all-builtin
+# --hazards` (DEFAULT_N = 36, both substrates) and `analyze(names=
+# ["folded_hexa_torus"], n=36, fault_kmax=2)`.  REFERENCE_ANALYSIS is
+# `tools/smoke_reference.py analysis` (`python -m repro.analysis
+# --all-builtin --jax` and `repro.analysis.analyze`) through
+# `analysis_table`.  JX004 / JX005 read the port's op log, not a jaxpr:
+# they are held to `runner_hazards.INTENDED` instead.
+ANALYSIS_OWN_CODES = ("JX004", "JX005")
+REFERENCE_ANALYSIS = {'cli_rc': 0,
+ 'cli': [['DP006',
+          'hypercube/n36',
+          'hypercube does not support N=36 (topology.N_CONSTRAINTS)'],
+         ['DP001',
+          'butterdonut/n36/organic',
+          'link-range 2 > 1 (Principle 2)'],
+         ['DP001', 'butterdonut/n36/glass', 'link-range 2 > 1 (Principle 2)'],
+         ['DP001',
+          'cluscross_v1/n36/organic',
+          'link-range 4 > 1 (Principle 2)'],
+         ['DP001',
+          'cluscross_v1/n36/glass',
+          'link-range 4 > 1 (Principle 2)'],
+         ['DP001',
+          'cluscross_v2/n36/organic',
+          'link-range 4 > 1 (Principle 2)'],
+         ['DP001',
+          'cluscross_v2/n36/glass',
+          'link-range 4 > 1 (Principle 2)'],
+         ['DP001',
+          'double_butterfly/n36/organic',
+          'link-range 2 > 1 (Principle 2)'],
+         ['DP001',
+          'double_butterfly/n36/glass',
+          'link-range 2 > 1 (Principle 2)'],
+         ['DP001',
+          'flattened_butterfly/n36/organic',
+          'link-range 4 > 1 (Principle 2)'],
+         ['DP003',
+          'flattened_butterfly/n36/organic',
+          'radix 10 > 8 (Principle 3)'],
+         ['DP001',
+          'flattened_butterfly/n36/glass',
+          'link-range 4 > 1 (Principle 2)'],
+         ['DP003',
+          'flattened_butterfly/n36/glass',
+          'radix 10 > 8 (Principle 3)'],
+         ['DP001',
+          'folded_octa_torus/n36/organic',
+          'link-range 2 > 1 (Principle 2)'],
+         ['DP001',
+          'folded_octa_torus/n36/glass',
+          'link-range 2 > 1 (Principle 2)'],
+         ['DP001',
+          'honeycomb_torus/n36/organic',
+          'link-range 4 > 1 (Principle 2)'],
+         ['DP001',
+          'honeycomb_torus/n36/glass',
+          'link-range 4 > 1 (Principle 2)'],
+         ['DP001', 'hypercube/n32/organic', 'link-range 6 > 1 (Principle 2)'],
+         ['DP002',
+          'hypercube/n32/organic',
+          'max link 61.3 mm > 50.0 mm (organic rate floor 0.25)'],
+         ['DP001', 'hypercube/n32/glass', 'link-range 6 > 1 (Principle 2)'],
+         ['DP002',
+          'hypercube/n32/glass',
+          'max link 60.9 mm > 60.0 mm (glass rate floor 0.25)'],
+         ['DP001', 'torus/n36/organic', 'link-range 4 > 1 (Principle 2)'],
+         ['DP001', 'torus/n36/glass', 'link-range 4 > 1 (Principle 2)'],
+         ['JX003',
+          'batch[19]',
+          '19 spec(s) span 16 distinct padded shapes -> 16 compiled '
+          'executables; shape bucketing would reduce this to 1'],
+         ['JX003',
+          'batch[19]',
+          '19 spec(s) span 16 distinct padded shapes -> 16 compiled '
+          'executables; shape bucketing would reduce this to 1']],
+ 'cli_analyzed': '51aa3f29b7471cd2507263facc2746f74426ea16769d3cef13dda6e978df0ad8',
+ 'fht': [],
+ 'fht_analyzed': [['principles', 'folded_hexa_torus/n36/organic'],
+                  ['routing', 'folded_hexa_torus/n36/organic[pristine]'],
+                  ['routing', 'folded_hexa_torus/n36/organic[random:k1:s0]'],
+                  ['routing', 'folded_hexa_torus/n36/organic[random:k2:s0]'],
+                  ['principles', 'folded_hexa_torus/n36/glass'],
+                  ['routing', 'folded_hexa_torus/n36/glass[pristine]'],
+                  ['routing', 'folded_hexa_torus/n36/glass[random:k1:s0]'],
+                  ['routing', 'folded_hexa_torus/n36/glass[random:k2:s0]']]}
 # the workload batch of tests/test_torch_workloads.py
 WL_HETERO = [("mesh", 16), ("folded_hexa_torus", 36), ("octamesh", 25)]
 WL_RATES = [0.05, 0.2, 0.5]
@@ -932,6 +1656,61 @@ def collective_scenarios(X, W, C) -> list:
     out += [X.Scenario(name, COLL_N, "glass", workloads[0], rates=grid)
             for name in ICI_TOPOLOGIES]
     return out
+
+
+def synth_scenarios(X, cands, config) -> list:
+    """Stage 2's scenarios of a search, as `synth.evaluate.
+    simulate_candidates` builds them (either package's classes)."""
+    return [X.Scenario(topology=c.topo, n=c.topo.n, traffic=config.traffic,
+                       rates=X.SaturationGrid(config.n_rates))
+            for c in cands]
+
+
+def synth_table(res, X, io, engine=None) -> dict:
+    """The reference entries of a `SearchResult` (either package's; X and
+    io its experiments package and writer): see REFERENCE_SYNTH."""
+    import hashlib
+    import os
+    import tempfile
+    st = res.state
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "synth.csv")
+        io.write_csv(path, res.rows())
+        csv = hashlib.sha256(Path(path).read_bytes()).hexdigest()
+    pool = sorted(c.topo.structural_hash() for c in st.pool)
+    plan = X.plan(X.Experiment(synth_scenarios(X, res.simulated, st.config),
+                               cfg=st.config.cfg, name="synth_sim"), engine)
+    return dict(
+        stats=dict(st.stats), n_pool=len(pool),
+        pool=hashlib.sha256("\n".join(pool).encode()).hexdigest(),
+        rejected=[[r["name"], r["origin"], r["reasons"], r["diag_codes"]]
+                  for r in st.rejected],
+        simulated=[dict(name=c.topo.name, origin=c.origin,
+                        analytic=c.analytic, sim=c.sim)
+                   for c in res.simulated],
+        front=[c.topo.name for c in res.front()],
+        front_eps=[c.topo.name for c in res.front(0.05)],
+        fht_on_front=res.on_front("folded_hexa_torus", eps=0.05),
+        prefilter_ratio=res.prefilter_ratio, rows_csv=csv,
+        buckets=[[b.key.shape.n, b.key.shape.p, b.key.shape.c,
+                  b.key.shape.d] for b in plan.buckets])
+
+
+def analysis_table(cli_doc: dict, cli_rc: int, fht_report) -> dict:
+    """The reference entries of the `analysis` phase: the CLI's exit code
+    and its DP, RT and JX001-JX003 diagnostics (code, target, message)
+    from its JSON artifact, with a digest of what it analyzed, and the
+    diagnostics and analyzed targets of `analyze(names=["folded_hexa_
+    torus"], n=36, fault_kmax=2)`: see REFERENCE_ANALYSIS."""
+    import hashlib
+    return dict(
+        cli_rc=cli_rc,
+        cli=[[r["code"], r["target"], r["message"]] for r in cli_doc["rows"]
+             if r["code"] not in ANALYSIS_OWN_CODES],
+        cli_analyzed=hashlib.sha256(json.dumps(
+            cli_doc["analyzed"]).encode()).hexdigest(),
+        fht=[[d.code, d.target, d.message] for d in fht_report],
+        fht_analyzed=[list(a) for a in fht_report.analyzed])
 
 
 def profile_cycles(torch, run, cycles: int, sessions: int = 3,
@@ -1572,6 +2351,172 @@ def adaptive_phase(torch, dev, smi, netstep, static_profile) -> int:
          profile_cycles=PROFILE_CYCLES, group_profile_by_mode=modes,
          static_group_profile=static_profile,
          obs_profile=profiles, profile_seconds=round(profile_s, 3),
+         seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
+    return launches
+
+
+def synth_phase(torch, dev, smi, netstep, static_profile) -> int:
+    """`synth`; returns netstep's launches in the search's stage 2.
+    `static_profile` is the `profile` phase's reading of a static group
+    at the main path's shape."""
+    from repro_torch import experiments as X
+    from repro_torch import synth as S
+    from repro_torch.core import simulator as sim
+    from repro_torch.experiments import io as xio
+    from repro_torch.obs.trace import (clear_trace, disable_tracing,
+                                       enable_tracing, get_spans)
+    from repro_torch.sweep.engine import SweepEngine
+    config = S.SearchConfig(n=SYNTH_N, substrate="organic", seed=0)
+    cfg = config.cfg
+    clear_trace()
+    enable_tracing()
+    torch.cuda.synchronize()
+    netstep.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = S.run_search(config, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        disable_tracing()
+    wall_s = time.perf_counter() - t0
+    launches = netstep.launches
+    span_s = {}
+    for sp in get_spans():
+        if sp.name.startswith("synth."):
+            span_s[sp.name] = span_s.get(sp.name, 0.0) + sp.dur / 1e9
+    analytic_s = sum(v for k, v in span_s.items() if k != "synth.simulate")
+    simulate_s = span_s.get("synth.simulate", 0.0)
+    engine = SweepEngine(cfg=cfg, device=dev)
+    got = synth_table(res, X, xio, engine)
+    groups = len(got["buckets"])
+    check(launches == cfg.cycles * groups,
+          f"the search launched netstep {launches} times for {cfg.cycles} "
+          f"cycles x {groups} groups")
+    for key, want in REFERENCE_SYNTH.items():
+        if key == "simulated":
+            check(len(got[key]) == len(want),
+                  f"{len(got[key])} simulated for {len(want)}")
+            for g, w in zip(got[key], want):
+                check(g == w, f"simulated {w['name']}: {g} != {w}")
+        elif key != "seconds":
+            check(got[key] == want, f"synth {key} {got[key]!r} != {want!r}")
+    check(res.on_front("folded_hexa_torus", eps=0.05),
+          "folded_hexa_torus is not within 5% of the front")
+    check(res.prefilter_ratio >= 5, f"prefilter {res.prefilter_ratio} < 5")
+    # launches per cycle and idle share of the widest group, as the engine
+    # pads it
+    plan = X.plan(X.Experiment(synth_scenarios(X, res.simulated, config),
+                               cfg=cfg, name="synth_sim"), engine)
+    widest = max(plan.buckets, key=lambda b: b.key.shape)
+    items = list(widest.items)
+    while len(items) % engine.s_round:
+        items.append(items[-1])
+
+    def group_run(cycles):
+        return lambda: sim.run_batch(
+            [ps.spec for ps in items], [ps.rates for ps in items],
+            sim.SimConfig(cycles=cycles, warmup=0),
+            pad_shape=widest.key.shape, device=dev)
+
+    group_run(2)()
+    torch.cuda.synchronize()
+    widest_profile = dict(
+        shape=str(widest.key.shape), live_specs=len(widest.items),
+        **profile_cycles(torch, group_run(PROFILE_CYCLES), PROFILE_CYCLES,
+                         host_ops=False))
+    widest_profile.pop("top_device_us")
+    emit("synth", n=SYNTH_N, stats=got["stats"], equal_reference=True,
+         fht_on_front_eps_0_05=True, prefilter_ratio=res.prefilter_ratio,
+         front=got["front"], front_eps=got["front_eps"],
+         simulated=[c["name"] for c in got["simulated"]],
+         sim_saturation={c["name"]: c["sim"]["sim_saturation"]
+                         for c in got["simulated"]},
+         cycles=cfg.cycles, groups=groups, padded_groups=got["buckets"],
+         netstep_launches=launches, wall_seconds=wall_s,
+         analytic_seconds=analytic_s, simulate_seconds=simulate_s,
+         span_seconds=span_s,
+         ms_per_simulated_cycle=1e3 * simulate_s / (cfg.cycles * groups),
+         profile_cycles=PROFILE_CYCLES, widest_group_profile=widest_profile,
+         static_group_profile=static_profile, nvidia_smi=smi)
+    return launches
+
+
+def analysis_phase(torch, dev, smi, netstep) -> int:
+    """`analysis`; returns netstep's launches in the in-process hazard
+    pass (the CLI's run in its own process is not counted here)."""
+    import os
+    import tempfile
+    from repro_torch import analysis as A
+    from repro_torch.analysis import runner_hazards as H
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import topology as T
+    from repro_torch.core import traffic as TR
+    from repro_torch.core.routing import routing_for
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "diagnostics.json")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--all-builtin",
+             "--hazards", "-q", "-o", path], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=900)
+        check(os.path.exists(path), f"the analysis CLI wrote nothing: "
+              f"rc {proc.returncode}, {proc.stderr[-2000:]}")
+        with open(path) as f:
+            cli_doc = json.load(f)
+    cli_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    fht = A.analyze(names=["folded_hexa_torus"], n=36, fault_kmax=2)
+    fht_s = time.perf_counter() - t1
+    got = analysis_table(cli_doc, proc.returncode, fht)
+    for key, want in REFERENCE_ANALYSIS.items():
+        if key != "seconds":
+            check(got[key] == want,
+                  f"analysis {key} {got[key]!r} != {want!r}")
+    own = {(r["code"], r["witness"].get("op"), r["witness"].get("src"),
+            r["witness"].get("dst", r["witness"].get("dtype")))
+           for r in cli_doc["rows"] if r["code"] in ANALYSIS_OWN_CODES}
+    check(own == set(H.INTENDED), f"the CLI's JX004 / JX005 findings "
+          f"{sorted(own)} are not the intended {sorted(H.INTENDED)}")
+    # the hazard pass's cycles on the card: the organic batch the CLI
+    # traces, its op log on cuda but for the stated host-side ops
+    topos = [T.build(name, T.nearest_valid_n(name, A.DEFAULT_N))
+             for name in A.builtin_names()]
+    specs = [sim.make_spec(routing_for(t), TR.uniform(t)) for t in topos]
+    netstep.launches = 0
+    t2 = time.perf_counter()
+    log, shape, _ = sim.trace_batch(specs, [0.1], sim.SimConfig(),
+                                    device=dev)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t2
+    launches = netstep.launches
+    check(launches == sim.TRACE_CYCLES,
+          f"the traced cycles launched netstep {launches} times for "
+          f"{sim.TRACE_CYCLES} cycles")
+    host_ops = H.host_side_ops(log, torch.device(dev).type)
+    check(set(host_ops) <= set(H.HOST_SIDE_OPS),
+          f"loop ops off the card: {host_ops}")
+    found = H.findings(H.check_host_sync(log)
+                       + H.check_dtype_promotions(log))
+    check(set(found) == set(H.INTENDED),
+          f"the loop's JX004 / JX005 findings {found} are not the intended "
+          f"{sorted(H.INTENDED)}")
+    loop = H.loop_ops(log)
+    emit("analysis", cli_rc=proc.returncode,
+         cli_summary=[line for line in proc.stdout.splitlines()
+                      if "analyzed:" in line],
+         cli_counts={c: sum(r["code"] == c for r in cli_doc["rows"])
+                     for c in sorted({r["code"] for r in cli_doc["rows"]})},
+         equal_reference=True, own_findings=sorted(own),
+         intended=[dict(finding=list(k), reason=v)
+                   for k, v in H.INTENDED.items()],
+         fht_diagnostics=len(got["fht"]),
+         fht_analyzed=len(got["fht_analyzed"]),
+         trace_shape=str(shape), trace_specs=len(specs),
+         trace_cycles=sim.TRACE_CYCLES, traced_ops=len(log),
+         aten_ops_per_cycle=len(loop) / sim.TRACE_CYCLES,
+         loop_host_side_ops=host_ops, netstep_launches=launches,
+         cli_seconds=cli_s, fht_seconds=fht_s, trace_seconds=trace_s,
          seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
     return launches
 
@@ -2400,6 +3345,8 @@ def main() -> int:
     adaptive_kernel_phase(torch, dev, netstep)
     adaptive_launches = adaptive_phase(torch, dev, smi, netstep,
                                        static_profile)
+    synth_launches = synth_phase(torch, dev, smi, netstep, static_profile)
+    analysis_launches = analysis_phase(torch, dev, smi, netstep)
 
     lm_rows = lm_phases(torch, dev, smi, fops, sops, serve)
 
@@ -2410,6 +3357,7 @@ def main() -> int:
         launches=main_launches, launches_experiments=exp_launches,
         launches_collectives=coll_launches,
         launches_adaptive_telemetry=adaptive_launches,
+        launches_synth=synth_launches, launches_analysis=analysis_launches,
         max_abs_err=max_err,
         ms=first(main_row["device_ms"], main_row["events_ms"]),
         events_ms=main_row["events_ms"],

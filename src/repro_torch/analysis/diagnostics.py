@@ -28,10 +28,10 @@ Severities order ``error > warning > info``; `Report.gate()` is the CI
 gate: it fails when any diagnostic at or above the threshold exists.
 
 The port's copy of `repro.analysis.diagnostics` (standard library only):
-the same codes, records and reports.  Of the analyzers, the port has
-`routing_verify` (RT codes); the planner writes the DP006 / FT001 / EX001
-codes of its skip rows.  The other DP codes and the JX codes stay
-registered so that a report reads alike in both packages.
+the same codes, records and reports, so that a report reads alike in
+both packages.  The JX codes' descriptions are the reference's; the
+port's JX004 / JX005 read an op log, not a traced step
+(`runner_hazards`).
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ CODES: dict[str, tuple[str, str, str]] = {
     "RT005": ("escape-unsafe", ERROR,
               "an adaptive routing choice loses its deadlock-free "
               "escape path"),
-    # ---- design principles (the reference's analysis.principles) ----
+    # ---- design principles (analysis.principles) --------------------
     "DP001": ("link-range", WARNING,
               "link range exceeds the Principle-2 budget"),
     "DP002": ("rate-floor", WARNING,
@@ -71,7 +71,7 @@ CODES: dict[str, tuple[str, str, str]] = {
     "DP006": ("n-constraint", WARNING,
               "generator does not support the requested N "
               "(topology.N_CONSTRAINTS)"),
-    # ---- jaxpr hazards (the reference's analysis.jaxpr_hazards) -----
+    # ---- runner hazards (analysis.runner_hazards) -------------------
     "JX001": ("int32-overflow", ERROR,
               "an int32 counter's worst-case bound overflows at the "
               "configured cycle count"),

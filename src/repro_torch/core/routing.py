@@ -24,8 +24,7 @@ injection rate is  min(1, 1/max_e load_e)  flits/node/cycle.
 
 The port's own copy of `repro.core.routing` (numpy/scipy only), equal
 to it table for table (tests/test_torch_core.py), with certification
-(`routing_for(certify=True)`, `analysis.routing_verify`).  The opt-in
-root/ordering sweeps of the reference's `build_routing` are not ported.
+(`routing_for(certify=True)`, `analysis.routing_verify`).
 """
 from __future__ import annotations
 
@@ -39,7 +38,7 @@ import scipy.sparse.csgraph as csgraph
 
 from ..obs.trace import trace as _span
 
-from .topology import Topology, build
+from .topology import CUSTOM_GENERATORS, Topology, build
 from . import linkmodel as lm
 
 
@@ -150,15 +149,55 @@ class Routing:
         return hops
 
 
-def build_routing(topo: Topology, root: int | None = None) -> Routing:
+def build_routing(topo: Topology, root: int | None = None,
+                  sweep_roots: bool = False,
+                  include_orderings: bool = False) -> Routing:
     """Build deadlock-free routing.
 
     Default (root=None): BFS up*/down* from the central chiplet — ONE
     uniform policy for every topology, mirroring the paper's §V-B setup
     (their comparison holds the routing methodology fixed).
+
+    sweep_roots=True tries several spanning-tree roots and keeps the one
+    with the highest uniform saturation; include_orderings=True also
+    tries coordinate-lexicographic channel orderings.  Both lift
+    individual topologies substantially (EXPERIMENTS.md §I7) but amount
+    to per-topology routing tuning, so they are opt-in diagnostics, not
+    the default evaluation.
     """
-    return _build_routing_rooted(
-        topo, _central_node(topo) if root is None else root)
+    if root is None and not sweep_roots:
+        return _build_routing_rooted(topo, _central_node(topo))
+    if root is None:
+        n = topo.n
+        center = _central_node(topo)
+        candidates: list = sorted({0, center, n // 2, n // 4, n - 1})
+        builds = [lambda c=c: _build_routing_rooted(topo, c)
+                  for c in candidates]
+        if include_orderings:
+            xy = np.lexsort((topo.pos[:, 0], topo.pos[:, 1]))
+            yx = np.lexsort((topo.pos[:, 1], topo.pos[:, 0]))
+            lab_xy = np.empty(n)
+            lab_xy[xy] = np.arange(n)
+            lab_yx = np.empty(n)
+            lab_yx[yx] = np.arange(n)
+            builds += [lambda lab=lab: _build_routing_rooted(topo, 0,
+                                                             labels=lab)
+                       for lab in (lab_xy, lab_yx)]
+        best, best_rate = None, -1.0
+        u = np.ones((n, n))
+        np.fill_diagonal(u, 0.0)
+        u /= np.maximum(u.sum(1, keepdims=True), 1)
+        for make in builds:
+            try:
+                r = make()
+                rate = r.saturation_rate(u)     # raises on dead ends
+            except RuntimeError:
+                continue   # ordering invalid for this topology — skip
+            if rate > best_rate:
+                best, best_rate = r, rate
+        assert best is not None, "no valid routing found"
+        return best
+    return _build_routing_rooted(topo, root)
 
 
 def _central_node(topo: Topology) -> int:
@@ -175,7 +214,8 @@ def _central_node(topo: Topology) -> int:
     return int(np.argmin(d2))
 
 
-def _build_routing_rooted(topo: Topology, root: int) -> Routing:
+def _build_routing_rooted(topo: Topology, root: int,
+                          labels: np.ndarray | None = None) -> Routing:
     n, edges = topo.n, topo.edges
     # ---- directed channels and port maps -------------------------------
     ch_src = np.concatenate([edges[:, 0], edges[:, 1]]).astype(np.int32)
@@ -204,9 +244,12 @@ def _build_routing_rooted(topo: Topology, root: int) -> Routing:
     in_ch[ch_dst, ch_in_port] = np.arange(C)
 
     # ---- up/down labels (cycle breaking) --------------------------------
-    depth = csgraph.shortest_path(topo.adjacency(), unweighted=True,
-                                  indices=root)
-    label = depth * n + np.arange(n)           # (depth, id) lexicographic
+    adj = topo.adjacency()
+    if labels is None:
+        depth = csgraph.shortest_path(adj, unweighted=True, indices=root)
+        label = depth * n + np.arange(n)       # (depth, id) lexicographic
+    else:
+        label = np.asarray(labels, dtype=np.float64)
     ch_is_up = label[ch_dst] < label[ch_src]
 
     # ---- dual graph ------------------------------------------------------
@@ -387,8 +430,39 @@ def cached_routing(name: str, n: int, substrate: str = "organic",
                    area: float = 74.0, roles: str = "homogeneous",
                    hex_region: bool = False) -> tuple[Topology, Routing]:
     """Build-and-cache (topology, routing) for one *named* evaluation
-    cell.  Topology construction is memoized per name cell; the
-    expensive routing is cached by `routing_for` on the structural
-    hash."""
-    topo = _cached_build(name, n, substrate, area, roles, hex_region)
+    cell.  Topology construction is memoized per name cell (cheap,
+    needed for registered generators whose output may change between
+    registrations — the build is re-validated, not the cache, in that
+    case); the expensive routing is cached by `routing_for` on the
+    structural hash, so same-named cells with different structures can
+    no longer collide."""
+    if name in CUSTOM_GENERATORS:
+        # registered generators can be re-registered: never serve a
+        # memoized build for them, rebuild (cheap) and let routing_for
+        # key on the structure.
+        topo = build(name, n, substrate=substrate, chiplet_area_mm2=area,
+                     roles_scheme=roles, hex_region=hex_region)
+    else:
+        topo = _cached_build(name, n, substrate, area, roles, hex_region)
     return topo, routing_for(topo)
+
+
+def dependency_graph_is_acyclic(r: Routing) -> bool:
+    """Deprecated: use `repro_torch.analysis.routing_verify` instead.
+
+    This predicate answers yes/no with no witness; the verifier's
+    `check_acyclic` returns the actual channel-dependency cycle (as an
+    RT001 diagnostic) and `certify_routing` bundles it with the
+    reachability and table-well-formedness checks.  Kept as a shim over
+    the same vectorized dependency-edge extraction so existing callers
+    keep working."""
+    import warnings
+
+    from ..analysis.routing_verify import (dependency_edges,
+                                           find_cdg_cycle)
+    warnings.warn(
+        "dependency_graph_is_acyclic is deprecated; use "
+        "repro_torch.analysis.routing_verify.certify_routing (or "
+        "routing_for(topo, certify=True)) for a witness-producing "
+        "certificate", DeprecationWarning, stacklevel=2)
+    return not find_cdg_cycle(dependency_edges(r), r.n_channels)

@@ -45,6 +45,7 @@ measuring gate, is a host integer of the cycle loop.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -471,8 +472,9 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     binned by window, [B, W, ...].  Row C and pad lanes are sacrificial:
     `run_batch` slices them away.
 
-    probe (a profile capture): receives `state_bytes`, the bytes of the
-    state carried across cycles.
+    probe (a profile capture or an op trace): receives `state_bytes`,
+    the bytes of the state carried across cycles, and `cycle`, the cycle
+    the loop is in (None before and after the loop).
     """
     N, P, C, D = n, p, c, d
     V, Bd = cfg.n_vcs, cfg.buf_depth
@@ -568,6 +570,8 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                                    for x in state)
 
     for t in range(cfg.cycles):
+        if probe is not None:
+            probe["cycle"] = t
         slot = t % D
         measuring = t >= cfg.warmup
         if t % _BITS_CHUNK == 0:
@@ -719,6 +723,8 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                                                 right=True)).view(-1),
                 eject.int().view(-1))
 
+    if probe is not None:
+        probe["cycle"] = None
     out = (delivered, offered, accepted, lat_node)
     if sched is not None:
         out += (delivered_ph.view(B, K), offered_ph.view(B, K),
@@ -754,10 +760,10 @@ def _pad_fill(specs, shape, schedules, kmax) -> list[dict]:
 def _prepare(specs, rates, cfg: SimConfig, pad_shape, device, schedules,
              k_pad) -> tuple:
     """Check and pad a batch the way `run_batch` runs it.  Returns the
-    device, the alloc impl, the PadShape, the [S, R] float32 rates, kmax,
-    the pad fills and `run(run_cfg, probe=None)`, which uploads the batch
-    and simulates it for `run_cfg`'s cycles, returning the raw device
-    counters and the device arguments."""
+    device, the alloc impl, the PadShape, the padded BatchSpec, the [S, R]
+    float32 rates, kmax, the pad fills and `run(run_cfg, probe=None)`,
+    which uploads the batch and simulates it for `run_cfg`'s cycles,
+    returning the raw device counters and the device arguments."""
     dev = resolve_device(device)
     _check_config(cfg)
     alloc = resolve_alloc(cfg.alloc, dev)
@@ -791,7 +797,7 @@ def _prepare(specs, rates, cfg: SimConfig, pad_shape, device, schedules,
                               shape.d, run_cfg, alloc_fn, sched,
                               probe), args
 
-    return dev, alloc, shape, rates, kmax, fills, run
+    return dev, alloc, shape, batch, rates, kmax, fills, run
 
 
 def profile_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
@@ -803,7 +809,7 @@ def profile_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
     untimed pass of their own.  Recorded in the registry (once per key)
     whether or not profiling is enabled."""
     from ..obs.profile import record_runner_profile
-    dev, alloc, shape, _, kmax, _, run = _prepare(
+    dev, alloc, shape, _, _, kmax, _, run = _prepare(
         specs, rates, cfg, pad_shape, device, schedules, k_pad)
     return record_runner_profile(shape, cfg, alloc, kmax, dev, run)
 
@@ -847,7 +853,7 @@ def run_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
     device: None runs on the CUDA card (and raises without one); pass
     "cpu" to run on the CPU.
     """
-    dev, alloc, shape, rates, kmax, fills, run = _prepare(
+    dev, alloc, shape, _, rates, kmax, fills, run = _prepare(
         specs, rates, cfg, pad_shape, device, schedules, k_pad)
     s, r = rates.shape
     if profiling_enabled():
@@ -957,6 +963,80 @@ def _device_args(batch, sbatch, kmax: int, rates: np.ndarray,
             inj_w=torch.as_tensor(sbatch.inj_w, device=dev).view(
                 s * kmax, n_pad))
     return lv, srow, rate, sched
+
+
+class OpRecord(NamedTuple):
+    """One aten op of a logged run (`log_ops`): its overload name, the
+    cycle it ran in (None outside the cycle loop), and the dtypes and
+    device types of its tensor inputs and outputs, in order (`in_dim0`:
+    which inputs are 0-dim, the tensors Python numbers become)."""
+    op: str
+    cycle: int | None
+    in_dtypes: tuple
+    in_devices: tuple
+    in_dim0: tuple
+    out_dtypes: tuple
+    out_devices: tuple
+
+
+@contextlib.contextmanager
+def log_ops(probe: dict):
+    """Record every aten op run inside the block as an `OpRecord` in the
+    yielded list, tagged with `probe["cycle"]` at the time it ran (the
+    cycle loop keeps that key current when given the probe)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    log: list = []
+
+    def tensors(tree):
+        return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+    class _OpLog(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins, outs = tensors((args, kwargs)), tensors(out)
+            log.append(OpRecord(
+                op=str(func), cycle=probe.get("cycle"),
+                in_dtypes=tuple(str(x.dtype) for x in ins),
+                in_devices=tuple(x.device.type for x in ins),
+                in_dim0=tuple(x.dim() == 0 for x in ins),
+                out_dtypes=tuple(str(x.dtype) for x in outs),
+                out_devices=tuple(x.device.type for x in outs)))
+            return out
+
+    with _OpLog():
+        yield log
+
+
+#: cycles `trace_batch` runs: one in warm-up, then measured ones, so the
+#: log holds both branches of the loop
+TRACE_CYCLES = 3
+
+
+def trace_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
+                pad_shape=None, device=None, schedules=None, k_pad=None,
+                cycles: int = TRACE_CYCLES):
+    """Run the batched runner for a few cycles and log its aten ops.
+
+    Builds exactly the arguments `run_batch` would dispatch (same
+    padding, same checks, same device) and runs `cycles` cycles of them
+    (the first in warm-up, the rest measured) under `log_ops`.  PyTorch
+    has no traced program to inspect, so this is the counterpart of the
+    reference's abstract `trace_batch`: the ops a cycle really issues.
+    Returns `(op_log, pad_shape, batch)`: a list of `OpRecord`, the
+    `PadShape` and the padded `BatchSpec`; the runner-hazard analyzer
+    (`analysis.runner_hazards`) reads the log for host syncs and dtype
+    promotions and inspects `batch` against the sacrificial-slot
+    padding contract.
+    """
+    if cycles < 2:
+        raise ValueError(f"trace_batch needs >= 2 cycles, got {cycles}")
+    _, _, shape, batch, _, _, _, run = _prepare(
+        specs, rates, cfg, pad_shape, device, schedules, k_pad)
+    probe: dict = {"cycle": None}
+    with log_ops(probe) as log:
+        run(cfg._replace(cycles=cycles, warmup=1), probe)
+    return log, shape, batch
 
 
 # =====================================================================

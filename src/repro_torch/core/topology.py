@@ -1,8 +1,8 @@
 """ICI topology generators — all 17 topologies of paper Table III.
 
 The port's own copy of `repro.core.topology` (numpy/scipy only), kept
-equal to it field by field (tests/test_torch_core.py).  The registry of
-custom generators stays with the synthesis slice.
+equal to it field by field (tests/test_torch_core.py), with its registry
+of custom generators (`register_topology`) for the synthesis engine.
 
 Every generator returns a `Topology`: chiplet centre positions (pitch
 units), an undirected edge list, and derived properties (radix, diameter,
@@ -47,8 +47,11 @@ from .linkmodel import CHIPLET_AREA_MM2
 
 
 def link_range_from_pitch(dist_pitch) -> np.ndarray:
-    """The paper's §III-B link-range convention: round(centre distance
-    in pitch units) - 1, floored at 0."""
+    """The paper's §III-B link-range convention, shared by
+    `Topology.link_ranges` and the synthesis design space
+    (`synth.space.candidate_pairs`): round(centre distance in pitch
+    units) - 1, floored at 0 — one copy, so generation and the
+    feasibility filter can never disagree on the budget."""
     return np.maximum(np.rint(np.asarray(dist_pitch)).astype(int) - 1, 0)
 
 
@@ -638,6 +641,54 @@ def valid_n(name: str, n: int) -> bool:
     return rule is None or bool(rule(n))
 
 
+def nearest_valid_n(name: str, n: int) -> int:
+    """Largest supported N' <= n for a constrained generator (falls
+    back to the smallest supported N' > n when nothing below fits).
+    Used by sweep CLIs so `--all-builtin -n 36` can still exercise
+    e.g. the hypercube at 32 instead of skipping it."""
+    if valid_n(name, n):
+        return n
+    for cand in range(n - 1, 1, -1):
+        if valid_n(name, cand):
+            return cand
+    for cand in range(n + 1, 4 * n + 2):
+        if valid_n(name, cand):
+            return cand
+    raise ValueError(f"{name}: no supported N near {n}")
+
+
+#: user/synth-registered generators, consulted by `build` after the
+#: built-in table.  A custom generator is `gen(n, **kw)` returning either
+#: a `(name, pos, edges)` triple (the built-in convention) or a full
+#: `Topology` (re-stamped with the requested substrate/area/roles).
+CUSTOM_GENERATORS: dict[str, Callable] = {}
+
+
+def register_topology(name: str, generator: Callable,
+                      overwrite: bool = False) -> None:
+    """Register a custom topology generator under `name` for `build`.
+
+    Registered names live alongside the paper's Table-III registry: the
+    experiment planner, `cached_routing` and benchmarks resolve them
+    transparently.  Routing caching keys on the *structural hash* of
+    what the generator emits, so re-registering a name with a different
+    structure cannot serve stale routing (see routing.routing_for).
+    """
+    if name in GENERATORS:
+        raise ValueError(f"{name!r} is a built-in Table-III topology; "
+                         "pick a different name")
+    if name in CUSTOM_GENERATORS and not overwrite:
+        raise ValueError(f"{name!r} already registered; pass "
+                         "overwrite=True to replace it")
+    if not callable(generator):
+        raise TypeError(f"generator for {name!r} must be callable")
+    CUSTOM_GENERATORS[name] = generator
+
+
+def unregister_topology(name: str) -> None:
+    CUSTOM_GENERATORS.pop(name, None)
+
+
 def build(name: str, n: int, substrate: str = "organic",
           chiplet_area_mm2: float = CHIPLET_AREA_MM2,
           roles_scheme: str = "homogeneous", hex_region: bool = False,
@@ -648,9 +699,18 @@ def build(name: str, n: int, substrate: str = "organic",
         kw = {"hex_region": hex_region} if name in (
             "hexamesh", "folded_hexa_torus") else {}
         name_, pos, edges = GENERATORS[name](n, **kw)
+    elif name in CUSTOM_GENERATORS:
+        out = CUSTOM_GENERATORS[name](n)
+        if isinstance(out, Topology):
+            if out.n != n:
+                raise ValueError(f"{name}: generator returned N={out.n}, "
+                                 f"requested N={n}")
+            name_, pos, edges = out.name, out.pos, out.edges
+        else:
+            name_, pos, edges = out
     else:
         raise KeyError(f"unknown topology {name!r}; choose from "
-                       f"{sorted(GENERATORS)}")
+                       f"{sorted(GENERATORS)} or register_topology() it")
     if len(pos) != n:
         raise ValueError(f"{name_}: generator emitted {len(pos)} "
                          f"positions, requested N={n}")

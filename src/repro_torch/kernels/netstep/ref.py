@@ -56,8 +56,10 @@ def netstep_ref(op_slot: torch.Tensor, eligible: torch.Tensor,
     win_ok = m < INF
     port_wins = ((win_p.unsqueeze(2) == ports.view(PI, 1))
                  & win_ok.unsqueeze(2)).any(dim=3) & port_ok
-    win_mask = (torch.nn.functional.one_hot(vc_choice.long(), V).bool()
-                & eligible & port_wins.unsqueeze(3))
+    # one-hot of the chosen VC by comparison: `one_hot` checks its range
+    # with a device-to-host read every call (runner_hazards, JX004)
+    win_mask = ((vc_choice.unsqueeze(3) == vcs) & eligible
+                & port_wins.unsqueeze(3))
     return win_mask, vc_choice, out_req.to(torch.int32)
 
 

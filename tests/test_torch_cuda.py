@@ -1,5 +1,6 @@
 """The port's CUDA kernels (`netstep`, `flash_attention`, `ssd_scan`), the
-simulator and the LM serving path on the card.  Every test
+simulator, the synthesis search, the hazard pass and the LM serving path
+on the card.  Every test
 here needs an NVIDIA GPU and nvcc (marker `requires_cuda`) and skips
 without one; on such a machine run
 
@@ -7,6 +8,8 @@ without one; on such a machine run
 
 This file imports only torch, numpy and the port, so it runs where the
 JAX package is not installed."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -202,6 +205,46 @@ def test_simulator_modes_kernel_equal_plain_and_cpu(cuda, kw):
                 np.testing.assert_array_equal(k[key], other[key],
                                               err_msg=key)
                 assert k[key].dtype == other[key].dtype, key
+
+
+def test_search_kernel_equals_plain_and_cpu(cuda):
+    """The synthesis search at the resume config (tests/test_torch_synth.py)
+    with the kernel equals the same search with the plain allocator on
+    the card and on the CPU: pool, ledger, metrics and front."""
+    from repro_torch import synth as S
+
+    def record(res):
+        st = res.state
+        return ([(c.topo.structural_hash(), c.analytic, c.sim)
+                 for c in st.pool], st.rejected, st.stats,
+                [c.topo.name for c in res.front()])
+    cfg = S.SearchConfig(n=16, n_random=6, generations=2, offspring=6,
+                         sim_top=2, n_rates=2,
+                         cfg=sim.SimConfig(cycles=240, warmup=80))
+    before = netstep.launches
+    kernel = S.run_search(cfg, device=cuda)
+    assert netstep.launches > before
+    plain = S.run_search(dataclasses.replace(
+        cfg, cfg=cfg.cfg._replace(alloc="torch")), device=cuda)
+    cpu = S.run_search(cfg, device="cpu")
+    assert record(kernel) == record(plain) == record(cpu)
+
+
+def test_hazard_pass_logs_its_cycles_on_the_card(cuda):
+    from repro_torch.analysis import runner_hazards as H
+    specs = []
+    for name, n in HETERO:
+        r = build_routing(T.build(name, n))
+        specs.append(sim.make_spec(r, TR.uniform(r.topo)))
+    before = netstep.launches
+    log, _, _ = sim.trace_batch(specs, [0.1, 0.3], sim.SimConfig(),
+                                device=cuda)
+    assert netstep.launches - before == sim.TRACE_CYCLES
+    loop = H.loop_ops(log)
+    assert loop and any("cuda" in r.out_devices for r in loop)
+    assert set(H.host_side_ops(log, "cuda")) <= set(H.HOST_SIDE_OPS)
+    found = H.check_host_sync(log) + H.check_dtype_promotions(log)
+    assert set(H.findings(found)) == set(H.INTENDED)
 
 
 # ---------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Compute the JAX reference tables of `chip_smoke.py`'s `experiments`,
-`collectives` and `adaptive_telemetry` phases.
+`collectives`, `adaptive_telemetry`, `synth` and `analysis` phases.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/smoke_reference.py \
-        [experiments|collectives|adaptive]
+        [experiments|collectives|adaptive|synth|analysis]
 
 `experiments` builds that phase's Experiment
 (`chip_smoke.experiment_scenarios`: 15 scenarios at N = 256, organic,
@@ -21,9 +21,15 @@ card to these tables (its `REFERENCE_EXPERIMENTS` and
 `chip_smoke.adaptive_scenarios` (6 scenarios at N = 256: mesh, torus and
 folded_hexa_torus under hotspot_drift, static and adaptive) under
 `chip_smoke.adaptive_cfg` (the flight recorder on, 6 windows) and prints
-`chip_smoke.adaptive_table` of the frame (`REFERENCE_ADAPTIVE`).  Without
-an argument, all three tables; each takes several minutes on an 8-core
-CPU.
+`chip_smoke.adaptive_table` of the frame (`REFERENCE_ADAPTIVE`).  `synth`
+runs `repro.synth.run_search(SearchConfig(n=48, substrate="organic",
+seed=0))` and prints `chip_smoke.synth_table` of the result
+(`REFERENCE_SYNTH`, about 30 s); `analysis` runs `python -m
+repro.analysis --all-builtin --jax` (in this process) and
+`repro.analysis.analyze(names=["folded_hexa_torus"], n=36, fault_kmax=2)`
+and prints `chip_smoke.analysis_table` of them (`REFERENCE_ANALYSIS`,
+seconds).  Without an argument, all five tables; the first three take
+several minutes each on an 8-core CPU.
 """
 import json
 import os
@@ -91,9 +97,36 @@ def adaptive(n=chip_smoke.MAIN_N, cycles=chip_smoke.EXP_CYCLES,
     return chip_smoke.adaptive_table(frame)
 
 
+def synth(n=chip_smoke.SYNTH_N) -> dict:
+    """`chip_smoke.synth_table` of the JAX package's search (`n` cuts it
+    down for tests)."""
+    import repro.synth as S
+    from repro.experiments import io
+    res = S.run_search(S.SearchConfig(n=n, substrate="organic", seed=0))
+    return chip_smoke.synth_table(res, X, io)
+
+
+def analysis() -> dict:
+    """`chip_smoke.analysis_table` of the JAX package's analyzer."""
+    import contextlib
+    import io
+    import tempfile
+
+    import repro.analysis as A
+    from repro.analysis.__main__ import main as cli
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "diagnostics.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli(["--all-builtin", "--jax", "-q", "-o", path])
+        with open(path) as f:
+            doc = json.load(f)
+    rep = A.analyze(names=["folded_hexa_torus"], n=36, fault_kmax=2)
+    return chip_smoke.analysis_table(doc, rc, rep)
+
+
 def main(argv=None) -> int:
     which = (argv or sys.argv[1:]) or ["experiments", "collectives",
-                                       "adaptive"]
+                                       "adaptive", "synth", "analysis"]
     if "experiments" in which:
         t0 = time.perf_counter()
         frame = run(chip_smoke.experiment_scenarios(X, W, F, T),
@@ -115,11 +148,13 @@ def main(argv=None) -> int:
         print(json.dumps(dict(table=table(frame, RAW, substrate=True),
                               ici=ici, seconds=time.perf_counter() - t0)),
               flush=True)
-    if "adaptive" in which:
-        t0 = time.perf_counter()
-        out = adaptive()
-        print(json.dumps(dict(out, seconds=time.perf_counter() - t0)),
-              flush=True)
+    for name, fn in (("adaptive", adaptive), ("synth", synth),
+                     ("analysis", analysis)):
+        if name in which:
+            t0 = time.perf_counter()
+            out = fn()
+            print(json.dumps(dict(out, seconds=time.perf_counter() - t0)),
+                  flush=True)
     return 0
 
 
