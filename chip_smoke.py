@@ -114,9 +114,14 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        of the front, prefilter >= 5, every cycle of every
                        padded group through the kernel.  Analytic and
                        simulate wall times, the padded groups, ms per
-                       simulated cycle per group, and the widest group's
-                       device launches per cycle and idle share beside the
-                       `profile` phase's static group
+                       simulated cycle per group (the groups' cycle loops
+                       alone, and stage 2 with its set-up), and the widest
+                       group's device launches per cycle and idle share
+                       beside the `profile` phase's static group
+  synth_kernel_vs_plain
+                       every padded group of the search's stage 2 (PI 4,
+                       5, 7, 9), 300 cycles with the kernel and with the
+                       plain allocator on the card: every result key equal
   analysis             `python -m repro_torch.analysis --all-builtin
                        --hazards` in a process of its own, and
                        `analyze(names=["folded_hexa_torus"], n=36,
@@ -124,7 +129,11 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        diagnostics equal the JAX table, the JX004 / JX005
                        findings are runner_hazards.INTENDED; the hazard
                        pass's traced cycles ran on the card (every loop op
-                       on cuda but the stated host-side ones)
+                       on cuda but the stated host-side ones) under
+                       torch.cuda's sync debug mode, with no wait for the
+                       card inside the loop; the hazard pass's group (PI
+                       11), 300 cycles with the kernel and with the plain
+                       allocator on the card, every result key equal
   flash_vs_plain       the flash-attention kernels against their plain
                        version on the card: every case of
                        tests/test_torch_cuda.py (five (tq, tk, causal,
@@ -1468,7 +1477,7 @@ MODE_TIMED_CYCLES = 100
 # netstep's warp layouts (R = 32 // PI routers per warp) and load widths
 # (V in {1, 2, 4, 8} vector loads, V = 3 the generic kernel), held against
 # the plain version on rows of LANE_N routers, no multiple of any R > 1
-LANE_PIS = (1, 2, 5, 7, 8, 15, 16, 17, 31, 32)
+LANE_PIS = (1, 2, 4, 5, 7, 8, 9, 11, 15, 16, 17, 31, 32)
 LANE_VS = (1, 2, 3, 4, 8)
 LANE_N = 13
 # one router per row (the row is the router) and long rows (the row by a
@@ -2355,10 +2364,35 @@ def adaptive_phase(torch, dev, smi, netstep, static_profile) -> int:
     return launches
 
 
+def groups_kernel_vs_plain(dev, netstep, groups, what: str) -> int:
+    """Each padded group `(shape, specs, rates)` for 300 cycles with the
+    kernel and with the plain allocator, both on the card: every result
+    key equal.  Returns the kernel's launches."""
+    from repro_torch.core import simulator as sim
+    cfg = sim.SimConfig(cycles=300, warmup=100)
+    launches = 0
+    for shape, specs, rates in groups:
+        before = netstep.launches
+        on_kernel = sim.run_batch(specs, rates, cfg, pad_shape=shape,
+                                  device=dev)
+        n_launch = netstep.launches - before
+        check(n_launch == cfg.cycles,
+              f"the {what} group {shape} launched {n_launch} kernels for "
+              f"{cfg.cycles} cycles")
+        launches += n_launch
+        on_plain = sim.run_batch(specs, rates, cfg._replace(alloc="torch"),
+                                 pad_shape=shape, device=dev)
+        for i, (k, p) in enumerate(zip(on_kernel, on_plain)):
+            bad = results_equal(k, p)
+            check(not bad, f"{what} group {shape} spec {i}: kernel and "
+                  f"plain differ in {bad}")
+    return launches
+
+
 def synth_phase(torch, dev, smi, netstep, static_profile) -> int:
-    """`synth`; returns netstep's launches in the search's stage 2.
-    `static_profile` is the `profile` phase's reading of a static group
-    at the main path's shape."""
+    """`synth` and `synth_kernel_vs_plain`; returns netstep's launches in
+    the search's stage 2.  `static_profile` is the `profile` phase's
+    reading of a static group at the main path's shape."""
     from repro_torch import experiments as X
     from repro_torch import synth as S
     from repro_torch.core import simulator as sim
@@ -2382,10 +2416,14 @@ def synth_phase(torch, dev, smi, netstep, static_profile) -> int:
     launches = netstep.launches
     span_s = {}
     for sp in get_spans():
-        if sp.name.startswith("synth."):
+        if sp.name.startswith(("synth.", "sim.")):
             span_s[sp.name] = span_s.get(sp.name, 0.0) + sp.dur / 1e9
-    analytic_s = sum(v for k, v in span_s.items() if k != "synth.simulate")
+    analytic_s = sum(v for k, v in span_s.items()
+                     if k.startswith("synth.") and k != "synth.simulate")
+    # stage 2 with its set-up (scenarios, plan, specs, stacking), and the
+    # groups' cycle loops alone (upload, issue and drain)
     simulate_s = span_s.get("synth.simulate", 0.0)
+    loop_s = span_s.get("sim.dispatch", 0.0) + span_s.get("sim.wait", 0.0)
     engine = SweepEngine(cfg=cfg, device=dev)
     got = synth_table(res, X, xio, engine)
     groups = len(got["buckets"])
@@ -2407,10 +2445,14 @@ def synth_phase(torch, dev, smi, netstep, static_profile) -> int:
     # pads it
     plan = X.plan(X.Experiment(synth_scenarios(X, res.simulated, config),
                                cfg=cfg, name="synth_sim"), engine)
+    padded = {}
+    for b in plan.buckets:
+        items = list(b.items)
+        while len(items) % engine.s_round:
+            items.append(items[-1])
+        padded[b.key.shape] = items
     widest = max(plan.buckets, key=lambda b: b.key.shape)
-    items = list(widest.items)
-    while len(items) % engine.s_round:
-        items.append(items[-1])
+    items = padded[widest.key.shape]
 
     def group_run(cycles):
         return lambda: sim.run_batch(
@@ -2434,10 +2476,23 @@ def synth_phase(torch, dev, smi, netstep, static_profile) -> int:
          cycles=cfg.cycles, groups=groups, padded_groups=got["buckets"],
          netstep_launches=launches, wall_seconds=wall_s,
          analytic_seconds=analytic_s, simulate_seconds=simulate_s,
-         span_seconds=span_s,
-         ms_per_simulated_cycle=1e3 * simulate_s / (cfg.cycles * groups),
+         loop_seconds=loop_s, span_seconds=span_s,
+         ms_per_simulated_cycle=1e3 * loop_s / (cfg.cycles * groups),
+         stage2_ms_per_cycle_group_setup_included=1e3 * simulate_s / (
+             cfg.cycles * groups),
          profile_cycles=PROFILE_CYCLES, widest_group_profile=widest_profile,
          static_group_profile=static_profile, nvidia_smi=smi)
+    # the kernel on the inputs of every padded group of stage 2
+    t1 = time.perf_counter()
+    kvp_launches = groups_kernel_vs_plain(
+        dev, netstep, [(shape, [ps.spec for ps in its],
+                        [ps.rates for ps in its])
+                       for shape, its in padded.items()], "synth")
+    emit("synth_kernel_vs_plain", cycles=300,
+         groups=[[s.n, s.p, s.c, s.d] for s in padded],
+         pis=[s.p + 1 for s in padded], bitwise_equal=True,
+         kernel_launches=kvp_launches,
+         seconds=round(time.perf_counter() - t1, 3))
     return launches
 
 
@@ -2502,6 +2557,11 @@ def analysis_phase(torch, dev, smi, netstep) -> int:
           f"the loop's JX004 / JX005 findings {found} are not the intended "
           f"{sorted(H.INTENDED)}")
     loop = H.loop_ops(log)
+    # the kernel on the hazard pass's inputs
+    t3 = time.perf_counter()
+    kvp_launches = groups_kernel_vs_plain(dev, netstep,
+                                          [(shape, specs, [0.1])], "hazard")
+    kvp_s = time.perf_counter() - t3
     emit("analysis", cli_rc=proc.returncode,
          cli_summary=[line for line in proc.stdout.splitlines()
                       if "analyzed:" in line],
@@ -2516,6 +2576,14 @@ def analysis_phase(torch, dev, smi, netstep) -> int:
          trace_cycles=sim.TRACE_CYCLES, traced_ops=len(log),
          aten_ops_per_cycle=len(loop) / sim.TRACE_CYCLES,
          loop_host_side_ops=host_ops, netstep_launches=launches,
+         sync_debug_mode="warn", loop_ops_waiting=sum(
+             bool(r.synced) for r in loop),
+         ops_waiting_outside_loop=sum(bool(r.synced) for r in log) - sum(
+             bool(r.synced) for r in loop),
+         kernel_vs_plain=dict(shape=str(shape), pi=shape.p + 1, cycles=300,
+                              bitwise_equal=True,
+                              kernel_launches=kvp_launches,
+                              seconds=kvp_s),
          cli_seconds=cli_s, fht_seconds=fht_s, trace_seconds=trace_s,
          seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
     return launches

@@ -25,11 +25,25 @@ recorded by `core.simulator.trace_batch` over a few real cycles.
     byte, so reports of the two packages compare line for line.
   * **JX004 host-sync** — *changed meaning.*  The reference looks for
     host-callback primitives in the traced scan.  Here: ops inside the
-    cycle loop that make the host wait for the device —
-    `aten._local_scalar_dense` (`.item()`, `bool()` of a tensor),
-    `aten.nonzero`, `aten.equal`, and copies from the device to the CPU.
-    One of them stalls the host's issue of every following op, each
-    cycle.
+    cycle loop that make the host wait for the device.  One of them
+    stalls the host's issue of every following op, each cycle.  Two
+    sources, both read from the log:
+      - on the card, every op whose call made the host wait (`OpRecord.
+        synced`: `log_ops` runs the cycles under
+        `torch.cuda.set_sync_debug_mode("warn")`), at whatever level the
+        wait happens.  This is the complete rule;
+      - on any device, by name: `aten._local_scalar_dense` (`.item()`,
+        `bool()` of a tensor), `aten.nonzero`, `aten.equal`, copies from
+        the device to the CPU, and the ops that size their output from
+        the data inside their kernel — `aten.masked_select`, the
+        `aten.unique` family, `aten.repeat_interleave` (named whether or
+        not it was given `output_size`: the log keeps no arguments), and
+        `aten.index` / `aten.index_put_` with a boolean index.  On the
+        CPU these names are all JX004 sees.  What waits outside them
+        shows only on the card: a Python number written through an
+        advanced index (`x[i] = t`), which PyTorch makes a CPU tensor and
+        copies to the card, blocking (on the CPU it is a 0-dim tensor
+        like any other), or an op that waits inside its kernel.
   * **JX005 dtype-promotion** — *changed meaning.*  The reference flags
     widening `convert_element_type` ops and any 64-bit aval (x64 mode
     leaking in).  In torch, int64 is the index dtype (`gather`,
@@ -70,8 +84,16 @@ INTENDED = {
         "default",
 }
 
-#: aten ops (overload stripped) that read a device value on the host
-_HOST_SYNC_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.equal")
+#: aten ops (overload stripped) that read a device value on the host,
+#: directly or to size their output
+_HOST_SYNC_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.equal",
+                  "aten.masked_select", "aten.repeat_interleave",
+                  "aten._unique", "aten._unique2", "aten.unique_dim",
+                  "aten.unique_consecutive")
+#: indexing ops that read the device when an index is boolean (its
+#: `nonzero`), and how many trailing tensor inputs are not indices
+_MASK_INDEX_OPS = {"aten.index": 0, "aten.index_put": 1,
+                   "aten.index_put_": 1, "aten._index_put_impl_": 1}
 #: explicit conversions and copies, which JX005 does not count (JX004
 #: counts those that land on the CPU from the device)
 _CONVERSIONS = ("aten._to_copy", "aten.copy_")
@@ -275,22 +297,38 @@ def host_side_ops(op_log, device_type: str) -> list[str]:
                    if device_type not in r.in_devices + r.out_devices})
 
 
+def _syncs(r) -> bool:
+    """Whether the logged op `r` makes the host wait for the device."""
+    name = _packet(r.op)
+    if r.synced or name in _HOST_SYNC_OPS:
+        return True
+    if name in _CONVERSIONS:
+        return "cpu" in r.out_devices and any(d != "cpu"
+                                              for d in r.in_devices)
+    if name in _MASK_INDEX_OPS:
+        stop = len(r.in_dtypes) - _MASK_INDEX_OPS[name]
+        return "torch.bool" in r.in_dtypes[1:stop]
+    return False
+
+
 def check_host_sync(op_log, target: str = "",
                     report: Report | None = None) -> list[Diagnostic]:
     """JX004: ops in the cycle loop that make the host wait for the
     device (see the module docstring)."""
     hits: dict[str, int] = {}
+    at: dict[str, set] = {}
     for r in loop_ops(op_log):
-        name = _packet(r.op)
-        d2h = (name in _CONVERSIONS and "cpu" in r.out_devices
-               and any(d != "cpu" for d in r.in_devices))
-        if name in _HOST_SYNC_OPS or d2h:
+        if _syncs(r):
+            name = _packet(r.op)
             hits[name] = hits.get(name, 0) + 1
+            if r.synced:
+                at.setdefault(name, set()).add(r.synced)
     out = [diag(
         "JX004",
         f"cycle loop runs '{name}' (x{count}) — a device-to-host sync "
         f"point inside the loop",
-        target=target, op=name, count=count)
+        target=target, op=name, count=count,
+        **({"at": tuple(sorted(at[name]))} if name in at else {}))
         for name, count in sorted(hits.items())]
     if report is not None:
         report.record("host-sync", target or "op-log")

@@ -22,7 +22,9 @@ tensor — only on the Python cycle counter.
 Padding invariance rests on the reference's three ingredients, kept
 as they are: a counter-based hash of (seed, cycle, node, stream) for
 injection randomness; scatters that are unique, pure integer adds
-(`index_put_(..., accumulate=True)`), or routed to a *sacrificial* row
+(`index_add_` on the flattened state: the accumulating `index_put_`
+reads its indices' range back to the host on the card, a wait every
+call), or routed to a *sacrificial* row
 or slot (buffer slot B, channel row C) that is never read back; and
 the rotating-priority counter advancing modulo the spec's own
 V*(P_spec+1).
@@ -47,6 +49,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -512,6 +516,17 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     up_real = (pp < P) & (up_ch >= 0)
     up_ch_s = up_ch.clamp(min=0)
     up_delay = depth_pad.gather(1, up_ch_s.view(B, -1)).view(B, N, PI)
+    # the spec-only part of each accumulating scatter's flat index (the
+    # cycle adds the rest): arrivals into cnt [B, N, PI, V] at (row,
+    # ch_dst, ch_in_port, vc); credit returns into credits [B, N, P, V]
+    # at (row, ch_src, ch_out_port, every vc); upstream returns into
+    # credit_pipe [B, C+1, D, V] at (row, up_ch_s, slot, vc); traversals
+    # into credits at (row, node, out_port, vc)
+    arr_base = ((b2 * N + ch_dst) * PI + ch_in_port) * V          # [B, C]
+    ret_flat = (((b2 * N + ch_src) * P + ch_out_port) * V).unsqueeze(2) \
+        + torch.arange(V, device=dev)                             # [B, C, V]
+    up_base = (b3 * (C + 1) + up_ch_s) * D                        # [B, N, PI]
+    trav_base = (b3 * N + node3) * P                              # [B, N, 1]
 
     # ---- state ------------------------------------------------------------
     # int64 where a value indexes another tensor (torch indexes with
@@ -525,6 +540,8 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     link_t = torch.zeros((B, C + 1, D), dtype=i64, device=dev)
     link_vc = torch.zeros((B, C + 1, D), dtype=i64, device=dev)
     credit_pipe = torch.zeros((B, C + 1, D, V), dtype=i64, device=dev)
+    cnt_flat, credits_flat = cnt.view(-1), credits.view(-1)
+    credit_pipe_flat = credit_pipe.view(-1)
     rr = torch.zeros((B,), dtype=i32, device=dev)
     delivered = torch.zeros((B,), dtype=i32, device=dev)
     offered = torch.zeros((B,), dtype=i32, device=dev)
@@ -590,12 +607,13 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         pos_w = torch.where(arr_ok, pos, Bd)            # Bd: sacrificial
         buf_dst[arr_at + (pos_w,)] = arr_dst
         buf_t[arr_at + (pos_w,)] = link_t[:, :C, slot]
-        cnt.index_put_(arr_at, arr_ok.long(), accumulate=True)
+        cnt_flat.index_add_(0, (arr_base + arr_at[3]).view(-1),
+                            arr_ok.long().view(-1))
         link_dst[:, :, slot] = -1
 
         # ---- 2. credit returns --------------------------------------------
-        credits.index_put_((b2, ch_src, ch_out_port),
-                           credit_pipe[:, :C, slot], accumulate=True)
+        credits_flat.index_add_(0, ret_flat.view(-1),
+                                credit_pipe[:, :C, slot].reshape(-1))
         credit_pipe[:, :, slot] = 0
 
         # ---- 3. injection ---------------------------------------------------
@@ -617,7 +635,7 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         posi = (head[inj_at] + cnt[inj_at]) % Bd
         posi_w = torch.where(do_inj, posi, Bd)
         buf_dst[inj_at + (posi_w,)] = dsts
-        buf_t[inj_at + (posi_w,)] = t
+        buf_t[inj_at + (posi_w,)] = ts[k]              # t, on the device
         cnt[inj_at] += do_inj.long()                    # unique per row/node
         if measuring:
             n_want = want.sum(1, dtype=i32)
@@ -667,8 +685,9 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         # upstream credit return for real input ports
         has_up = up_real & port_wins
         ret_slot = (up_delay + t) % D
-        credit_pipe.index_put_((b3, up_ch_s, ret_slot, wvc),
-                               has_up.long(), accumulate=True)
+        credit_pipe_flat.index_add_(0, ((up_base + ret_slot) * V
+                                        + wvc).view(-1),
+                                    has_up.long().view(-1))
 
         # ejection vs traversal
         eject = port_wins & (out_req == P)
@@ -690,8 +709,9 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         link_dst[link_at] = w_dst
         link_t[link_at] = w_t
         link_vc[link_at] = w_dvc
-        credits.index_put_((b3, node3, out_port, w_dvc), -traverse.long(),
-                           accumulate=True)
+        credits_flat.index_add_(0, ((trav_base + out_port) * V
+                                    + w_dvc).view(-1),
+                                -traverse.long().view(-1))
         rr = (rr + 1) % (V * pi)
 
         # ---- 6. flight recorder (DESIGN.md §13, §16) ------------------------
@@ -699,8 +719,7 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         # with non-contributing lanes sent to the sacrificial row C or
         # adding 0.  Duplicate indices (row C above all) need an
         # accumulating scatter: `index_add_` on the flattened counter,
-        # one device launch where `index_put_(accumulate=True)` sorts its
-        # indices first.
+        # as for the state above.
         if recording:
             w = min(max(((t - cfg.warmup) * W) // meas, 0), W - 1) if W \
                 else 0
@@ -969,7 +988,10 @@ class OpRecord(NamedTuple):
     """One aten op of a logged run (`log_ops`): its overload name, the
     cycle it ran in (None outside the cycle loop), and the dtypes and
     device types of its tensor inputs and outputs, in order (`in_dim0`:
-    which inputs are 0-dim, the tensors Python numbers become)."""
+    which inputs are 0-dim, the tensors Python numbers become).
+    `synced`: where the host waited for the card ("file:line" of the
+    Python call), when `log_ops` watched the card and this op's call
+    made it wait; else empty."""
     op: str
     cycle: int | None
     in_dtypes: tuple
@@ -977,13 +999,28 @@ class OpRecord(NamedTuple):
     in_dim0: tuple
     out_dtypes: tuple
     out_devices: tuple
+    synced: str = ""
+
+
+#: the warning PyTorch gives under `torch.cuda.set_sync_debug_mode("warn")`
+#: each time the host waits for the card
+_SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 @contextlib.contextmanager
 def log_ops(probe: dict):
     """Record every aten op run inside the block as an `OpRecord` in the
     yielded list, tagged with `probe["cycle"]` at the time it ran (the
-    cycle loop keeps that key current when given the probe)."""
+    cycle loop keeps that key current when given the probe).
+
+    With a card present the block also runs under
+    `torch.cuda.set_sync_debug_mode("warn")`, which warns at every wait
+    of the host for the card at whatever level it happens (inside an
+    op's kernel too: a boolean-mask index, `masked_select`).  PyTorch
+    raises the warning when the Python call that issued the op returns,
+    so it marks the last op logged before it (`synced`); a wait with no
+    unmarked op of the same cycle before it is an op of its own,
+    `"cuda.sync"`."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
     log: list = []
@@ -1004,8 +1041,31 @@ def log_ops(probe: dict):
                 out_devices=tuple(x.device.type for x in outs)))
             return out
 
-    with _OpLog():
-        yield log
+    if not torch.cuda.is_available():
+        with _OpLog():
+            yield log
+        return
+
+    def on_warning(message, category, filename, lineno, *rest):
+        if _SYNC_WARNING not in str(message):
+            return shown(message, category, filename, lineno, *rest)
+        at = f"{os.path.basename(filename)}:{lineno}"
+        cycle = probe.get("cycle")
+        if log and log[-1].cycle == cycle and not log[-1].synced:
+            log[-1] = log[-1]._replace(synced=at)
+        else:
+            log.append(OpRecord("cuda.sync", cycle, (), (), (), (), (), at))
+
+    previous = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown, warnings.showwarning = warnings.showwarning, on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with _OpLog():
+                yield log
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
 
 
 #: cycles `trace_batch` runs: one in warm-up, then measured ones, so the
@@ -1014,13 +1074,13 @@ TRACE_CYCLES = 3
 
 
 def trace_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
-                pad_shape=None, device=None, schedules=None, k_pad=None,
-                cycles: int = TRACE_CYCLES):
+                pad_shape=None, device=None, schedules=None, k_pad=None):
     """Run the batched runner for a few cycles and log its aten ops.
 
     Builds exactly the arguments `run_batch` would dispatch (same
-    padding, same checks, same device) and runs `cycles` cycles of them
-    (the first in warm-up, the rest measured) under `log_ops`.  PyTorch
+    padding, same checks, same device) and runs `TRACE_CYCLES` cycles of
+    them (the first in warm-up, the rest measured) under `log_ops`,
+    which with a card present also marks the host's waits for it.  PyTorch
     has no traced program to inspect, so this is the counterpart of the
     reference's abstract `trace_batch`: the ops a cycle really issues.
     Returns `(op_log, pad_shape, batch)`: a list of `OpRecord`, the
@@ -1029,13 +1089,11 @@ def trace_batch(specs, rates, cfg: SimConfig = SimConfig(), *,
     promotions and inspects `batch` against the sacrificial-slot
     padding contract.
     """
-    if cycles < 2:
-        raise ValueError(f"trace_batch needs >= 2 cycles, got {cycles}")
     _, _, shape, batch, _, _, _, run = _prepare(
         specs, rates, cfg, pad_shape, device, schedules, k_pad)
     probe: dict = {"cycle": None}
     with log_ops(probe) as log:
-        run(cfg._replace(cycles=cycles, warmup=1), probe)
+        run(cfg._replace(cycles=TRACE_CYCLES, warmup=1), probe)
     return log, shape, batch
 
 

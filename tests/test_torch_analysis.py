@@ -353,6 +353,35 @@ def test_op_log_finds_seeded_host_sync_and_promotion():
     assert PH.check_host_sync(log2) == PH.check_dtype_promotions(log2) == []
 
 
+@pytest.mark.parametrize("case", [
+    "mask_read", "mask_write", "masked_select", "repeat_interleave",
+    "unique", "int_index", "tensor_write"])
+def test_op_log_names_ops_that_sync_inside_their_kernel(case):
+    """Ops that size their output from the data wait for the device
+    inside their kernel; the op log names them on any device.  An
+    integer index and a tensor written through one are not such ops."""
+    x = torch.arange(12, dtype=torch.float32).view(3, 4)
+    mask = x > 5
+    steps = {
+        "mask_read": ("aten.index", lambda: x[mask]),
+        "mask_write": ("aten.index_put_", lambda: x.clone().__setitem__(
+            mask, 0.0)),
+        "masked_select": ("aten.masked_select",
+                          lambda: x.masked_select(mask)),
+        "repeat_interleave": ("aten.repeat_interleave", lambda:
+                              torch.repeat_interleave(torch.tensor([1, 2]))),
+        "unique": ("aten._unique2", lambda: torch.unique(x)),
+        "int_index": (None, lambda: x[torch.tensor([0, 2])]),
+        "tensor_write": (None, lambda: x.clone().__setitem__(
+            torch.tensor([0, 2]), torch.ones(2, 4))),
+    }
+    op, step = steps[case]
+    with PSIM.log_ops({"cycle": 0}) as log:
+        step()
+    found = [d.witness_dict()["op"] for d in PH.check_host_sync(log)]
+    assert found == ([op] if op else [])
+
+
 def test_analyze_batch_front_door_equals_reference():
     pairs = [_spec_pair("folded_hexa_torus", 16), _spec_pair("mesh", 16)]
     got = PH.analyze_batch([p for p, _ in pairs], [0.1],

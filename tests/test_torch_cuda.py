@@ -230,21 +230,56 @@ def test_search_kernel_equals_plain_and_cpu(cuda):
     assert record(kernel) == record(plain) == record(cpu)
 
 
-def test_hazard_pass_logs_its_cycles_on_the_card(cuda):
+@pytest.mark.parametrize("kw", [
+    dict(), dict(routing="adaptive"),
+    dict(telemetry=True, telemetry_windows=2),
+    dict(routing="adaptive", telemetry=True)],
+    ids=["static", "adaptive", "recorder", "adaptive_recorder"])
+def test_hazard_pass_logs_its_cycles_on_the_card(cuda, kw):
+    """Every mode of the loop: its ops on the card, and no wait of the
+    host for the card inside it (the card's sync watch is on)."""
     from repro_torch.analysis import runner_hazards as H
     specs = []
     for name, n in HETERO:
         r = build_routing(T.build(name, n))
         specs.append(sim.make_spec(r, TR.uniform(r.topo)))
     before = netstep.launches
-    log, _, _ = sim.trace_batch(specs, [0.1, 0.3], sim.SimConfig(),
+    log, _, _ = sim.trace_batch(specs, [0.1, 0.3], sim.SimConfig(**kw),
                                 device=cuda)
+    assert not [r for r in H.loop_ops(log) if r.synced]
     assert netstep.launches - before == sim.TRACE_CYCLES
     loop = H.loop_ops(log)
     assert loop and any("cuda" in r.out_devices for r in loop)
     assert set(H.host_side_ops(log, "cuda")) <= set(H.HOST_SIDE_OPS)
     found = H.check_host_sync(log) + H.check_dtype_promotions(log)
     assert set(H.findings(found)) == set(H.INTENDED)
+
+
+def test_card_watch_marks_every_wait_for_the_card(cuda):
+    """On the card the op log also marks each op whose call made the
+    host wait: a blocking upload and a Python number written through an
+    index, which no name rule counts, as well as `.item()` and a
+    boolean-mask index."""
+    from repro_torch.analysis import runner_hazards as H
+    x = torch.arange(12, dtype=torch.float32, device=cuda).view(3, 4)
+    rows = torch.tensor([0, 2], device=cuda)
+    probe = {"cycle": 0}
+    with sim.log_ops(probe) as log:
+        x.sum().item()
+        x[x > 5]
+        torch.ones(4).to(cuda)
+        x[rows] = 7.0
+        probe["cycle"] = 1
+        x + 1
+    synced = [(r.op.split(".")[1], r.cycle) for r in log if r.synced]
+    assert synced == [("_local_scalar_dense", 0), ("index", 0),
+                      ("_to_copy", 0), ("index_put_", 0)]
+    assert all(r.synced.startswith("test_torch_cuda.py:")
+               for r in log if r.synced)
+    found = {d.witness_dict()["op"] for d in H.check_host_sync(log)}
+    assert found == {"aten._local_scalar_dense", "aten.index",
+                     "aten._to_copy", "aten.index_put_"}
+    assert torch.cuda.get_sync_debug_mode() == 0
 
 
 # ---------------------------------------------------------------------
