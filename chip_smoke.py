@@ -188,6 +188,33 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        back-to-back calls (kernels.ablate.graph_ms: no host
                        work between launches, no profiler misses), the
                        kernels line's `ms` for flash attention and SSD
+  train_parity         the training path (no kernel runs on it):
+                       qwen3-1.7b's smoke config at f32 compute through
+                       the train driver's loop (`launch.train.run`), 8
+                       steps of SyntheticLMData(seed=0) at batch 4 x seq
+                       32 from `train_smoke_params`, whole and with 2
+                       microbatches: each step's loss and grad norm equal
+                       the JAX table REFERENCE_TRAIN (1e-4); stopped after
+                       its step-4 checkpoint and resumed in a fresh model
+                       and optimizer, it equals the uninterrupted run
+  train_card_vs_cpu    qwen3-1.7b at full width (d 2048, vocab 151936, hd
+                       128), depth 2, f32: one train step on the card and
+                       on the CPU give the same loss, grad norm and
+                       updated parameters (1e-4)
+  train_full           qwen3-1.7b at full width and depth, bf16, remat
+                       "full", batch 4 x seq 1024, 10 steps through the
+                       driver: the first step's loss within 0.02 of an f32
+                       no-grad forward; median ms per step after 2,
+                       tokens/s, model FLOPs and MFU, peak memory, device
+                       launches per step and idle share (torch.profiler),
+                       the optimizer update's ms and launches
+  train_remat_memory   12 steps on one batch take the loss down by 0.5 or
+                       more (tests/test_models.py::test_loss_decreases);
+                       at batch 1 x 1024 each remat mode's peak memory,
+                       of the loss and gradient alone and of a whole step
+  train_kernels        with grad enabled the flash and SSD wrappers raise
+                       on the card, directly and from a train step with the
+                       kernel flags set; no kernel launched in training
 
 then the kernel summary line and, last, the `{"ok": true, ...}` line.
 A failed check raises and exits non-zero before the last line; without
@@ -197,6 +224,7 @@ non-zero and prints no result.
 import copy
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1530,6 +1558,61 @@ SSD_PATH = dict(b=4, t=1024, h=64, p=64, n=128, chunk=256)  # mamba2-1.3b
 ROUTE = {"bfloat16": "bf16", "float32": "f32"}
 LM_TIMING_SAMPLES = 10
 DECODE_PROFILE_STEPS = 8
+
+# The LM training path (qwen3-1.7b).  (a) the smoke config at float32
+# compute through the train driver's loop (`launch.train.run`), its
+# parameters drawn by `train_smoke_params`, held to REFERENCE_TRAIN
+# (tools/smoke_reference.py train: the JAX package's train step on the
+# CPU) at tests/test_torch_train.py's float32 tolerance; (b) full width at
+# depth 2, float32, one step on the card against the same step on the CPU;
+# (c) full width and depth, bf16, remat "full" at the serving cell's
+# prompt length: the driver's 10 steps, then 12 steps on one batch
+# (tests/test_models.py::test_loss_decreases), then single steps of each
+# remat mode at batch 1 for their peak memory.
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_SMOKE = dict(steps=8, batch=4, seq=32, ckpt_every=4, seed=0)
+TRAIN_TOL = 1e-4
+TRAIN_WIDE = dict(depth=2, batch=2, seq=128, warmup=1, tol=1e-4)
+TRAIN_FULL = dict(batch=4, seq=1024, steps=10, warm_steps=2,
+                  descent_steps=12, descent_warmup=2, min_fall=0.5,
+                  f32_loss_tol=0.02, remat_batch=1, profile_steps=2,
+                  opt_samples=5)
+REFERENCE_TRAIN = {
+    'loss': [
+        6.245683193206787, 6.2393317222595215, 6.277894973754883,
+        6.258502960205078, 6.264058589935303, 6.263114929199219,
+        6.261895656585693, 6.237666130065918],
+    'grad_norm': [
+        1.5078481435775757, 1.4674230813980103, 1.4848532676696777,
+        1.5038626194000244, 1.4620689153671265, 1.4820626974105835,
+        1.4910411834716797, 1.4698314666748047],
+    'loss_mb2': [
+        6.245683193206787, 6.2393317222595215, 6.277894973754883,
+        6.258502960205078, 6.264059066772461, 6.263114929199219,
+        6.261896133422852, 6.23766565322876],
+    'grad_norm_mb2': [
+        1.5078482627868652, 1.4674230813980103, 1.4848532676696777,
+        1.5038626194000244, 1.4620689153671265, 1.482062578201294,
+        1.4910411834716797, 1.4698314666748047]}
+
+
+def train_smoke_params(named_shapes, seed: int = 0) -> dict:
+    """{parameter name: float32 array} for the training parity run: every
+    matrix normal(0, 0.02), every vector 1 (the norms), each drawn from a
+    generator seeded by (seed, crc32(name)), so both packages build the
+    same parameters from the port's names (`layers.3.attn.wq`) and shapes
+    whatever order they visit them in."""
+    import zlib
+
+    import numpy as np
+    out = {}
+    for name, shape in named_shapes:
+        if len(shape) < 2:
+            out[name] = np.ones(shape, np.float32)
+        else:
+            rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
+            out[name] = rng.normal(0.0, 0.02, shape).astype(np.float32)
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -3118,6 +3201,335 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
                      "float32": "cuda, CUDA-core FMA: ssd_scan.cu"})]
 
 
+# ---------------------------------------------------------------------------
+# LM training path: qwen3-1.7b, loss and backward, AdamW, data, checkpoints,
+# the train driver; no kernel runs on it
+# ---------------------------------------------------------------------------
+
+def close(a, b, tol) -> bool:
+    return abs(a - b) <= tol + tol * abs(b)
+
+
+def train_smoke_model(torch, Model, cfg, dev):
+    """The parity run's model: `cfg` holding `train_smoke_params`."""
+    model = Model(cfg).init(torch.Generator().manual_seed(0))
+    flat = train_smoke_params([(n, tuple(p.shape))
+                               for n, p in model.named_parameters()],
+                              TRAIN_SMOKE["seed"])
+    model.load_state_dict({n: torch.from_numpy(a) for n, a in flat.items()})
+    return model.to(dev)
+
+
+def max_state_diff(a, b) -> float:
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(float((sa[n].cpu() - sb[n].cpu()).abs().max()) for n in sa)
+
+
+def train_flops_per_token(cfg, seq: int) -> float:
+    """Model FLOPs of one trained token (forward + backward, 3 forward
+    passes, recomputation not counted): 2 per multiply-add of the layers'
+    products, of the causal attention products (QKᵀ and PV over the
+    (seq + 1) / 2 keys a query sees on average) and of the vocab head."""
+    d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    layer = 2 * (d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f) \
+        + 2 * 2 * h * hd * (seq + 1) / 2
+    return 3 * (cfg.n_layers * layer + 2 * d * cfg.vocab)
+
+
+def expect_no_backward(fn, what: str) -> str:
+    try:
+        fn()
+    except RuntimeError as e:
+        check("no backward" in str(e), f"{what}: raised {e}")
+        return str(e)
+    raise RuntimeError(f"check failed: {what} ran with grad enabled")
+
+
+def train_phase(torch, dev, smi, fops, sops) -> None:
+    """The training phases: (a) `train_parity`, (b) `train_card_vs_cpu`,
+    (c) `train_full` and `train_remat_memory`, (d) `train_kernels`."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as St
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init, adamw_update
+
+    kernel_launches = (fops.flash_attention.launches, sops.ssd_scan.launches)
+
+    def on(batch, device):
+        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+    # ---- (a) the smoke config against the JAX table ------------------------
+    t0 = time.perf_counter()
+    ts = TRAIN_SMOKE
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, smoke=True),
+                              compute_dtype=torch.float32)
+    argv = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(ts["steps"]),
+            "--batch", str(ts["batch"]), "--seq", str(ts["seq"]), "--seed",
+            str(ts["seed"]), "--log-every", "100"]
+    with tempfile.TemporaryDirectory() as ck:
+        ck_argv = argv + ["--ckpt-dir", ck, "--ckpt-every",
+                          str(ts["ckpt_every"])]
+        whole_model = train_smoke_model(torch, Model, cfg, dev)
+        whole = train.run(train.parse_args(ck_argv), model=whole_model)
+        mb2 = train.run(train.parse_args(argv + ["--microbatches", "2"]),
+                        model=train_smoke_model(torch, Model, cfg, dev))
+        # stopped after the step-4 checkpoint, resumed in a fresh model and
+        # optimizer
+        shutil.rmtree(os.path.join(ck, f"step_{ts['steps']:08d}"))
+        resumed_model = train_smoke_model(torch, Model, cfg, dev)
+        resumed = train.run(train.parse_args(ck_argv), model=resumed_model)
+    errs = {}
+    for label, recs, suffix in (("whole", whole, ""), ("microbatches_2", mb2,
+                                                       "_mb2")):
+        check([r["step"] for r in recs] == list(range(ts["steps"])),
+              f"train {label}: steps {[r['step'] for r in recs]}")
+        for key in ("loss", "grad_norm"):
+            want = REFERENCE_TRAIN[key + suffix]
+            got = [r[key] for r in recs]
+            check(all(close(g, w, TRAIN_TOL) for g, w in zip(got, want)),
+                  f"train {label} {key} {got} != JAX {want}")
+            errs[f"{label}_{key}"] = max(abs(g - w) for g, w in zip(got,
+                                                                   want))
+    check([r["step"] for r in resumed] == list(range(ts["ckpt_every"],
+                                                      ts["steps"])),
+          f"resumed steps {[r['step'] for r in resumed]}")
+    tail = whole[ts["ckpt_every"]:]
+    resume_err = max(abs(a[key] - b[key]) for a, b in zip(tail, resumed)
+                     for key in ("loss", "grad_norm"))
+    resume_param_err = max_state_diff(whole_model, resumed_model)
+    check(resume_err <= 1e-6 and resume_param_err <= 1e-6,
+          f"resumed run differs from the uninterrupted one: {resume_err}, "
+          f"parameters {resume_param_err}")
+    emit("train_parity", arch=TRAIN_ARCH, config="smoke",
+         compute_dtype="float32", **ts, tol=TRAIN_TOL,
+         loss=[r["loss"] for r in whole],
+         grad_norm=[r["grad_norm"] for r in whole], max_abs_err_vs_jax=errs,
+         resumed_steps=[r["step"] for r in resumed],
+         resumed_max_abs_err=resume_err,
+         resumed_param_max_abs_err=resume_param_err,
+         resumed_bitwise=resume_err == 0 and resume_param_err == 0,
+         seconds=round(time.perf_counter() - t0, 3))
+    del whole_model, resumed_model
+
+    # ---- (b) full width, depth 2, f32: the card against the CPU ------------
+    t0 = time.perf_counter()
+    tw = TRAIN_WIDE
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=tw["depth"],
+                              compute_dtype=torch.float32)
+    cpu_model = Model(cfg).init(torch.Generator().manual_seed(0))
+    start = copy.deepcopy(cpu_model.state_dict())
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    batch = SyntheticLMData(vocab=cfg.vocab, seq_len=tw["seq"],
+                            global_batch=tw["batch"], seed=0).batch(0)
+    out = {}
+    for label, model in (("card", card_model), ("cpu", cpu_model)):
+        step = St.make_train_step(model, St.TrainConfig(
+            warmup_steps=tw["warmup"]))
+        t1 = time.perf_counter()
+        loss, gnorm = step(adamw_init(model.param_tree()),
+                           on(batch, model.device))
+        out[label] = dict(loss=float(loss), grad_norm=float(gnorm),
+                          seconds=time.perf_counter() - t1)
+    param_err = max_state_diff(card_model, cpu_model)
+    moved = max(float((p - start[n]).abs().max())
+                for n, p in cpu_model.state_dict().items())
+    for key in ("loss", "grad_norm"):
+        check(close(out["card"][key], out["cpu"][key], tw["tol"]),
+              f"full width {key}: card {out['card'][key]} cpu "
+              f"{out['cpu'][key]}")
+    check(param_err <= tw["tol"], f"full width: updated parameters differ "
+          f"by {param_err} between the card and the CPU")
+    # a step that changed nothing would differ from the CPU's by `moved`
+    check(moved > tw["tol"], f"full width: the step moved no parameter by "
+          f"more than {moved}")
+    emit("train_card_vs_cpu", arch=TRAIN_ARCH, d_model=cfg.d_model,
+         vocab=cfg.vocab, head_dim=cfg.hd, depth=tw["depth"],
+         batch=tw["batch"], seq=tw["seq"], compute_dtype="float32",
+         remat=cfg.remat, tol=tw["tol"], card=out["card"], cpu=out["cpu"],
+         param_max_abs_err=param_err, param_max_abs_change=moved,
+         seconds=round(time.perf_counter() - t0, 3))
+    del cpu_model, card_model, start
+    torch.cuda.empty_cache()
+
+    # ---- (c) full width and depth, bf16, remat "full": the driver ----------
+    t0 = time.perf_counter()
+    tf = TRAIN_FULL
+    args = train.parse_args(["--arch", TRAIN_ARCH, "--batch",
+                             str(tf["batch"]), "--seq", str(tf["seq"]),
+                             "--steps", str(tf["steps"]), "--log-every", "1"])
+    model = train.build_model(args)
+    cfg = model.cfg
+    check(cfg.compute_dtype == torch.bfloat16 and cfg.remat == "full"
+          and not cfg.use_flash_kernel and not cfg.use_ssd_kernel,
+          f"{TRAIN_ARCH}'s config: {cfg.compute_dtype}, remat {cfg.remat}")
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=tf["seq"],
+                           global_batch=tf["batch"], seed=args.seed)
+    batch0 = on(data.batch(0), dev)
+    model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    with torch.no_grad():
+        f32_loss = float(model.loss_fn(model.param_tree(), batch0))
+    model.cfg = cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    records = train.run(args, model=model)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in records]
+    check(len(losses) == tf["steps"] and all(math.isfinite(x) for x in losses),
+          f"driver losses {losses}")
+    check(abs(losses[0] - f32_loss) <= tf["f32_loss_tol"],
+          f"first bf16 step's loss {losses[0]} is not within "
+          f"{tf['f32_loss_tol']} of the f32 forward's {f32_loss}")
+    step_s = statistics.median(r["seconds"]
+                               for r in records[tf["warm_steps"]:])
+    tokens = tf["batch"] * tf["seq"]
+    flops = train_flops_per_token(cfg, tf["seq"]) * tokens
+
+    # device launches and idle share of whole steps, and the update alone
+    tcfg = St.TrainConfig(total_steps=args.steps,
+                          warmup_steps=max(args.steps // 20, 5))
+    step = St.make_train_step(model, tcfg)
+    opt = adamw_init(model.param_tree())
+    float(step(opt, batch0)[0])
+    torch.cuda.synchronize()
+    step_profile = profile_cycles(
+        torch, lambda: [float(step(opt, batch0)[0])
+                        for _ in range(tf["profile_steps"])],
+        tf["profile_steps"])
+    grads = T.tree_map(lambda p: torch.full_like(p, 1e-3,
+                                                 dtype=cfg.compute_dtype),
+                       model.param_tree())
+    update = lambda: adamw_update(tcfg.opt, model.param_tree(), grads, opt,
+                                  0.5)
+    opt_ms = time_ms(torch, update, tf["opt_samples"], 1)
+    opt_profile = profile_cycles(torch, update, 1)
+    del step, opt, grads, update
+    emit("train_full", arch=TRAIN_ARCH, via="launch.train.run (main's loop)",
+         d_model=cfg.d_model, n_layers=cfg.n_layers, vocab=cfg.vocab,
+         params=sum(p.numel() for p in model.parameters()),
+         batch=tf["batch"], seq=tf["seq"], steps=tf["steps"],
+         compute_dtype="bfloat16", remat=cfg.remat, losses=losses,
+         grad_norms=[r["grad_norm"] for r in records],
+         f32_first_loss=f32_loss, first_loss_vs_f32=losses[0] - f32_loss,
+         step_seconds=[r["seconds"] for r in records],
+         median_step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
+         model_flops_per_step=flops, model_tflops_per_s=flops / step_s / 1e12,
+         bf16_peak_tflops=PEAK_FLOPS["bfloat16"] / 1e12,
+         mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+         peak_memory_gb=peak / 1e9,
+         device_launches_per_step=step_profile["device_launches_per_cycle"],
+         device_idle_share=step_profile["device_idle_share"],
+         device_idle_share_of_unprofiled_step=1 - (
+             step_profile["device_busy_s"] or 0) / tf["profile_steps"]
+         / step_s,
+         profiled_wall_s_per_step=step_profile["wall_s"] / tf["profile_steps"],
+         device_busy_s_per_step=(step_profile["device_busy_s"] or 0)
+         / tf["profile_steps"],
+         top_device_us_per_step=step_profile["top_device_us"],
+         optimizer_update_ms=opt_ms,
+         optimizer_device_launches=opt_profile["device_launches_per_cycle"],
+         optimizer_device_ms=1e3 * (opt_profile["device_busy_s"] or 0),
+         nvidia_smi=smi, seconds=round(time.perf_counter() - t0, 3))
+    del model
+    torch.cuda.empty_cache()
+
+    # the loss falls on one fixed batch (tests/test_models.py), then one step
+    # of each remat mode at batch 1 for its peak memory
+    t0 = time.perf_counter()
+    model = train.build_model(args)
+    step = St.make_train_step(model, St.TrainConfig(
+        total_steps=50, warmup_steps=tf["descent_warmup"]))
+    opt = adamw_init(model.param_tree())
+    descent = [float(step(opt, batch0)[0])
+               for _ in range(tf["descent_steps"])]
+    check(descent[-1] < descent[0] - tf["min_fall"],
+          f"the loss fell from {descent[0]} to {descent[-1]} in "
+          f"{tf['descent_steps']} steps on one batch")
+    one = {k: v[:tf["remat_batch"]] for k, v in batch0.items()}
+    remat_rows = {}
+    for remat in ("full", "dots", "none"):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        # the loss and its gradient alone (the step's first half, where the
+        # modes differ), then a whole step (the optimizer's temporaries)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        leaves = [p.detach().to(cfg.compute_dtype).requires_grad_()
+                  for p in T.leaves(model.param_tree())]
+        grads = torch.autograd.grad(model.loss_fn(
+            T.unflatten(model.param_tree(), leaves), one), leaves)
+        torch.cuda.synchronize()
+        backward_peak = torch.cuda.max_memory_allocated()
+        del leaves, grads
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        loss = float(step(opt, one)[0])
+        remat_rows[remat] = dict(
+            loss=loss, first_step_ms_after_empty_cache=1e3 * (
+                time.perf_counter() - t1),
+            loss_and_grad_peak_memory_gb=backward_peak / 1e9,
+            step_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check(math.isfinite(loss), f"remat {remat}: loss {loss}")
+    model.cfg = cfg
+    emit("train_remat_memory", arch=TRAIN_ARCH, descent_losses=descent,
+         descent_fall=descent[0] - descent[-1], min_fall=tf["min_fall"],
+         descent_warmup=tf["descent_warmup"], batch=tf["remat_batch"],
+         seq=tf["seq"], modes=remat_rows, nvidia_smi=smi,
+         seconds=round(time.perf_counter() - t0, 3))
+
+    # ---- (d) the kernels stay off the training path ------------------------
+    t0 = time.perf_counter()
+    raised = {}
+    q = torch.randn((1, tf["seq"], cfg.n_heads, cfg.hd), device=dev,
+                    dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn((1, tf["seq"], cfg.n_kv_heads, cfg.hd), device=dev,
+                     dtype=torch.bfloat16)
+    raised["flash_attention"] = expect_no_backward(
+        lambda: fops.flash_attention(q, kv, kv), "flash_attention")
+    sp = SSD_PATH
+    x = torch.randn((1, sp["t"], 2, sp["p"]), device=dev,
+                    dtype=torch.bfloat16, requires_grad=True)
+    dt = torch.rand((1, sp["t"], 2), device=dev) * 0.85 + 0.05
+    a = -torch.rand((2,), device=dev) - 0.3
+    bm = torch.randn((1, sp["t"], sp["n"]), device=dev, dtype=torch.bfloat16)
+    raised["ssd_scan"] = expect_no_backward(
+        lambda: sops.ssd_scan(x, dt, a, bm, bm, chunk=sp["chunk"]),
+        "ssd_scan")
+    model.cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    raised["qwen3_loss_with_flash"] = expect_no_backward(
+        lambda: step(opt, one), f"{TRAIN_ARCH} train step with "
+        f"use_flash_kernel")
+    del model, step, opt
+    torch.cuda.empty_cache()
+    mcfg = dataclasses.replace(get_config("mamba2-1.3b", smoke=True),
+                               use_ssd_kernel=True, ssm_chunk=16)
+    mamba = Model(mcfg).init(torch.Generator(device=dev).manual_seed(0))
+    mb = on(SyntheticLMData(vocab=mcfg.vocab, seq_len=32, global_batch=2,
+                            seed=0).batch(0), dev)
+    raised["mamba2_loss_with_ssd"] = expect_no_backward(
+        lambda: St.make_train_step(mamba, St.TrainConfig())(
+            adamw_init(mamba.param_tree()), mb),
+        "mamba2 train step with use_ssd_kernel")
+    launched = (fops.flash_attention.launches - kernel_launches[0],
+                sops.ssd_scan.launches - kernel_launches[1])
+    check(launched == (0, 0), f"the training phases launched kernels: "
+          f"flash {launched[0]}, SSD {launched[1]}")
+    emit("train_kernels", raised=raised,
+         kernel_launches_in_training={"flash_attention": launched[0],
+                                      "ssd_scan": launched[1]},
+         seconds=round(time.perf_counter() - t0, 3))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3417,6 +3829,7 @@ def main() -> int:
     analysis_launches = analysis_phase(torch, dev, smi, netstep)
 
     lm_rows = lm_phases(torch, dev, smi, fops, sops, serve)
+    train_phase(torch, dev, smi, fops, sops)
 
     print(json.dumps({"kernels": [dict(
         name="netstep", route="cuda",

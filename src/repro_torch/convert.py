@@ -7,8 +7,9 @@ numpy.  `spec_from_reference` takes such a spec as a plain dict
 both simulators can be fed the very same inputs;
 `sched_from_reference` does the same for a compiled phase schedule
 (`SchedSpec`).
-`params_from_reference` does the same for the LM stack's weights.  Both
-read only plain dicts and numpy arrays, and need nothing of the JAX
+`params_from_reference` does the same for the LM stack's weights, and
+`opt_state_from_reference` for its AdamW state.  All read only plain
+dicts (or named tuples) and numpy arrays, and need nothing of the JAX
 package.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import tree as T
 from .core.simulator import SchedSpec, SimSpec
 from .models.model import Model
 
@@ -93,6 +95,24 @@ def params_from_reference(params: dict, cfg) -> "Model":
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def opt_state_from_reference(state, cfg) -> dict:
+    """The port's AdamW state `{step, m, v}` (on the CPU) from the JAX
+    package's `AdamWState` as numpy arrays (the named tuple, or a dict of
+    its fields): `m` and `v` are parameter-shaped trees, stacked per
+    pattern slot as the parameters are, and come out as float32 trees
+    shaped like `Model.param_tree()`, layers in true order.  A tree that
+    does not fit raises as `params_from_reference` does."""
+    fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
+
+    def tree(moments):
+        return T.tree_map(lambda p: p.detach(),
+                          params_from_reference(moments, cfg).param_tree())
+
+    return {"step": torch.tensor(int(np.asarray(fields["step"])),
+                                 dtype=torch.int32),
+            "m": tree(fields["m"]), "v": tree(fields["v"])}
 
 
 def _leaves(tree, prefix=""):

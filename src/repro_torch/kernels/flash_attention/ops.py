@@ -16,7 +16,11 @@ Both take hd in {16, 32, 64, 128, 256} (any other hd raises) and Tq,
 Tk multiples of 64 (the bf16 kernel's q tile per warpgroup and key tile;
 its TMA also needs 16-byte aligned inputs).  A CUDA input never falls back: an input the
 kernel does not take, a build failure or a launch failure raises.
-`flash_attention.launches` counts kernel launches only.
+`flash_attention.launches` counts kernel launches only.  The kernels
+are forward-only, as the JAX package's is: with grad enabled, an input
+that requires grad raises on every device (on the card the kernel's
+output would carry no gradient; on the CPU the plain version would
+differentiate what the kernel cannot).
 """
 from __future__ import annotations
 
@@ -84,6 +88,12 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     -> [B, Tq, H, hd] in q's dtype.  `window` (None or > 0) keeps the
     keys with q_pos - k_pos < window."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in
+                                       (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (nor has the JAX package's "
+            "kernel): call it under torch.no_grad(), or train with "
+            "use_flash_kernel=False")
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -17,7 +17,8 @@ chosen by dtype, never by failure:
 A CUDA input never falls back: an input the kernel does not take, a
 build failure or a launch failure raises.  `ssd_scan.launches` counts
 wrapper calls that launch (one per layer), not CUDA kernels: a bf16 call
-launches four.
+launches four.  The kernels are forward-only, as the JAX package's is:
+with grad enabled, an input that requires grad raises on every device.
 """
 from __future__ import annotations
 
@@ -82,6 +83,12 @@ def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 128):
     """x [B,T,H,P], dt [B,T,H] f32, a [H] f32, b_mat/c_mat [B,T,N] in x's
     dtype -> (y [B,T,H,P] in x's dtype, final_state [B,H,N,P] float32)."""
     _check(x, dt, a, b_mat, c_mat, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in
+                                       (x, dt, a, b_mat, c_mat)):
+        raise RuntimeError(
+            "ssd_scan has no backward (nor has the JAX package's "
+            "kernel): call it under torch.no_grad(), or train with "
+            "use_ssd_kernel=False")
     dev = x.device
     if dev.type == "cpu":
         return ssd_ref(x, dt, a, b_mat, c_mat, chunk)

@@ -35,9 +35,11 @@ def ssd_chunked_core(x, dt, a, b_mat, c_mat, chunk: int,
     cum = torch.cumsum(da, dim=2)                       # within chunk
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Q,Q,H]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    # a select, never a product: exp(seg) above the diagonal may be inf
-    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(seg),
-                        torch.zeros((), device=x.device))
+    # exp(seg) above the diagonal may be inf: mask before the exp, never
+    # after it (a product with 0 is NaN, and so is the gradient of a select
+    # of inf), so exp(-inf) = 0 there and its gradient is 0 too
+    l_mat = torch.exp(seg.masked_fill(~tri[None, None, :, :, None],
+                                      float("-inf")))
 
     # within-chunk (quadratic in Q, matmul-dominant)
     cb = torch.einsum("bcqn,bckn->bcqk", cr.to(wt), br.to(wt))

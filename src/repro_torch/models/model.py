@@ -1,4 +1,4 @@
-"""The decoder model family of the port (serving path).
+"""The decoder model family of the port (serving and training paths).
 
 `ModelConfig` carries every field of the JAX package's config, with
 torch dtypes.  `Model` is an `nn.Module` whose layers sit in an
@@ -6,20 +6,26 @@ torch dtypes.  `Model` is an `nn.Module` whose layers sit in an
 pattern slot and runs a `lax.scan` over repetitions, so its layer
 `rep * len(pattern) + slot` is the port's `layers[i]` at that index,
 then the tail.  The port has the GQA (+ qk-norm, sliding window) and
-Mamba2 decoders' `logits_fn`, `prefill`, `init_cache` and `decode_step`
-(no loss, no backward): qwen3-1.7b, gemma3-1b, starcoder2-3b,
-chameleon-34b and mamba2-1.3b build; MLA, MoE and the encoder-decoder
-raise.
+Mamba2 decoders' serving entry points (`logits_fn`, `prefill`,
+`init_cache`, `decode_step`, no grad, on a cached compute-dtype copy of
+the parameters) and their differentiable `loss_fn` on an explicit
+parameter tree (`param_tree`), with per-layer activation checkpointing
+as `cfg.remat` says: qwen3-1.7b, gemma3-1b, starcoder2-3b, chameleon-34b
+and mamba2-1.3b build; MLA, MoE and the encoder-decoder raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from .. import tree as T
 from . import layers as L
 from . import ssm as S
 
@@ -118,6 +124,11 @@ class ModelConfig:
         return specs[:p], n_rep, tail
 
 
+def _to_compute(t, cd):
+    """float32 leaves in the compute dtype (the JAX package's `_cast`)."""
+    return t.to(cd) if t.dtype == torch.float32 else t
+
+
 @dataclasses.dataclass(frozen=True)
 class DecodeDims:
     """Cache geometry for serve steps."""
@@ -170,6 +181,21 @@ def apply_layer(spec, p, x, cfg: ModelConfig, *, positions, cache,
     return x, new_cache
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat="dots": keep the outputs of products without batch dims (the
+    projections and MLP products, `aten.mm`), recompute everything else
+    -- `jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_CONTEXT = {
+    "full": None,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _save_dots),
+}
+
+
 # =====================================================================
 # full model
 # =====================================================================
@@ -212,7 +238,10 @@ class Model(nn.Module):
     # instead, made at the first call after `init`, `load_state_dict`, a
     # move between devices or a change of `cfg.compute_dtype`; it rounds
     # the same parameters (a_log, dt_bias, d_skip and the norm weights
-    # too).  Change parameters only through those, or the copy goes stale.
+    # too).  Change parameters only through those or followed by
+    # `drop_compute_copy`, or the copy goes stale.  Training never reads
+    # it: its step casts the masters itself, once per step, and
+    # differentiates with respect to that cast (`launch.steps`).
     def _apply(self, fn, *args, **kwargs):
         self._compute = None
         return super()._apply(fn, *args, **kwargs)
@@ -221,24 +250,28 @@ class Model(nn.Module):
         self._compute = None
         return super().load_state_dict(*args, **kwargs)
 
-    def _cast(self) -> dict:
+    def drop_compute_copy(self):
+        """Forget the serving copy: the training step calls this after it
+        changes the parameters in place."""
+        self._compute = None
+
+    def param_tree(self) -> dict:
+        """The parameters as a tree {embed, final_norm: {w}, layers: [{group:
+        {name}}]} (layers in true order): what `loss_fn` takes, and what
+        the optimizer and checkpoints hold."""
         if self.embed is None:
             raise RuntimeError("the model has no parameters: call "
                                "init(generator) first")
+        return dict(embed=self.embed, final_norm=dict(self.final_norm),
+                    layers=[{g: dict(grp) for g, grp in layer.items()}
+                            for layer in self.layers])
+
+    def _cast(self) -> dict:
         cd = self.cfg.compute_dtype
         if self._compute is None or self._compute["dtype"] != cd:
             self._compute = None                  # free the old copy first
-
-            def c(t):
-                t = t.detach()
-                return t.to(cd) if t.dtype == torch.float32 else t
-
-            self._compute = dict(
-                dtype=cd, embed=c(self.embed),
-                final_norm={k: c(v) for k, v in self.final_norm.items()},
-                layers=[{g: {k: c(v) for k, v in grp.items()}
-                         for g, grp in layer.items()}
-                        for layer in self.layers])
+            self._compute = dict(dtype=cd, **T.tree_map(
+                lambda t: _to_compute(t.detach(), cd), self.param_tree()))
         return self._compute
 
     @property
@@ -255,6 +288,26 @@ class Model(nn.Module):
                                 cache_pos=cache_pos, build=build)
             new_caches.append(nc)
         return x, new_caches
+
+    def _train_layers(self, p, x, positions):
+        """The layers with autograd, each one checkpointed as `cfg.remat`
+        says ("full": recomputed whole in the backward pass, "dots": the
+        matmul outputs kept, "none": every activation kept)."""
+        remat = self.cfg.remat
+        if remat not in ("full", "dots", "none"):
+            raise ValueError(f"remat must be full, dots or none, not "
+                             f"{remat!r}")
+        for spec, lp in zip(self.specs, p["layers"]):
+            def layer(x, spec=spec, lp=lp):
+                return apply_layer(spec, lp, x, self.cfg, positions=positions,
+                                   cache=None, cache_pos=None)[0]
+            if remat == "none":
+                x = layer(x)
+            else:
+                ctx = REMAT_CONTEXT[remat]
+                x = checkpoint(layer, x, use_reentrant=False,
+                               **({"context_fn": ctx} if ctx else {}))
+        return x
 
     def _embed(self, p, tokens):
         return p["embed"][tokens].to(self.cfg.compute_dtype)
@@ -273,6 +326,27 @@ class Model(nn.Module):
                                 cache_pos=None)
         x = L.rms_norm(p["final_norm"], x)
         return x @ p["embed"].T
+
+    def loss_fn(self, params, batch):
+        """Masked mean next-token NLL of `batch` {"tokens", "labels"} [B, T]
+        (labels < 0 masked out), differentiable in `params`, a tree as
+        `param_tree` gives (float32 leaves are cast to the compute dtype;
+        leaves already in it are used as they are).  log_softmax in
+        float32, as `repro.models.Model.loss_fn`; its `0.01 * aux` term is
+        0 for the ported archs (no MoE)."""
+        cd = self.cfg.compute_dtype
+        p = T.tree_map(lambda t: _to_compute(t, cd), params)
+        tokens = batch["tokens"].long()
+        labels = batch["labels"].long()
+        b, t = tokens.shape
+        x = self._embed(p, tokens)
+        positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        x = self._train_layers(p, x, positions)
+        x = L.rms_norm(p["final_norm"], x)
+        logp = torch.log_softmax((x @ p["embed"].T).float(), dim=-1)
+        ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
     @torch.no_grad()
     def prefill(self, tokens):

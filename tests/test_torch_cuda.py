@@ -1,6 +1,6 @@
 """The port's CUDA kernels (`netstep`, `flash_attention`, `ssd_scan`), the
-simulator, the synthesis search, the hazard pass and the LM serving path
-on the card.  Every test
+simulator, the synthesis search, the hazard pass and the LM serving and
+training paths on the card.  Every test
 here needs an NVIDIA GPU and nvcc (marker `requires_cuda`) and skips
 without one; on such a machine run
 
@@ -505,3 +505,77 @@ def test_prefill_launches_each_layers_kernel(cuda, arch, t, flash, ssd):
     plain, _ = model.prefill(tokens)
     torch.testing.assert_close(logits.float(), plain.float(), atol=0.08,
                                rtol=0.08)
+
+
+def test_kernel_wrappers_refuse_autograd_on_card(cuda):
+    """The CUDA kernels' outputs carry no gradient, so with grad enabled
+    an input that requires grad raises before any launch, and a model
+    with the kernel flags set refuses its differentiable forward."""
+    q = torch.randn((1, 128, 4, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 128, 2, 64), device=cuda)
+    before = fops.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fops.flash_attention(q, k, k)
+    x = torch.randn((1, 32, 2, 8), device=cuda, requires_grad=True)
+    dt = torch.rand((1, 32, 2), device=cuda) * 0.8 + 0.05
+    a = -torch.rand((2,), device=cuda) - 0.3
+    bm = torch.randn((1, 32, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sops.ssd_scan(x, dt, a, bm, bm, chunk=16)
+    assert fops.flash_attention.launches == before
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              use_flash_kernel=True)
+    model = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model.loss_fn(model.param_tree(), {"tokens": toks, "labels": toks})
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "mamba2-1.3b"])
+def test_train_step_on_card_equals_cpu(cuda, arch, microbatches):
+    """One float32 train step of a smoke config on the card and on the CPU
+    (the path the CPU tests hold against the JAX package): loss, grad
+    norm and every updated parameter within 1e-4."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as St
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype=torch.float32)
+    models = [Model(cfg).init(torch.Generator().manual_seed(0))
+              for _ in range(2)]
+    models[0].to(cuda)
+    batch = SyntheticLMData(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                            seed=0).batch(0)
+    out = []
+    for model in models:
+        step = St.make_train_step(model, St.TrainConfig(
+            microbatches=microbatches, warmup_steps=2))
+        loss, gn = step(adamw_init(model.param_tree()),
+                        {k: torch.from_numpy(v).to(model.device)
+                         for k, v in batch.items()})
+        out.append((float(loss), float(gn)))
+    assert out[0] == pytest.approx(out[1], rel=1e-4, abs=1e-4)
+    card, cpu = (m.state_dict() for m in models)
+    for name in cpu:
+        torch.testing.assert_close(card[name].cpu(), cpu[name], atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_train_driver_on_card_resumes(cuda, tmp_path):
+    """The driver on the card (its default device): 8 steps with a
+    checkpoint at 4; stopped after it and resumed, it takes the same
+    steps."""
+    import os
+    import shutil
+    from repro_torch.launch import train
+    argv = ["--arch", "qwen3-1.7b", "--smoke", "--steps", "8", "--batch",
+            "4", "--seq", "32", "--ckpt-dir", str(tmp_path), "--ckpt-every",
+            "4", "--log-every", "100"]
+    full = train.run(train.parse_args(argv))
+    assert all(np.isfinite(r["loss"]) for r in full)
+    shutil.rmtree(os.path.join(tmp_path, "step_00000008"))
+    resumed = train.run(train.parse_args(argv))
+    assert [r["step"] for r in resumed] == [4, 5, 6, 7]
+    for a, b in zip(full[4:], resumed):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-6, abs=1e-6)

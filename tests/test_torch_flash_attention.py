@@ -136,3 +136,21 @@ def test_wrapper_checks_its_inputs():
                             torch.zeros((1, 128, 3, 16)))
     with pytest.raises(TypeError, match="dtypes differ"):
         ops.flash_attention(q, k, k.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("grad_input", range(3))
+def test_wrapper_refuses_autograd(grad_input):
+    """The kernels have no backward (neither has the JAX package's): with
+    grad enabled an input that requires grad raises, on the CPU too,
+    where the plain version would otherwise differentiate; under no_grad
+    the wrapper runs."""
+    rng = np.random.default_rng(0)
+    qkv = [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+           for shape in ((1, 128, 4, 16), (1, 128, 2, 16), (1, 128, 2, 16))]
+    qkv[grad_input].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(*qkv)
+    with torch.no_grad():
+        out = ops.flash_attention(*qkv)
+    np.testing.assert_allclose(
+        out.numpy(), ops.flash_attention_plain(*qkv).detach().numpy())

@@ -99,8 +99,9 @@ def test_chunked_core_in_float64():
 
 def test_strong_decay_stays_finite():
     """With dt * a large, exp(cum_q - cum_k) above the chunk's diagonal
-    overflows to inf; the plain version selects it away (never multiplies
-    it by a 0 mask), so y stays finite and equals the recurrence."""
+    overflows to inf; the plain version masks it out before the exp
+    (never multiplies it by a 0 mask), so y stays finite and equals the
+    recurrence."""
     _, (x, dt, a, bm, cm) = _inputs(np.random.default_rng(5), 1, 64, 2, 4, 4)
     a = torch.tensor([-60.0, -0.5])
     y, s = ssd_chunked_core(x, dt, a, bm, cm, 32)
@@ -120,3 +121,18 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(TypeError, match="dtypes differ"):
         ops.ssd_scan(x, dt, a, bm.to(torch.bfloat16), cm, chunk=8)
     assert ops.smem_bytes(64, 128, 256) <= ops.MAX_SMEM
+
+
+@pytest.mark.parametrize("grad_input", range(5))
+def test_wrapper_refuses_autograd(grad_input):
+    """The kernel has no backward (neither has the JAX package's): with
+    grad enabled an input that requires grad raises, on the CPU too,
+    where the plain version would otherwise differentiate; without grad,
+    or under no_grad, the wrapper runs."""
+    _, args = _inputs(np.random.default_rng(0), 1, 16, 2, 4, 4)
+    args[grad_input].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_scan(*args, chunk=8)
+    with torch.no_grad():
+        y, s = ops.ssd_scan(*args, chunk=8)
+    assert y.grad_fn is None and torch.isfinite(s).all()

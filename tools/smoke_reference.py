@@ -1,8 +1,9 @@
 """Compute the JAX reference tables of `chip_smoke.py`'s `experiments`,
-`collectives`, `adaptive_telemetry`, `synth` and `analysis` phases.
+`collectives`, `adaptive_telemetry`, `synth`, `analysis` and `train`
+phases.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/smoke_reference.py \
-        [experiments|collectives|adaptive|synth|analysis]
+        [experiments|collectives|adaptive|synth|analysis|train]
 
 `experiments` builds that phase's Experiment
 (`chip_smoke.experiment_scenarios`: 15 scenarios at N = 256, organic,
@@ -28,8 +29,13 @@ seed=0))` and prints `chip_smoke.synth_table` of the result
 repro.analysis --all-builtin --jax` (in this process) and
 `repro.analysis.analyze(names=["folded_hexa_torus"], n=36, fault_kmax=2)`
 and prints `chip_smoke.analysis_table` of them (`REFERENCE_ANALYSIS`,
-seconds).  Without an argument, all five tables; the first three take
-several minutes each on an 8-core CPU.
+seconds).  `train` runs `repro.launch.steps.make_train_step` on
+chip_smoke's `TRAIN_ARCH` smoke config at float32 compute, from the
+parameters `chip_smoke.train_smoke_params` draws, over `TRAIN_SMOKE`'s
+steps of `SyntheticLMData`, with the train driver's schedule, once
+whole and once with microbatches=2, and prints each step's loss and grad
+norm (`REFERENCE_TRAIN`, seconds).  Without an argument, all six
+tables; the first three take several minutes each on an 8-core CPU.
 """
 import json
 import os
@@ -124,9 +130,69 @@ def analysis() -> dict:
     return chip_smoke.analysis_table(doc, rc, rep)
 
 
+def train() -> dict:
+    """The JAX package's losses and grad norms of chip_smoke's training
+    parity run (`chip_smoke.TRAIN_SMOKE`)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.data import SyntheticLMData
+    from repro.launch import steps as St
+    from repro.models import Model, unbox
+    from repro.optim import AdamWConfig, adamw_init
+
+    ts = chip_smoke.TRAIN_SMOKE
+    cfg = dataclasses.replace(C.get_config(chip_smoke.TRAIN_ARCH, smoke=True),
+                              compute_dtype=jnp.float32)
+    model = Model(cfg)
+    shapes, _ = unbox(jax.eval_shape(model.init, jax.random.PRNGKey(0)))
+    pat, n_rep, _ = cfg.pattern()
+
+    def port_names(path, leaf):
+        """The port's parameter names of a leaf, and the leaf's shape in
+        the port (blocks are stacked over the repetitions here)."""
+        keys = [str(getattr(k, "key", getattr(k, "idx", None))) for k in path]
+        if keys[0] == "blocks":
+            rest = ".".join(keys[2:])
+            return ([f"layers.{r * len(pat) + int(keys[1])}.{rest}"
+                     for r in range(n_rep)], leaf.shape[1:])
+        if keys[0] == "tail":
+            return ([f"layers.{n_rep * len(pat) + int(keys[1])}."
+                     + ".".join(keys[2:])], leaf.shape)
+        return [".".join(keys)], leaf.shape
+
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    named = [(name, shape) for path, leaf in leaves
+             for names, shape in [port_names(path, leaf)] for name in names]
+    flat = chip_smoke.train_smoke_params(named, ts["seed"])
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: jnp.asarray(np.stack(
+            [flat[n] for n in port_names(path, leaf)[0]]).reshape(
+                leaf.shape)), shapes)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=ts["seq"],
+                           global_batch=ts["batch"], seed=ts["seed"])
+    out = {}
+    for k, suffix in ((1, ""), (2, "_mb2")):
+        tcfg = St.TrainConfig(opt=AdamWConfig(), microbatches=k,
+                              total_steps=ts["steps"],
+                              warmup_steps=max(ts["steps"] // 20, 5))
+        step = jax.jit(St.make_train_step(model, tcfg))
+        p, opt = params, adamw_init(params)
+        losses, norms = [], []
+        for i in range(ts["steps"]):
+            p, opt, met = step(p, opt, {key: jnp.asarray(v) for key, v
+                                        in data.batch(i).items()})
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        out["loss" + suffix], out["grad_norm" + suffix] = losses, norms
+    return out
+
+
 def main(argv=None) -> int:
     which = (argv or sys.argv[1:]) or ["experiments", "collectives",
-                                       "adaptive", "synth", "analysis"]
+                                       "adaptive", "synth", "analysis",
+                                       "train"]
     if "experiments" in which:
         t0 = time.perf_counter()
         frame = run(chip_smoke.experiment_scenarios(X, W, F, T),
@@ -149,7 +215,7 @@ def main(argv=None) -> int:
                               ici=ici, seconds=time.perf_counter() - t0)),
               flush=True)
     for name, fn in (("adaptive", adaptive), ("synth", synth),
-                     ("analysis", analysis)):
+                     ("analysis", analysis), ("train", train)):
         if name in which:
             t0 = time.perf_counter()
             out = fn()
