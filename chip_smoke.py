@@ -143,13 +143,17 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        through both; at hd 256, GQA 4:1, causal with
                        window None / 1024 / 96 at T 2048 and on ragged
                        128 / 256 pairs, and gemma3-1b's prefill shape
-                       [4, 2048, 4 (1 kv), 256] global and local
+                       [4, 2048, 4 (1 kv), 256] global and local; the
+                       families' prefill shapes through both: seamless
+                       [4, 1024, 16 (16 kv), 64], jamba [4, 1024, 32 (8
+                       kv), 128], qwen3-moe [4, 1024, 64 (4 kv), 128]
   ssd_vs_plain         the SSD-scan kernels against their plain version:
                        the shapes of tests/test_torch_cuda.py through both
                        routes, f32 (1e-4) and bf16 (3e-2), the bf16
                        route's any-chunk shapes, and mamba2-1.3b's prefill
-                       shape (B 4, T 1024, H 64, P 64, N 128, chunk 256):
-                       bf16 at 3e-2, f32 no further from the f64
+                       shape (B 4, T 1024, H 64, P 64, N 128, chunk 256)
+                       and jamba's (B 4, T 1024, H 128, P 64, N 64, chunk
+                       256): bf16 at 3e-2, f32 no further from the f64
                        evaluation of the plain version than the plain f32
                        version (x 2); y and the final state
   lm_card_vs_cpu       qwen3-1.7b, gemma3-1b and mamba2-1.3b at full
@@ -180,6 +184,8 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
   lm_timing_hd256      the same at gemma3-1b's prefill shape, both routes,
                        global (causal) and local (window 1024) layers, SDPA
                        at the global layers' shape
+  lm_timing_families   the same (bf16) at the families' flash and SSD
+                       shapes, with each call's graph-replay device ms
   lm_profile           torch.profiler: the device time of every CUDA kernel
                        one wrapper call launches, summed, per route (the
                        bf16 SSD call launches four), and the device idle
@@ -215,6 +221,37 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
   train_kernels        with grad enabled the flash and SSD wrappers raise
                        on the card, directly and from a train step with the
                        kernel flags set; no kernel launched in training
+  families_parity      the model families' smoke configs (minicpm3-4b: MLA,
+                       seamless-m4t-medium: encoder-decoder, qwen3-moe-
+                       235b-a22b and grok-1-314b: MoE, the latter with
+                       virtual-split experts, jamba-v0.1-52b: Mamba2 +
+                       attention + MoE) at f32 from `train_smoke_params`:
+                       prefill logits, two decode steps and the train
+                       driver's first loss (MoE aux included) and grad
+                       norm equal the JAX table REFERENCE_FAMILIES (1e-4)
+  moe_vs_plain         one full-width MoE layer of qwen3-moe and of jamba,
+                       bf16, at the prefill token count (4096) and the
+                       decode count (4): the card's grouped route
+                       (`torch._grouped_mm`) against the per-expert loop on
+                       the card (2e-2); their ms and the host's waits for
+                       the card per call
+  families_kernel_vs_plain
+                       minicpm3, seamless, qwen3-moe at full width, depth
+                       2, and jamba at depth 5 (its first attention layer
+                       is layer 4), f32, batch 1, prompt 256, 4 decode
+                       steps: the kernel flags on (one flash launch per
+                       attention layer, one SSD launch per Mamba2 layer)
+                       and off agree within 1e-3; minicpm3 and seamless
+                       also on the CPU
+  families_serve       serving through `launch.serve.generate`, bf16,
+                       seed-0 weights, batch 4, prompt 1024, 32 new
+                       tokens, full width: minicpm3-4b and seamless at
+                       full depth, jamba at 5 layers, qwen3-moe at 2;
+                       flash and SSD launches per prefill (0 / 0, 12 / 0,
+                       1 / 4, 2 / 0), prefill ms, decode ms per token, peak
+                       memory, the host's waits in one decode step, and
+                       the decode loop's device launches per token and
+                       idle share
 
 then the kernel summary line and, last, the `{"ok": true, ...}` line.
 A failed check raises and exits non-zero before the last line; without
@@ -1596,6 +1633,380 @@ REFERENCE_TRAIN = {
         1.4910411834716797, 1.4698314666748047]}
 
 
+# The model families: MLA (minicpm3-4b), the encoder-decoder
+# (seamless-m4t-medium), MoE (qwen3-moe-235b-a22b; grok-1-314b, whose
+# experts are split into 2 virtual experts each, in the parity run only:
+# 4.9 B parameters per layer at full width) and the attention:SSM:MoE
+# hybrid (jamba-v0.1-52b).  (a) the smoke configs at float32 compute from
+# `train_smoke_params`, held to REFERENCE_FAMILIES (tools/smoke_reference.py
+# families: the JAX package on the CPU); (b) serving at full width, bf16,
+# the serving cell's batch 4 x prompt 1024 x 32 new tokens, each config
+# cut in depth to what the card holds (f32 masters + a bf16 copy):
+# jamba's 5 layers are 4 Mamba2 layers and 1 attention layer, 2 of them
+# MoE (8 layers, one whole pattern period, need about 76 GB), qwen3-moe
+# keeps 2 of 94; (c) the grouped MoE product against its per-expert loop
+# on the card.
+FAMILY_ARCHS = ("minicpm3-4b", "seamless-m4t-medium", "qwen3-moe-235b-a22b",
+                "grok-1-314b", "jamba-v0.1-52b")
+FAMILIES_SMOKE = dict(batch=2, prompt=16, decode=2, seed=0, train_batch=2,
+                      train_seq=16)
+FAMILIES_TOL = 1e-4
+FAMILIES_HEAD = 8
+FAMILY_SERVE_DEPTH = {"minicpm3-4b": None, "seamless-m4t-medium": None,
+                      "jamba-v0.1-52b": 5, "qwen3-moe-235b-a22b": 2}
+# (flash, SSD) launches per prefill
+FAMILY_LAUNCHES = {"minicpm3-4b": (0, 0), "seamless-m4t-medium": (12, 0),
+                   "jamba-v0.1-52b": (1, 4), "qwen3-moe-235b-a22b": (2, 0)}
+# kernel against plain at f32: depth 2, but jamba 5 (layer 4 is its first
+# attention layer); the card against the CPU at depth 2
+FAMILY_KVP_DEPTH = {"jamba-v0.1-52b": 5}
+FAMILY_CARD_VS_CPU = ("minicpm3-4b", "seamless-m4t-medium")
+MOE_CHECK = ("qwen3-moe-235b-a22b", "jamba-v0.1-52b")
+MOE_TOL = 2e-2              # bf16 products rounded in other orders
+# the flash and SSD shapes of these paths' prefills
+FAMILY_FLASH = {
+    "seamless-m4t-medium": dict(b=4, t=1024, h=16, kv=16, hd=64),
+    "jamba-v0.1-52b": dict(b=4, t=1024, h=32, kv=8, hd=128),
+    "qwen3-moe-235b-a22b": dict(b=4, t=1024, h=64, kv=4, hd=128)}
+FAMILY_SSD = {"jamba-v0.1-52b": dict(b=4, t=1024, h=128, p=64, n=64,
+                                     chunk=256)}
+REFERENCE_FAMILIES = {
+    'minicpm3-4b':
+        {'prefill': {'head': [[0.1623096466064453,
+                               -0.04943545535206795,
+                               -0.08100353181362152,
+                               -0.16588592529296875,
+                               0.12111146748065948,
+                               -0.35607704520225525,
+                               -0.1940605640411377,
+                               -0.01270329114049673],
+                              [0.07181066274642944,
+                               -0.024260643869638443,
+                               -0.048082489520311356,
+                               0.14603473246097565,
+                               -0.20927958190441132,
+                               -0.16604314744472504,
+                               -0.13737590610980988,
+                               -0.09356516599655151]],
+                     'sum': [6.335153372725472, 6.58399384166114],
+                     'abs_sum': [65.67437023489038, 65.5315780097153],
+                     'max': [1.215112566947937, 1.352096438407898]},
+         'decode': [{'head': [[-0.0936628058552742,
+                               0.34712862968444824,
+                               -0.174148827791214,
+                               -0.018592234700918198,
+                               0.1242402121424675,
+                               0.1218176931142807,
+                               -0.2223278284072876,
+                               0.04258544370532036],
+                              [0.18959827721118927,
+                               0.06069927290081978,
+                               -0.13581673800945282,
+                               0.07730796188116074,
+                               0.09065781533718109,
+                               0.11468726396560669,
+                               -0.1331043243408203,
+                               -0.06189596652984619]],
+                     'sum': [3.7910230167908594, 8.488647608572137],
+                     'abs_sum': [62.296120675397106, 63.917449321577806],
+                     'max': [1.350468635559082, 1.099976897239685]},
+                    {'head': [[0.017931083217263222,
+                               0.0050426810048520565,
+                               0.10584212094545364,
+                               -0.32712364196777344,
+                               -0.463600754737854,
+                               -0.02635965123772621,
+                               -0.1718982458114624,
+                               0.17518696188926697],
+                              [-0.017053110525012016,
+                               0.05536561831831932,
+                               0.30620118975639343,
+                               0.25902390480041504,
+                               -0.15755081176757812,
+                               0.194308340549469,
+                               0.12281142175197601,
+                               0.19995425641536713]],
+                     'sum': [2.9159077685944794, -4.965547331026755],
+                     'abs_sum': [70.31480887060388, 67.22712702897843],
+                     'max': [1.1140518188476562, 1.1935704946517944]}],
+         'loss': 6.172346115112305,
+         'grad_norm': 2.2889413833618164},
+    'seamless-m4t-medium':
+        {'prefill': {'head': [[0.07004502415657043,
+                               0.025750968605279922,
+                               -0.07417437434196472,
+                               -0.18386466801166534,
+                               0.09997491538524628,
+                               -0.29207345843315125,
+                               -0.11408521234989166,
+                               -0.10516253113746643],
+                              [0.19397836923599243,
+                               0.17492753267288208,
+                               -0.12432996928691864,
+                               0.1655033677816391,
+                               -0.09822895377874374,
+                               -0.20555590093135834,
+                               -0.1913744956254959,
+                               0.13323450088500977]],
+                     'sum': [7.683943076757714, 2.2527788166771643],
+                     'abs_sum': [65.22186790104024, 66.92427532852162],
+                     'max': [1.0653066635131836, 0.988971471786499]},
+         'decode': [{'head': [[-0.11070426553487778,
+                               -0.13882306218147278,
+                               0.2596428394317627,
+                               -0.26200976967811584,
+                               -0.21076415479183197,
+                               -0.18616077303886414,
+                               0.012198777869343758,
+                               0.02750569023191929],
+                              [0.08303196728229523,
+                               0.3296467661857605,
+                               -0.14319832623004913,
+                               0.13798950612545013,
+                               0.029784006997942924,
+                               -0.0374968983232975,
+                               -0.32241538166999817,
+                               0.030924508348107338]],
+                     'sum': [6.057913425334846, -1.5077938848698977],
+                     'abs_sum': [69.86366918515705, 64.06397058113362],
+                     'max': [0.8696767091751099, 0.8352431654930115]},
+                    {'head': [[-0.11022458225488663,
+                               -0.11310328543186188,
+                               -0.15529175102710724,
+                               -0.16846878826618195,
+                               -0.2054620385169983,
+                               -0.23595963418483734,
+                               -0.020143598318099976,
+                               0.00238221138715744],
+                              [0.1836257427930832,
+                               0.26531869173049927,
+                               -0.2604266405105591,
+                               -0.027208484709262848,
+                               0.08576526492834091,
+                               -0.19060491025447845,
+                               -0.11860378831624985,
+                               0.05268789455294609]],
+                     'sum': [5.362653938878793, -0.3949626889079809],
+                     'abs_sum': [65.0645319338073, 66.14492868166417],
+                     'max': [0.8034852147102356, 0.7777954936027527]}],
+         'loss': 6.179931640625,
+         'grad_norm': 2.8720407485961914},
+    'qwen3-moe-235b-a22b':
+        {'prefill': {'head': [[0.24926051497459412,
+                               0.08506728708744049,
+                               -0.11284121870994568,
+                               -0.03934646025300026,
+                               0.2222362756729126,
+                               -0.3594242334365845,
+                               -0.20787116885185242,
+                               -0.08221644163131714],
+                              [0.0301729254424572,
+                               -0.1307680904865265,
+                               0.09287384152412415,
+                               0.27797555923461914,
+                               -0.18169903755187988,
+                               -0.04878837615251541,
+                               -0.11076118797063828,
+                               -0.05809943377971649]],
+                     'sum': [3.122122883789416, 4.688752544840099],
+                     'abs_sum': [64.76635296946188, 67.00608529543388],
+                     'max': [1.0501317977905273, 1.2211227416992188]},
+         'decode': [{'head': [[0.061707496643066406,
+                               0.35704562067985535,
+                               -0.28936535120010376,
+                               0.004418205004185438,
+                               0.026693392544984818,
+                               0.14289817214012146,
+                               -0.2072833776473999,
+                               0.04776633530855179],
+                              [-0.059969786554574966,
+                               0.22390756011009216,
+                               -0.2948465943336487,
+                               0.22247299551963806,
+                               -0.02968580275774002,
+                               0.2086603045463562,
+                               -0.09748882055282593,
+                               -0.11303015053272247]],
+                     'sum': [0.010982174630044028, 3.351911379984813],
+                     'abs_sum': [63.304712003533496, 64.73713668072014],
+                     'max': [1.0602304935455322, 0.9463136792182922]},
+                    {'head': [[0.1292356550693512,
+                               -0.04765050485730171,
+                               0.0892544537782669,
+                               -0.17814317345619202,
+                               -0.4572117328643799,
+                               0.11164446175098419,
+                               -0.26736345887184143,
+                               0.15099981427192688],
+                              [-0.13382016122341156,
+                               0.0005842061946168542,
+                               0.3824126422405243,
+                               0.2769051790237427,
+                               -0.06283720582723618,
+                               0.21821394562721252,
+                               0.14703139662742615,
+                               0.07782191038131714]],
+                     'sum': [-0.34657375048846006, -2.9324181096872053],
+                     'abs_sum': [69.9558152022073, 66.94570010034477],
+                     'max': [0.9058383107185364, 1.0058051347732544]}],
+         'loss': 6.198937892913818,
+         'grad_norm': 2.96852707862854},
+    'grok-1-314b':
+        {'prefill': {'head': [[0.2032388597726822,
+                               0.08922099322080612,
+                               -0.08407722413539886,
+                               -0.034094251692295074,
+                               0.2089749276638031,
+                               -0.26459982991218567,
+                               -0.20543614029884338,
+                               -0.049669042229652405],
+                              [-0.013438818976283073,
+                               -0.14390763640403748,
+                               0.11994759738445282,
+                               0.2178184688091278,
+                               -0.10424140095710754,
+                               -0.1336423009634018,
+                               -0.1252194494009018,
+                               -0.15347257256507874]],
+                     'sum': [3.048303491261322, 7.130332627326425],
+                     'abs_sum': [66.53407118603354, 65.79146782056341],
+                     'max': [1.0923796892166138, 1.273187279701233]},
+         'decode': [{'head': [[-0.048415981233119965,
+                               0.3875940144062042,
+                               -0.22783081233501434,
+                               0.03165116906166077,
+                               0.1562480330467224,
+                               0.20379270613193512,
+                               -0.24109280109405518,
+                               -0.032688938081264496],
+                              [0.13375462591648102,
+                               0.005320177413523197,
+                               -0.08321723341941833,
+                               0.19530662894248962,
+                               0.06150240823626518,
+                               0.16618452966213226,
+                               -0.0813065618276596,
+                               -0.14705508947372437]],
+                     'sum': [0.004551695616100915, 6.701755250978749],
+                     'abs_sum': [63.224099810715416, 63.62217580358265],
+                     'max': [1.1899032592773438, 1.0330735445022583]},
+                    {'head': [[0.061016011983156204,
+                               0.02500269189476967,
+                               0.014671610668301582,
+                               -0.18928714096546173,
+                               -0.4475666880607605,
+                               0.06678254902362823,
+                               -0.26428791880607605,
+                               0.05340243875980377],
+                              [-0.05919428542256355,
+                               -0.03102749027311802,
+                               0.30079108476638794,
+                               0.3679768741130829,
+                               -0.13284119963645935,
+                               0.23467114567756653,
+                               0.17864178121089935,
+                               0.11189600825309753]],
+                     'sum': [-1.2695380016089075, -4.014320710186439],
+                     'abs_sum': [69.87269001463619, 67.60125657058234],
+                     'max': [0.9608517289161682, 1.1322003602981567]}],
+         'loss': 6.193070888519287,
+         'grad_norm': 2.6444520950317383},
+    'jamba-v0.1-52b':
+        {'prefill': {'head': [[0.07409341633319855,
+                               0.001952502760104835,
+                               -0.13105395436286926,
+                               -0.19942337274551392,
+                               -0.13624051213264465,
+                               0.023907767608761787,
+                               -0.11624119430780411,
+                               -0.055616457015275955],
+                              [-0.1502171754837036,
+                               -0.1599920243024826,
+                               -0.0747489333152771,
+                               -0.008829333819448948,
+                               -0.047562260180711746,
+                               0.1517593264579773,
+                               -0.3739506006240845,
+                               0.13449136912822723]],
+                     'sum': [4.835651356494054, 1.2953246826509712],
+                     'abs_sum': [68.87501890072599, 62.283640997178736],
+                     'max': [0.49150753021240234, 0.5828625559806824]},
+         'decode': [{'head': [[-0.08145534247159958,
+                               0.054121825844049454,
+                               0.01662319153547287,
+                               0.18891294300556183,
+                               -0.2014985978603363,
+                               0.08276699483394623,
+                               0.11628150194883347,
+                               0.1430182307958603],
+                              [-0.0651538223028183,
+                               0.17340531945228577,
+                               -0.02440999448299408,
+                               -0.1413477659225464,
+                               -0.234419584274292,
+                               -0.0006925914203748107,
+                               -0.1646178662776947,
+                               0.009716336615383625]],
+                     'sum': [-7.61080747959204, -2.160195825606934],
+                     'abs_sum': [65.46310648182407, 65.10147615252936],
+                     'max': [0.4969758093357086, 0.4819447696208954]},
+                    {'head': [[-0.11747381091117859,
+                               0.04200834035873413,
+                               -0.13445666432380676,
+                               -0.09136826545000076,
+                               0.2959202229976654,
+                               -0.2539481520652771,
+                               -0.06791625916957855,
+                               0.039884619414806366],
+                              [0.08811837434768677,
+                               -0.10272341966629028,
+                               0.0988563522696495,
+                               -0.17500334978103638,
+                               -0.12901033461093903,
+                               0.240894615650177,
+                               0.2303541600704193,
+                               0.019478779286146164]],
+                     'sum': [6.409685641629039, 3.0265867710259045],
+                     'abs_sum': [69.12388154504879, 69.06264672645193],
+                     'max': [0.4312598407268524, 0.4683970510959625]}],
+         'loss': 6.268673896789551,
+         'grad_norm': 3.4270384311676025},
+}
+
+
+def family_inputs(cfg, fs=FAMILIES_SMOKE):
+    """numpy (prompts [B, T] int64, frames [B, T, D] float32 for an
+    encoder-decoder else None, decode tokens [steps, B, 1] int64) of the
+    families' parity run, drawn in that order from one generator."""
+    import numpy as np
+    rng = np.random.default_rng(fs["seed"])
+    b, t = fs["batch"], fs["prompt"]
+    toks = rng.integers(0, cfg.vocab, (b, t)).astype(np.int64)
+    frames = None
+    if cfg.arch_kind == "encdec":
+        frames = rng.normal(0, 0.02, (b, t, cfg.d_model)).astype(np.float32)
+    steps = rng.integers(0, cfg.vocab, (fs["decode"], b, 1)).astype(np.int64)
+    return toks, frames, steps
+
+
+def logits_summary(logits) -> dict:
+    """Logits [B, V] as the parity table keeps them: each row's first
+    FAMILIES_HEAD values, its sum, sum of magnitudes and maximum."""
+    import numpy as np
+    a = np.asarray(logits, np.float64)
+    return dict(head=a[:, :FAMILIES_HEAD].tolist(), sum=a.sum(1).tolist(),
+                abs_sum=np.abs(a).sum(1).tolist(), max=a.max(1).tolist())
+
+
+def numbers(tree) -> list:
+    """The numbers of a nested dict / list, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in numbers(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in numbers(v)]
+    return [float(tree)]
+
+
 def train_smoke_params(named_shapes, seed: int = 0) -> dict:
     """{parameter name: float32 array} for the training parity run: every
     matrix normal(0, 0.02), every vector 1 (the norms), each drawn from a
@@ -2758,7 +3169,6 @@ def collectives_phase(torch, dev, smi, netstep) -> int:
 def lm_phases(torch, dev, smi, fops, sops, serve):
     """The LM phases; returns the kernel summary rows of flash_attention
     and ssd_scan."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import ablate
     from repro_torch.models import Model
@@ -2822,13 +3232,29 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
                                            window=window),
                 FLASH_TOL[dname], f"flash {dname} at gemma3-1b's shape, "
                 f"window {window}")
+    # the families' prefill shapes: seamless hd 64 with 16 q over 16 kv
+    # heads, jamba GQA 32:8, qwen3-moe a GQA group of 16
+    fam_errs, fam_flash = {}, {}
+    for arch, sh in FAMILY_FLASH.items():
+        for dname, dtype in dtypes.items():
+            qkv = flash_inputs(torch, gen, sh["b"], sh["t"], sh["t"], sh["h"],
+                               sh["kv"], sh["hd"], dtype, dev)
+            fam_errs[f"{arch} {dname}"] = check_close(
+                torch, fops.flash_attention(*qkv, causal=True),
+                fops.flash_attention_plain(*qkv, causal=True),
+                FLASH_TOL[dname], f"flash {dname} at {arch}'s shape")
+            if dname == "bfloat16":
+                fam_flash[arch] = qkv
     flash_err = max(path_errs["bfloat16"],
                     *(e for w, e in gemma_errs.items()
-                      if w.startswith("bfloat16")))
+                      if w.startswith("bfloat16")),
+                    *(e for w, e in fam_errs.items()
+                      if w.endswith("bfloat16")))
     emit("flash_vs_plain", cases=errs, path_shape=list(fq.shape),
          path_kv_heads=fp["kv"], path_max_abs_err=path_errs,
          gemma3_shape=list(gemma_flash["bfloat16"][0].shape),
          gemma3_kv_heads=gp["kv"], gemma3_max_abs_err=gemma_errs,
+         families_shapes=FAMILY_FLASH, families_max_abs_err=fam_errs,
          tol=FLASH_TOL, seconds=round(time.perf_counter() - t0, 3))
 
     # ---- SSD scan vs plain, both routes ------------------------------------
@@ -2845,44 +3271,58 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
             y=check_close(torch, y, yr, SSD_TOL[dname], f"ssd {what} y"),
             state=check_close(torch, st, sr, SSD_TOL[dname],
                               f"ssd {what} state"))
-    sp = SSD_PATH
-    path_errs = {}
-    for dname, dtype in dtypes.items():
-        args = ssd_inputs(torch, gen, sp["b"], sp["t"], sp["h"], sp["p"],
-                          sp["n"], dtype, dev)
-        y, st = sops.ssd_scan(*args, chunk=sp["chunk"])
-        yr, sr = sops.ssd_ref(*args, sp["chunk"])
-        if dname == "bfloat16":
-            ssd_args = args
-            path_errs[dname] = dict(
-                y=check_close(torch, y, yr, SSD_TOL[dname],
-                              f"ssd {dname} y at the path shape"),
-                state=check_close(torch, st, sr, SSD_TOL[dname],
-                                  f"ssd {dname} state at the path shape"))
-            continue
-        # f32 at the path shape: sums of 256 terms in two orders differ by
-        # more than 1e-4 here (the plain version is that far from its own
-        # f64 evaluation), so the kernel is held against the f64
-        # evaluation: no further from it than the plain f32 version is,
-        # give or take F32_MARGIN
-        f32_ssd = args
-        y64, s64 = sops.ssd_ref(*(v.double() for v in args), sp["chunk"])
-        errs64 = {}
-        for what, got, plain, exact in (("y", y, yr, y64),
-                                        ("state", st, sr, s64)):
-            check(bool(torch.isfinite(got).all()), f"ssd f32 {what} finite")
-            k, pl = max_err(got, exact), max_err(plain, exact)
-            check(k <= F32_MARGIN * pl, f"ssd f32 {what} at the path shape "
-                  f"is {k} from its f64 evaluation, the plain version {pl}")
-            errs64[what] = dict(kernel_vs_plain=max_err(got, plain),
-                                kernel_vs_f64=k, plain_vs_f64=pl)
-        path_errs[dname] = errs64
-        del y64, s64
-    ssd_err = path_errs["bfloat16"]["y"]
-    emit("ssd_vs_plain", cases=errs, path_shape=dict(sp),
-         path_max_abs_err=path_errs, tol=SSD_TOL,
+    def ssd_at(sp, what):
+        """Both routes at a serving shape -> (errors, bf16 args, f32
+        args).  bf16 at SSD_TOL (and, where |y| < 1, each route's
+        distance from the f64 evaluation); f32: sums of 256 terms in two
+        orders differ by more than 1e-4 here (the plain version is that
+        far from its own f64 evaluation), so the kernel is held against
+        the f64 evaluation: no further from it than the plain f32 version
+        is, give or take F32_MARGIN."""
+        out, kept = {}, {}
+        for dname, dtype in dtypes.items():
+            args = ssd_inputs(torch, gen, sp["b"], sp["t"], sp["h"], sp["p"],
+                              sp["n"], dtype, dev)
+            kept[dname] = args
+            y, st = sops.ssd_scan(*args, chunk=sp["chunk"])
+            yr, sr = sops.ssd_ref(*args, sp["chunk"])
+            y64, s64 = sops.ssd_ref(*(v.double() for v in args), sp["chunk"])
+            if dname == "bfloat16":
+                # outputs near 0 sum terms that cancel: the kernel's and
+                # the plain version's distance from f64 there
+                small = y64.abs() < 1
+                out[dname] = dict(
+                    y=check_close(torch, y, yr, SSD_TOL[dname],
+                                  f"ssd {dname} y at {what}"),
+                    state=check_close(torch, st, sr, SSD_TOL[dname],
+                                      f"ssd {dname} state at {what}"),
+                    near_zero_vs_f64={
+                        name: float((v.double() - y64).abs()[small].max())
+                        for name, v in (("kernel", y), ("plain", yr))})
+                continue
+            errs64 = {}
+            for part, got, plain, exact in (("y", y, yr, y64),
+                                            ("state", st, sr, s64)):
+                check(bool(torch.isfinite(got).all()),
+                      f"ssd f32 {part} finite")
+                k, pl = max_err(got, exact), max_err(plain, exact)
+                check(k <= F32_MARGIN * pl, f"ssd f32 {part} at {what} is "
+                      f"{k} from its f64 evaluation, the plain version {pl}")
+                errs64[part] = dict(kernel_vs_plain=max_err(got, plain),
+                                    kernel_vs_f64=k, plain_vs_f64=pl)
+            out[dname] = errs64
+        return out, kept["bfloat16"], kept["float32"]
+
+    path_errs, ssd_args, f32_ssd = ssd_at(SSD_PATH, "the path shape")
+    fam_ssd_errs, fam_ssd = {}, {}
+    for arch, sh in FAMILY_SSD.items():
+        fam_ssd_errs[arch], fam_ssd[arch], _ = ssd_at(sh, f"{arch}'s shape")
+    ssd_err = max(path_errs["bfloat16"]["y"],
+                  *(e["bfloat16"]["y"] for e in fam_ssd_errs.values()))
+    emit("ssd_vs_plain", cases=errs, path_shape=dict(SSD_PATH),
+         path_max_abs_err=path_errs, families_shapes=FAMILY_SSD,
+         families_max_abs_err=fam_ssd_errs, tol=SSD_TOL,
          seconds=round(time.perf_counter() - t0, 3))
-    del y, st, yr, sr
 
     # ---- the card against the CPU, full width, depth 2, f32 ----------------
     t0 = time.perf_counter()
@@ -3002,33 +3442,13 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
               f"{arch}: the first token differs between two runs")
         _, caches = model.prefill(tokens)
         tok = toks2[:, :1].to(dev)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            for i in range(DECODE_PROFILE_STEPS):
-                _, caches = model.decode_step(caches, tok, prompt + i)
-            torch.cuda.synchronize()
-            decode_wall_s = time.perf_counter() - t1
-        events = device_rows(prof)
-        busy_s = sum(device_us(e) for e in events) / 1e6
         serve_rows[arch] = dict(
             launches=counts, accuracy=accuracy, f32_tol=CARD_VS_CPU["tol"],
             prefill_ms=1e3 * stats["prefill_s"],
             decode_ms_per_token=1e3 * stats["decode_s"] / SERVE["gen"],
             tokens_per_s=SERVE["batch"] * SERVE["gen"] / stats["decode_s"],
             peak_memory_gb=peak / 1e9, sample=toks[0, :8].tolist(),
-            decode_profile=dict(
-                steps=DECODE_PROFILE_STEPS, wall_s=decode_wall_s,
-                device_busy_s=busy_s if busy_s > 0 else None,
-                device_idle_share=(1 - busy_s / decode_wall_s)
-                if busy_s > 0 else None,
-                device_launches_per_token=sum(e.count for e in events)
-                / DECODE_PROFILE_STEPS if busy_s > 0 else None,
-                top_device_us_per_token={
-                    e.key[:60]: device_us(e) / DECODE_PROFILE_STEPS
-                    for e in sorted(events, key=device_us,
-                                    reverse=True)[:6]}))
+            decode_profile=decode_profile(torch, model, caches, tok, prompt))
         emit("serve", arch=arch, **serve_rows[arch],
              batch=SERVE["batch"], prompt=prompt, gen=SERVE["gen"],
              compute_dtype="bfloat16", nvidia_smi=smi,
@@ -3133,6 +3553,44 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
                  "enable_gqa=True), global layers",
          **gemma_rows)
 
+    # the families' prefill shapes, bf16 (the serving dtype): device ms per
+    # call (graph replay), CUDA-event ms, plain ms and the bound, SDPA beside
+    # flash attention
+    fam_timing = {}
+    for arch, (q, k, v) in fam_flash.items():
+        b_ = flash_bound(torch, q, k, v)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fam_timing[f"flash_attention {arch}"] = dict(
+            shape=list(q.shape), kv_heads=FAMILY_FLASH[arch]["kv"],
+            ms=ablate.graph_ms(lambda: flash_call(q, k, v),
+                               samples=LM_TIMING_SAMPLES),
+            events_ms=time_ms(torch, lambda: flash_call(q, k, v),
+                              LM_TIMING_SAMPLES, 5),
+            plain_ms=time_ms(torch, lambda: fops.flash_attention_plain(
+                q, k, v, causal=True), LM_TIMING_SAMPLES, 2),
+            bound_ms=b_[0], bound_by=b_[1], bytes=b_[2], flops=b_[3],
+            library_ms=time_ms(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+                LM_TIMING_SAMPLES, 5))
+        del qt, kt, vt
+    for arch, args in fam_ssd.items():
+        chunk = FAMILY_SSD[arch]["chunk"]
+        b_ = ssd_bound(*args, chunk)
+        fam_timing[f"ssd_scan {arch}"] = dict(
+            shape=dict(FAMILY_SSD[arch]),
+            ms=ablate.graph_ms(lambda: sops.ssd_scan(*args, chunk=chunk),
+                               samples=LM_TIMING_SAMPLES),
+            events_ms=time_ms(torch, lambda: sops.ssd_scan(*args,
+                                                           chunk=chunk),
+                              LM_TIMING_SAMPLES, 5),
+            plain_ms=time_ms(torch, lambda: sops.ssd_ref(*args, chunk),
+                             LM_TIMING_SAMPLES, 2),
+            bound_ms=b_[0], bound_by=b_[1], bytes=b_[2], flops=b_[3],
+            library_ms=None)
+    emit("lm_timing_families", nvidia_smi=smi, samples=LM_TIMING_SAMPLES,
+         dtype="bfloat16", library="scaled_dot_product_attention("
+         "is_causal=True, enable_gqa=True)", **fam_timing)
+
     # ---- profile: device time per wrapper call, decode idle share ----------
     gw = gp["window"]
     calls = {"flash_attention_bf16": lambda: flash_call(fq, fk, fv),
@@ -3185,6 +3643,8 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
                      **gemma_rows[d][layer])
                     for d in ("bfloat16", "float32")
                     for layer in ("global", "local")}),
+             families={a: row for a, row in fam_timing.items()
+                       if a.startswith("flash_attention")},
              routes={"bfloat16": "cuda, wgmma + TMA: flash_attention_bf16.cu",
                      "float32": "cuda, CUDA-core FMA: flash_attention.cu"}),
         dict(name="ssd_scan", route="cuda",
@@ -3196,8 +3656,10 @@ def lm_phases(torch, dev, smi, fops, sops, serve):
              events_ms=ssd_ms,
              plain_ms=ssd_plain_ms, bound_ms=s_bound[0], bound_by=s_bound[1],
              library_ms=None,
-             routes={"bfloat16": "cuda, mma.sync bf16 + TF32, four kernels: "
-                                 "ssd_scan_bf16.cu",
+             families={a: row for a, row in fam_timing.items()
+                       if a.startswith("ssd_scan")},
+             routes={"bfloat16": "cuda, mma.sync bf16 + split TF32, four "
+                                 "kernels: ssd_scan_bf16.cu",
                      "float32": "cuda, CUDA-core FMA: ssd_scan.cu"})]
 
 
@@ -3530,6 +3992,258 @@ def train_phase(torch, dev, smi, fops, sops) -> None:
          seconds=round(time.perf_counter() - t0, 3))
 
 
+# ---------------------------------------------------------------------------
+# the model families: MLA, the encoder-decoder, MoE and the hybrid
+# ---------------------------------------------------------------------------
+
+def families_parity_rows(torch, dev) -> dict:
+    """The numbers REFERENCE_FAMILIES holds, from the port on `dev` (it
+    runs on the CPU too): each family's smoke config at float32 compute
+    holding `train_smoke_params`, prefill and two decode steps on
+    `family_inputs`, then one step of the train driver's loop."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+
+    fs = FAMILIES_SMOKE
+    rows = {}
+    for arch in FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  compute_dtype=torch.float32)
+        model = train_smoke_model(torch, Model, cfg, dev)
+        toks, frames, steps = family_inputs(cfg)
+        logits, caches = model.prefill(
+            torch.from_numpy(toks).to(dev),
+            None if frames is None else torch.from_numpy(frames).to(dev))
+        out = [logits_summary(logits.float().cpu().numpy())]
+        for i in range(fs["decode"]):
+            logits, caches = model.decode_step(
+                caches, torch.from_numpy(steps[i]).to(dev), fs["prompt"] + i)
+            out.append(logits_summary(logits[:, -1].float().cpu().numpy()))
+        rec = train.run(train.parse_args(
+            ["--arch", arch, "--smoke", "--steps", "1", "--batch",
+             str(fs["train_batch"]), "--seq", str(fs["train_seq"]), "--seed",
+             str(fs["seed"]), "--log-every", "100"]), model=model)[0]
+        rows[arch] = dict(prefill=out[0], decode=out[1:], loss=rec["loss"],
+                          grad_norm=rec["grad_norm"])
+    return rows
+
+
+def host_waits(torch, fn) -> int:
+    """Times the host waits for the card while `fn()` runs, as the
+    simulator's sync watch (`simulator.log_ops`) marks them."""
+    from repro_torch.core.simulator import log_ops
+    torch.cuda.synchronize()
+    with log_ops({}) as log:
+        fn()
+    return sum(1 for op in log if op.synced)
+
+
+def decode_profile(torch, model, caches, tok, start: int) -> dict:
+    """torch.profiler over DECODE_PROFILE_STEPS decode steps from `caches`:
+    wall s, device busy s, idle share, device launches per token and the
+    top device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(DECODE_PROFILE_STEPS):
+            _, caches = model.decode_step(caches, tok, start + i)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t1
+    events = device_rows(prof)
+    busy_s = sum(device_us(e) for e in events) / 1e6
+    return dict(
+        steps=DECODE_PROFILE_STEPS, wall_s=wall_s,
+        device_busy_s=busy_s if busy_s > 0 else None,
+        device_idle_share=(1 - busy_s / wall_s) if busy_s > 0 else None,
+        device_launches_per_token=sum(e.count for e in events)
+        / DECODE_PROFILE_STEPS if busy_s > 0 else None,
+        top_device_us_per_token={
+            e.key[:60]: device_us(e) / DECODE_PROFILE_STEPS
+            for e in sorted(events, key=device_us, reverse=True)[:6]})
+
+
+def families_phase(torch, dev, smi, fops, sops, serve) -> dict:
+    """The families' phases: `families_parity`, `moe_vs_plain`,
+    `families_kernel_vs_plain` (with the card against the CPU) and
+    `families_serve`.  Returns the serving runs' flash and SSD launches
+    per config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+
+    # ---- (a) the smoke configs against the JAX table -----------------------
+    t0 = time.perf_counter()
+    rows = families_parity_rows(torch, dev)
+    errs = {}
+    for arch, row in rows.items():
+        got, want = numbers(row), numbers(REFERENCE_FAMILIES[arch])
+        check(len(got) == len(want) and all(
+            close(g, w, FAMILIES_TOL) for g, w in zip(got, want)),
+            f"families_parity {arch}: {row} != JAX {REFERENCE_FAMILIES[arch]}")
+        errs[arch] = max(abs(g - w) for g, w in zip(got, want))
+    emit("families_parity", compute_dtype="float32", max_abs_err=errs,
+         tol=FAMILIES_TOL, loss={a: r["loss"] for a, r in rows.items()},
+         grad_norm={a: r["grad_norm"] for a, r in rows.items()},
+         seconds=round(time.perf_counter() - t0, 3))
+
+    # ---- (b) the card's grouped MoE product against the per-expert loop ----
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(20)
+    moe_rows = {}
+    for arch in MOE_CHECK:
+        cfg = get_config(arch)
+        params = {k: v.to(bf16) for k, v in L.init_moe(gen, cfg,
+                                                       bf16).items()}
+        row = {}
+        for label, t in (("prefill", SERVE["prompt"]), ("decode", 1)):
+            x = torch.randn((SERVE["batch"], t, cfg.d_model), generator=gen,
+                            device=dev).to(bf16)
+            check(L.moe_route(x) == "grouped", f"{arch}: bf16 on the card "
+                  f"takes route {L.moe_route(x)}")
+            run = {route: (lambda route=route: L.moe_ragged(
+                params, x, cfg, route=route)) for route in ("grouped",
+                                                            "loop")}
+            (yg, ag), (yl, al) = run["grouped"](), run["loop"]()
+            check(float(ag) == float(al), f"{arch} {label}: aux {ag} {al}")
+            row[label] = dict(
+                tokens=SERVE["batch"] * t,
+                max_abs_err=check_close(torch, yg, yl, MOE_TOL,
+                                        f"moe {arch} {label}"),
+                grouped_ms=time_ms(torch, run["grouped"], LM_TIMING_SAMPLES,
+                                   2),
+                loop_ms=time_ms(torch, run["loop"], LM_TIMING_SAMPLES, 2),
+                host_waits={route: host_waits(torch, fn)
+                            for route, fn in run.items()})
+        moe_rows[arch] = dict(experts=cfg.n_experts, top_k=cfg.top_k,
+                              d_model=cfg.d_model, d_ff=cfg.d_ff, **row)
+        del params, run, x, yg, yl
+        torch.cuda.empty_cache()
+    emit("moe_vs_plain", nvidia_smi=smi, tol=MOE_TOL, dtype="bfloat16",
+         routes={"grouped": "torch._grouped_mm, offsets on the card",
+                 "loop": "torch.matmul per expert segment"},
+         layers=moe_rows, seconds=round(time.perf_counter() - t0, 3))
+
+    # ---- (c) kernel against plain at f32, the card against the CPU ---------
+    t0 = time.perf_counter()
+    cvc = CARD_VS_CPU
+    kvp = {}
+    for arch in FAMILY_LAUNCHES:
+        base = get_config(arch)
+        depth = FAMILY_KVP_DEPTH.get(arch, cvc["depth"])
+        cfg = dataclasses.replace(
+            base, n_layers=depth, n_enc_layers=min(base.n_enc_layers, depth),
+            compute_dtype=torch.float32, use_flash_kernel=True,
+            use_ssd_kernel=True)
+        on_cpu = arch in FAMILY_CARD_VS_CPU
+        if on_cpu:
+            cpu_model = Model(cfg).init(torch.Generator().manual_seed(0))
+            card = copy.deepcopy(cpu_model).to(dev)
+        else:
+            card = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        toks, frames = serve.inputs(cfg, cvc["batch"], cvc["prompt"], 1)
+        steps = torch.from_numpy(serve.prompts(
+            cfg, cvc["decode"] * cvc["batch"], 1, 2)).view(
+                cvc["decode"], cvc["batch"], 1)
+
+        def run(model, device, kernels):
+            model.cfg = dataclasses.replace(model.cfg,
+                                            use_flash_kernel=kernels,
+                                            use_ssd_kernel=kernels)
+            logits, caches = model.prefill(
+                torch.from_numpy(toks).to(device),
+                None if frames is None else torch.from_numpy(frames).to(
+                    device))
+            outs = [logits.cpu()]
+            for i in range(cvc["decode"]):
+                logits, caches = model.decode_step(
+                    caches, steps[i].to(device), cvc["prompt"] + i)
+                outs.append(logits[:, -1].cpu())
+            return outs
+
+        before = (fops.flash_attention.launches, sops.ssd_scan.launches)
+        kern = run(card, dev, True)
+        launched = (fops.flash_attention.launches - before[0],
+                    sops.ssd_scan.launches - before[1])
+        specs = cfg.layer_specs()
+        want = (sum(sp["kind"] == "attn" for sp in specs),
+                sum(sp["kind"] == "mamba" for sp in specs))
+        check(launched == want, f"{arch} depth {depth}: (flash, SSD) "
+              f"launches {launched}, not {want}")
+        plain = run(card, dev, False)
+        row = dict(depth=depth, launches=dict(zip(("flash_attention",
+                                                   "ssd_scan"), launched)),
+                   kernel_vs_plain=[check_close(
+                       torch, a, b, cvc["tol"], f"{arch} kernel vs plain "
+                       f"step {i}") for i, (a, b) in enumerate(zip(kern,
+                                                                  plain))])
+        if on_cpu:
+            cpu = run(cpu_model, torch.device("cpu"), True)
+            row["kernel_vs_cpu"] = [check_close(
+                torch, a, b, cvc["tol"], f"{arch} card vs cpu step {i}")
+                for i, (a, b) in enumerate(zip(kern, cpu))]
+            del cpu_model
+        kvp[arch] = row
+        del card
+        torch.cuda.empty_cache()
+    emit("families_kernel_vs_plain", compute_dtype="float32",
+         batch=cvc["batch"], prompt=cvc["prompt"],
+         decode_steps=cvc["decode"], tol=cvc["tol"], archs=kvp,
+         seconds=round(time.perf_counter() - t0, 3))
+
+    # ---- (d) serving, full width, bf16 -------------------------------------
+    launches = {}
+    for arch, depth in FAMILY_SERVE_DEPTH.items():
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=depth or base.n_layers,
+                                  use_flash_kernel=True, use_ssd_kernel=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        toks, frames = serve.inputs(cfg, SERVE["batch"], SERVE["prompt"], 0)
+        tokens = torch.from_numpy(toks).to(dev)
+        frames = None if frames is None else torch.from_numpy(frames).to(dev)
+        model.prefill(tokens, frames)             # warm-up: the bf16 copy
+        torch.cuda.synchronize()
+        fops.flash_attention.launches = 0
+        sops.ssd_scan.launches = 0
+        out, stats = serve.generate(model, tokens, SERVE["gen"], frames)
+        counts = (fops.flash_attention.launches, sops.ssd_scan.launches)
+        launches[arch] = counts
+        check(counts == FAMILY_LAUNCHES[arch], f"{arch}: (flash, SSD) "
+              f"launches {counts} per prefill, not {FAMILY_LAUNCHES[arch]}")
+        check(tuple(out.shape) == (SERVE["batch"], SERVE["gen"] + 1)
+              and out.dtype == torch.int32 and bool(
+                  ((out >= 0) & (out < cfg.vocab)).all()),
+              f"{arch}: tokens {tuple(out.shape)} {out.dtype}")
+        peak = torch.cuda.max_memory_allocated()
+        _, caches = model.prefill(tokens, frames)
+        tok = out[:, :1].to(dev)
+        waits = host_waits(torch, lambda: model.decode_step(
+            caches, tok, SERVE["prompt"]))
+        emit("families_serve", arch=arch, layers=cfg.n_layers,
+             enc_layers=cfg.n_enc_layers, full_depth=base.n_layers,
+             params=sum(p.numel() for p in model.parameters()),
+             launches=dict(flash_attention=counts[0], ssd_scan=counts[1]),
+             prefill_ms=1e3 * stats["prefill_s"],
+             decode_ms_per_token=1e3 * stats["decode_s"] / SERVE["gen"],
+             tokens_per_s=SERVE["batch"] * SERVE["gen"] / stats["decode_s"],
+             peak_memory_gb=peak / 1e9, decode_host_waits_per_token=waits,
+             decode_profile=decode_profile(torch, model, caches, tok,
+                                           SERVE["prompt"] + 1),
+             sample=out[0, :8].tolist(), batch=SERVE["batch"],
+             prompt=SERVE["prompt"], gen=SERVE["gen"],
+             compute_dtype="bfloat16", nvidia_smi=smi,
+             seconds=round(time.perf_counter() - t0, 3))
+        del model, caches
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3830,6 +4544,9 @@ def main() -> int:
 
     lm_rows = lm_phases(torch, dev, smi, fops, sops, serve)
     train_phase(torch, dev, smi, fops, sops)
+    fam_launches = families_phase(torch, dev, smi, fops, sops, serve)
+    for row, i in zip(lm_rows, (0, 1)):
+        row["launches_families"] = {a: c[i] for a, c in fam_launches.items()}
 
     print(json.dumps({"kernels": [dict(
         name="netstep", route="cuda",

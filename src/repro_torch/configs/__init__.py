@@ -3,10 +3,9 @@
 Each arch module defines CONFIG (the published configuration, field for
 field as in the JAX package, with torch dtypes) and SMOKE (a reduced
 config of the same family for CPU tests).  Every arch's config is here
-as data: the collective workloads size their traffic from any of them.
-`Model` builds the dense GQA and Mamba2 decoders (qwen3-1.7b,
-gemma3-1b, starcoder2-3b, chameleon-34b, mamba2-1.3b); MoE, MLA and the
-encoder-decoder raise (ROADMAP Queue 1).  Shapes follow the assignment:
+as data: the collective workloads size their traffic from any of them,
+and `Model` builds every one (dense GQA, MLA, MoE, Mamba2, the hybrid and
+the encoder-decoder).  Shapes follow the assignment:
 
     train_4k     seq 4096,   global_batch 256   (train_step)
     prefill_32k  seq 32768,  global_batch 32    (serve prefill)

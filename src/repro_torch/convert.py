@@ -61,14 +61,23 @@ def params_from_reference(params: dict, cfg) -> "Model":
     `params` is the reference's *unboxed* parameter tree as numpy arrays
     (`unbox(Model.init(key))[0]` mapped through `np.asarray`): `embed`,
     `final_norm`, `blocks[slot][group][name]` stacked along a leading
-    n_rep axis, and `tail[i][group][name]`.  Block leaves are unstacked
-    into true layer order (layer `rep * len(pattern) + slot`, then the
-    tail).  A missing or unknown leaf, or a shape that differs, raises."""
+    n_rep axis, and `tail[i][group][name]`; an encoder-decoder adds
+    `enc_blocks[group][name]`, one dict stacked along n_enc_layers, and
+    `enc_norm`.  Block leaves are unstacked into true layer order (layer
+    `rep * len(pattern) + slot`, then the tail), encoder leaves into
+    `enc_layers`.  Every group the reference has is carried over as it
+    is (`attn` of MLA, `xattn` / `ln_x`, `moe.{router,wi,wg,wo}` in the
+    virtual-split layout).  A missing or unknown leaf, or a shape that
+    differs, raises."""
     model = Model(cfg).init(torch.Generator().manual_seed(0))
     pat, n_rep, _ = cfg.pattern()
     flat = {}
     for key, val in params.items():
-        if key == "blocks":
+        if key == "enc_blocks":
+            for path, arr in _leaves(val):
+                for i in range(np.shape(arr)[0]):
+                    flat[f"enc_layers.{i}.{path}"] = np.asarray(arr)[i]
+        elif key == "blocks":
             for slot, blk in enumerate(val):
                 for path, arr in _leaves(blk):
                     for rep in range(np.shape(arr)[0]):
@@ -113,6 +122,31 @@ def opt_state_from_reference(state, cfg) -> dict:
     return {"step": torch.tensor(int(np.asarray(fields["step"])),
                                  dtype=torch.int32),
             "m": tree(fields["m"]), "v": tree(fields["v"])}
+
+
+def reference_tree(tree, cfg) -> dict:
+    """A port tree shaped like `Model.param_tree()` (parameters, or AdamW
+    moments) in the JAX package's layout: `blocks[slot]` stacked over the
+    pattern's repetitions, `tail[i]`, and for an encoder-decoder
+    `enc_blocks` stacked over the encoder's layers.  Its leaves are
+    named as the reference names them, so a checkpoint of it reads in
+    either package (`convert.params_from_reference` takes it back as
+    numpy)."""
+    pat, n_rep, tail = cfg.pattern()
+    layers = tree["layers"]
+
+    def stack(group):
+        return T.unflatten(group[0], [torch.stack(ts) for ts in zip(
+            *(T.leaves(g) for g in group))])
+
+    out = {k: v for k, v in tree.items() if k not in ("layers",
+                                                      "enc_layers")}
+    out["blocks"] = [stack(layers[slot:n_rep * len(pat):len(pat)])
+                     for slot in range(len(pat))]
+    out["tail"] = list(layers[n_rep * len(pat):])
+    if "enc_layers" in tree:
+        out["enc_blocks"] = stack(tree["enc_layers"])
+    return out
 
 
 def _leaves(tree, prefix=""):

@@ -36,7 +36,8 @@
 //   3. ssd_state_kernel: per (b, head) the chunks in order, S in
 //      registers: store S as chunk c's incoming state, then
 //      S = exp(cum_last) S + Bᵀ W with W[k] = exp(cum_last - cum_k) dt_k x_k
-//      (TF32 mma.sync m16n8k8, B exact, W rounded to TF32); the last S is
+//      (TF32 mma.sync m16n8k8, B exact, W split into TF32 hi + lo: two
+//      products); the last S is
 //      the final state.  Only this pass is serial over chunks; its
 //      registers are capped so that two blocks share an SM and all
 //      B H blocks of the serving shape run in one wave.
@@ -49,21 +50,27 @@
 //      with L = exp(cum_q - cum_k) taken only where k <= q (above it the
 //      exponent is positive and may overflow) and the mask a select.  So
 //      only the diagonal tile takes an exp per element; the others take
-//      one per row.  All products are TF32 mma.sync.
+//      one per row.  All products are TF32 mma.sync on split operands:
+//      C S_in two per product (C exact, S_in hi + lo), the k tiles three
+//      (hi hi, hi lo, lo hi).
 // Kernels 2-4 stream their tiles with cp.async into a two-stage ring (the
 // next tile lands while this one is multiplied) and apply the operand
-// transforms (bf16 to f32, the decay factors, the TF32 rounding) as they
+// transforms (bf16 to f32, the decay factors, the TF32 split) as they
 // load fragments.  This gives B nc H independent units for the quadratic
 // work (1024 at the serving shape, against 256 blocks walking the chunks
 // before).  Ragged tiles (Q, N or P below a tile) are zero-filled in
 // shared memory and their edges are not stored; rows that are not 16-byte
 // aligned (N or P not a multiple of 8) are staged element by element.
 //
-// Numerics: the products whose operands are f32 intermediates use TF32
-// (10 mantissa bits, round to nearest) and not bf16 (7), so the kernels
-// add no bf16 rounding that the plain path (f32 inside) lacks.  The f32
-// route stays on exact f32 FMAs in ssd_scan.cu, as its 1e-4 tolerance
-// needs.
+// Numerics: every product with an f32 intermediate operand splits it into
+// two TF32 values, hi + lo, and takes the products that matter (hi hi, hi
+// lo, lo hi; lo lo is below f32's rounding): about 21 bits per product,
+// so the kernels add no rounding of note that the plain path (f32 inside)
+// lacks.  With one TF32 operand per product (10 bits), an output near 0,
+// where terms of about 100 cancel, could miss the 3e-2 the route is held
+// to (one of 16.7 M outputs did at the serving shape), and full-depth
+// bf16 serving drifted from the plain path's logits.  The f32 route stays
+// on exact f32 FMAs in ssd_scan.cu, as its 1e-4 tolerance needs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,6 +99,14 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// v as two TF32 operands, hi + lo: the products hi hi, hi lo and lo hi of
+// two split operands keep about 21 bits of each product
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
 }
 
 // a bf16 as a tf32 operand: exact, bf16 keeps 7 of tf32's 10 bits
@@ -355,10 +370,15 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const uint32_t a3 = tf32(s.b[(k8 + tq + 4) * kPitchS + ra + 8]);
         const float f0 = s.fac[k8 + tq], f1 = s.fac[k8 + tq + 4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          mma_tf32(acc[j], a0, a1, a2, a3,
-                   tf32(f0 * f32(s.x[(k8 + tq) * kPitchH + 8 * j + g])),
-                   tf32(f1 * f32(s.x[(k8 + tq + 4) * kPitchH + 8 * j + g])));
+        for (int j = 0; j < 8; ++j) {
+          uint32_t w0, w0l, w1, w1l;   // W split, B exact: two products
+          tf32_split(f0 * f32(s.x[(k8 + tq) * kPitchH + 8 * j + g]), w0,
+                     w0l);
+          tf32_split(f1 * f32(s.x[(k8 + tq + 4) * kPitchH + 8 * j + g]),
+                     w1, w1l);
+          mma_tf32(acc[j], a0, a1, a2, a3, w0l, w1l);
+          mma_tf32(acc[j], a0, a1, a2, a3, w0, w1);
+        }
       }
     }
     __syncthreads();                 // the stage is free again
@@ -481,17 +501,20 @@ ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const uint32_t a2 = tf32(c_s[ra * kPitchC + k8 + tq + 4]);
         const uint32_t a3 = tf32(c_s[(ra + 8) * kPitchC + k8 + tq + 4]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          mma_tf32(acc[j], a0, a1, a2, a3,
-                   tf32(s.b[(k8 + tq) * kPitchB + 8 * j + g]),
-                   tf32(s.b[(k8 + tq + 4) * kPitchB + 8 * j + g]));
+        for (int j = 0; j < 8; ++j) {
+          uint32_t s0, s0l, s1, s1l;   // S_in split, C exact: two products
+          tf32_split(s.b[(k8 + tq) * kPitchB + 8 * j + g], s0, s0l);
+          tf32_split(s.b[(k8 + tq + 4) * kPitchB + 8 * j + g], s1, s1l);
+          mma_tf32(acc[j], a0, a1, a2, a3, s0l, s1l);
+          mma_tf32(acc[j], a0, a1, a2, a3, s0, s1);
+        }
       }
     } else {
       const bf16* x_s = reinterpret_cast<const bf16*>(s.b);
       const int k0 = (st - n_steps) * kT;
 #pragma unroll
       for (int k8 = 0; k8 < kT; k8 += 8) {
-        uint32_t a[4];
+        uint32_t a[4], al[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = ra + 8 * (e & 1), kk = k8 + tq + 4 * (e / 2);
@@ -500,14 +523,20 @@ ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
             const bool keep = q0 + r < chunk && k0 + kk <= q0 + r;
             v = keep ? v * expf(cq[e & 1] - s.ck[kk]) : 0.f;
           }
-          a[e] = tf32(v);
+          tf32_split(v, a[e], al[e]);
         }
         const float f0 = s.fk[k8 + tq], f1 = s.fk[k8 + tq + 4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          mma_tf32(acc[j], a[0], a[1], a[2], a[3],
-                   tf32(f0 * f32(x_s[(k8 + tq) * kPitchH + 8 * j + g])),
-                   tf32(f1 * f32(x_s[(k8 + tq + 4) * kPitchH + 8 * j + g])));
+        for (int j = 0; j < 8; ++j) {
+          uint32_t b0, b0l, b1, b1l;   // both split: three products
+          tf32_split(f0 * f32(x_s[(k8 + tq) * kPitchH + 8 * j + g]), b0,
+                     b0l);
+          tf32_split(f1 * f32(x_s[(k8 + tq + 4) * kPitchH + 8 * j + g]),
+                     b1, b1l);
+          mma_tf32(acc[j], al[0], al[1], al[2], al[3], b0, b1);
+          mma_tf32(acc[j], a[0], a[1], a[2], a[3], b0l, b1l);
+          mma_tf32(acc[j], a[0], a[1], a[2], a[3], b0, b1);
+        }
       }
     }
     __syncthreads();                 // the stage is free again

@@ -7,8 +7,9 @@ chosen by dtype, never by failure:
 
   bfloat16  `csrc/ssd_scan_bf16.cu`: four kernels (cumsum, C Bᵀ once per
             chunk, the chunk states passed along the chunks, the
-            chunk-parallel output) with bf16 and TF32 tensor-core
-            products; any chunk size; float32 scratch allocated here
+            chunk-parallel output) with bf16 tensor-core products, and
+            TF32 ones on f32 operands split into hi + lo (about 21
+            bits); any chunk size; float32 scratch allocated here
   float32   `csrc/ssd_scan.cu`: one block per (head, batch) walking the
             chunks, exact float32 FMAs (the 1e-4 tolerance float32 is held
             to); chunk <= 32 or a multiple of 32, and its shared memory

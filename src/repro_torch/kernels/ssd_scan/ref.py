@@ -90,16 +90,7 @@ def ssd_naive(x, dt, a, b_mat, c_mat):
     return torch.stack(ys, dim=1).to(x.dtype), s
 
 
-def tf32_truncate(v):
-    """float32 with the 13 low mantissa bits cleared: the TF32 operand the
-    tensor cores read (truncated; the kernel rounds to nearest, which is
-    never further off)."""
-    return (v.float().contiguous().view(torch.int32) & -8192).view(
-        torch.float32)
-
-
-def ssd_decomposed(x, dt, a, b_mat, c_mat, chunk: int, *, roundings=False,
-                   tile: int = 64):
+def ssd_decomposed(x, dt, a, b_mat, c_mat, chunk: int, *, tile: int = 64):
     """The SSD scan pass for pass as `csrc/ssd_scan_bf16.cu` computes it:
     chunk cumsum; C Bᵀ once per (batch, chunk); the chunks' states passed
     in order, S = exp(cum_last) S + Bᵀ W; and the output per 64-row q
@@ -108,9 +99,9 @@ def ssd_decomposed(x, dt, a, b_mat, c_mat, chunk: int, *, roundings=False,
             + (C Bᵀ ∘ L)(dt x),
     the first sum over the k tiles below the q tile, the second over its
     diagonal tile, L = exp(cum_q - cum_k) only where k <= q (a select).
-    With `roundings` the products take the kernel's operands: C and B in
-    bf16 for C Bᵀ, and the f32 operands of the other products (C Bᵀ and
-    its masked scores, the weighted x, the incoming state) in TF32.
+    The kernel's products take bf16 C and B (exact) and split every f32
+    operand into two TF32 values, about 21 bits per product: float32
+    here.
     Returns (y in x's dtype, final state float32)."""
     bsz, t, h, p = x.shape
     n = b_mat.shape[-1]
@@ -118,13 +109,10 @@ def ssd_decomposed(x, dt, a, b_mat, c_mat, chunk: int, *, roundings=False,
     nc = t // q
     if t % q:
         raise ValueError(f"T={t} must be a multiple of chunk={q}")
-    mm = tf32_truncate if roundings else (lambda v: v)
     xr = x.reshape(bsz, nc, q, h, p).float()
     dtr = dt.reshape(bsz, nc, q, h)
     br = b_mat.reshape(bsz, nc, q, n)
     cr = c_mat.reshape(bsz, nc, q, n)
-    if roundings:
-        br, cr = br.to(torch.bfloat16), cr.to(torch.bfloat16)
     br, cr = br.float(), cr.float()
 
     # 1. cumsum of dt * a per (b, chunk, head)
@@ -133,14 +121,14 @@ def ssd_decomposed(x, dt, a, b_mat, c_mat, chunk: int, *, roundings=False,
     cb = torch.einsum("bcqn,bckn->bcqk", cr, br)
     # 3. the chunks in order: S_in(c) = S, S = exp(cum_last) S + Bᵀ W
     last = cum[:, :, -1:, :]
-    w = mm((torch.exp(last - cum) * dtr)[..., None] * xr)
+    w = (torch.exp(last - cum) * dtr)[..., None] * xr
     s = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
     s_in = []
     for c in range(nc):
         s_in.append(s)
         s = s * torch.exp(last[:, c, 0])[:, :, None, None] + torch.einsum(
             "bkn,bkhp->bhnp", br[:, c], w[:, c])
-    s_in = mm(torch.stack(s_in, dim=1))                      # [B,nc,H,N,P]
+    s_in = torch.stack(s_in, dim=1)                          # [B,nc,H,N,P]
     # 4. the output, one q tile at a time
     dtx = dtr[..., None] * xr                                # [B,nc,Q,H,P]
     ys = []
@@ -153,7 +141,7 @@ def ssd_decomposed(x, dt, a, b_mat, c_mat, chunk: int, *, roundings=False,
         if q0:
             below = torch.exp(m - cum[:, :, :q0])[..., None] * dtx[:, :, :q0]
             yt = yt + torch.einsum("bcqk,bckhp->bcqhp",
-                                   mm(cb[:, :, q0:q1, :q0]), mm(below))
+                                   cb[:, :, q0:q1, :q0], below)
         yt = yt * torch.exp(cq - m)[..., None]
         qp = torch.arange(q0, q1, device=x.device)[:, None]
         keep = (torch.arange(q0, q1, device=x.device)[None, :] <= qp)
@@ -162,8 +150,7 @@ def ssd_decomposed(x, dt, a, b_mat, c_mat, chunk: int, *, roundings=False,
         g = torch.where(keep, cb[:, :, q0:q1, q0:q1, None] *
                         torch.exp(torch.where(keep, seg, 0.0)),
                         torch.zeros((), device=x.device))
-        yt = yt + torch.einsum("bcqkh,bckhp->bcqhp", mm(g),
-                               mm(dtx[:, :, q0:q1]))
+        yt = yt + torch.einsum("bcqkh,bckhp->bcqhp", g, dtx[:, :, q0:q1])
         ys.append(yt)
     y = torch.cat(ys, dim=2)
     return y.reshape(bsz, t, h, p).to(x.dtype), s

@@ -3,16 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
-`--arch` names any decoder arch `Model` builds: the serving path is
-held against the JAX package for qwen3-1.7b, gemma3-1b (hd 256, 5 local
-: 1 global sliding-window layers) and mamba2-1.3b; MoE, MLA and
-encoder-decoder archs raise.  Runs on the CUDA card unless `--device
-cpu` is given (without a card and without it, it raises).  The flash-attention and SSD-scan kernels are
-switched on, so on the card prefill goes through both; on the CPU their
-wrappers compute the plain versions.  Parameters come from `Model.init`
-with a `torch.Generator` seeded by `--seed` on the run's device; prompts
-come from numpy, as in the JAX package's driver, so they are the same
-on every device.
+`--arch` names any of the ten archs (`configs.ARCHS`): dense GQA, MLA,
+MoE, Mamba2, the attention:SSM hybrid and the encoder-decoder, each held
+against the JAX package by the CPU tests.  Runs on the CUDA card unless
+`--device cpu` is given (without a card and without it, it raises).
+The flash-attention and SSD-scan kernels are switched on, so on the
+card prefill goes through both where a layer dispatches to them; on the
+CPU their wrappers compute the plain versions.  Parameters come from
+`Model.init` with a `torch.Generator` seeded by `--seed` on the run's
+device; prompts, and an encoder-decoder's frames (normal(0, 0.02)
+[batch, prompt, d_model], drawn right after the prompts from the same
+generator), come from numpy, as in the JAX package's driver, so they
+are the same on every device.
 """
 from __future__ import annotations
 
@@ -38,21 +40,33 @@ def load_model(arch: str, *, smoke: bool = False, seed: int = 0,
     return Model(cfg).init(torch.Generator(device=dev).manual_seed(seed))
 
 
+def inputs(cfg, batch: int, prompt_len: int, seed: int):
+    """(prompts [batch, prompt_len] int64, frames [batch, prompt_len,
+    d_model] float32 for an encoder-decoder, else None), drawn as the
+    JAX package's driver draws them."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64)
+    frames = None
+    if cfg.arch_kind == "encdec":
+        frames = rng.normal(0, 0.02, (batch, prompt_len, cfg.d_model)
+                            ).astype(np.float32)
+    return tokens, frames
+
+
 def prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
-    return np.random.default_rng(seed).integers(
-        0, cfg.vocab, (batch, prompt_len)).astype(np.int64)
+    return inputs(cfg, batch, prompt_len, seed)[0]
 
 
-def generate(model: Model, tokens: torch.Tensor, gen: int):
-    """Prefill `tokens` [B, T], then decode `gen` tokens greedily.
-    Returns (tokens [B, gen + 1] int32 on the CPU, stats) where stats
-    holds the prefill and decode wall seconds, each ending in a device
-    synchronisation."""
+def generate(model: Model, tokens: torch.Tensor, gen: int, frames=None):
+    """Prefill `tokens` [B, T] (and an encoder-decoder's `frames` [B, T,
+    D]), then decode `gen` tokens greedily.  Returns (tokens [B, gen + 1]
+    int32 on the CPU, stats) where stats holds the prefill and decode
+    wall seconds, each ending in a device synchronisation."""
     dev = model.device
     t = tokens.shape[1]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(tokens)
+    logits, caches = model.prefill(tokens, frames)
     sync()
     prefill_s = time.perf_counter() - t0
 
@@ -86,9 +100,11 @@ def main(argv=None):
     model = load_model(args.arch, smoke=args.smoke, seed=args.seed,
                        device=args.device)
     b, t = args.batch, args.prompt_len
-    tokens = torch.from_numpy(prompts(model.cfg, b, t, args.seed)).to(
-        model.device)
-    toks, stats = generate(model, tokens, args.gen)
+    tokens, frames = inputs(model.cfg, b, t, args.seed)
+    tokens = torch.from_numpy(tokens).to(model.device)
+    if frames is not None:
+        frames = torch.from_numpy(frames).to(model.device)
+    toks, stats = generate(model, tokens, args.gen, frames)
     dt = stats["decode_s"]
     print(f"[serve] {model.cfg.name} on {model.device}: prefill {b}x{t}: "
           f"{stats['prefill_s'] * 1e3:.0f}ms")

@@ -87,7 +87,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
 
 def make_prefill_step(model: Model):
     def prefill_step(batch):
-        return model.prefill(batch["tokens"])
+        return model.prefill(batch["tokens"], batch.get("frames"))
     return prefill_step
 
 

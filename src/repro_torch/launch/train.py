@@ -5,9 +5,10 @@
         [--device cpu]
 
 The JAX package's driver (`repro/launch/train.py`) with the same flags,
-plus `--device`: synthetic data pipeline, AdamW with warmup-cosine,
-microbatch accumulation, async checkpointing with resume, step watchdog
-(straggler flagging) and heartbeat.  It runs on the CUDA card unless
+plus `--device`: synthetic data pipeline (and an encoder-decoder's
+frames, drawn per step as the reference draws them), AdamW with
+warmup-cosine, microbatch accumulation, async checkpointing with
+resume, step watchdog (straggler flagging) and heartbeat.  It runs on the CUDA card unless
 `--device cpu` is given (without a card and without it, it raises).
 `--smoke` selects the reduced config.  The model is built from
 `get_config` as the config has it (bf16 compute, `remat="full"`, the
@@ -77,6 +78,15 @@ def build_model(args) -> Model:
     return Model(cfg).init(torch.Generator(device=dev).manual_seed(args.seed))
 
 
+def frames(cfg, args, step: int) -> torch.Tensor:
+    """An encoder-decoder's frame embeddings for `step`: normal(0, 0.02)
+    [batch, seq, d_model] float32 from a numpy generator seeded by the
+    step, as the JAX package's driver draws them."""
+    rng = np.random.default_rng(step)
+    return torch.from_numpy(rng.normal(
+        0, 0.02, (args.batch, args.seq, cfg.d_model)).astype(np.float32))
+
+
 def run(args, model: Model | None = None) -> list:
     """Train as `args` say, on `model` when one is given (else
     `build_model(args)`).  Returns one record per step taken: {step,
@@ -124,6 +134,8 @@ def run(args, model: Model | None = None) -> list:
         for step in range(start, args.steps):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in data.batch(step).items()}
+            if cfg.arch_kind == "encdec":
+                batch["frames"] = frames(cfg, args, step).to(dev)
             t0 = time.perf_counter()
             loss, gnorm = step_fn(opt_state, batch)
             loss = float(loss)

@@ -340,6 +340,22 @@ def test_flash_f32_kernel_matches_plain_at_serving_shape(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd", [(16, 16, 64), (64, 4, 128)])
+def test_flash_kernel_matches_plain_at_families_shapes(cuda, h, kv, hd,
+                                                       dtype):
+    """seamless-m4t-medium's decoder (hd 64, 16 q heads over 16 kv heads)
+    and qwen3-moe-235b-a22b (a GQA group of 16) at prompt 1024, batch 2."""
+    rng = np.random.default_rng(17)
+    q = _randn(rng, (2, 1024, h, hd), dtype, cuda)
+    k = _randn(rng, (2, 1024, kv, hd), dtype, cuda)
+    v = _randn(rng, (2, 1024, kv, hd), dtype, cuda)
+    got = fops.flash_attention(q, k, v, causal=True)
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_at_gemma3_shape(cuda, dtype):
     """gemma3-1b's prefill at batch 1: 4 q heads over 1 kv head of 256,
     prompt 2048, causal, global (no window) and local (window 1024)."""
@@ -444,11 +460,13 @@ def test_ssd_bf16_kernel_stays_finite_under_strong_decay(cuda):
 
 @pytest.mark.parametrize("b,t,h,p,n,chunk", [
     (1, 96, 2, 8, 8, 48), (2, 16, 4, 16, 16, 8), (2, 40, 3, 12, 20, 20),
-    (1, 320, 2, 72, 136, 160), (4, 1024, 64, 64, 128, 256)])
+    (1, 320, 2, 72, 136, 160), (4, 1024, 64, 64, 128, 256),
+    (4, 1024, 128, 64, 64, 256)])
 def test_ssd_bf16_kernel_takes_any_chunk(cuda, b, t, h, p, n, chunk):
     """The tensor-core route tiles Q, P and N itself (zero-filled ragged
     tiles): chunks that are no multiple of 32, the smoke config (P 16,
-    chunk 8), P and N past one tile, and mamba2-1.3b's prefill shape."""
+    chunk 8), P and N past one tile, and mamba2-1.3b's and
+    jamba-v0.1-52b's prefill shapes."""
     args = _ssd_inputs(np.random.default_rng(13), b, t, h, p, n,
                        torch.bfloat16, cuda)
     before = sops.ssd_scan.launches
@@ -457,6 +475,23 @@ def test_ssd_bf16_kernel_takes_any_chunk(cuda, b, t, h, p, n, chunk):
     yr, sr = sops.ssd_ref(*args, chunk)
     torch.testing.assert_close(y.float(), yr.float(), atol=3e-2, rtol=3e-2)
     torch.testing.assert_close(s, sr, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", [(4, 1024, 64, 64, 128, 256),
+                                           (4, 1024, 128, 64, 64, 256)])
+def test_ssd_bf16_kernel_keeps_outputs_near_zero(cuda, b, t, h, p, n, chunk):
+    """At the serving shapes an output near 0 sums terms of about 100 that
+    cancel.  With plain TF32 operands such an output could miss the
+    route's 3e-2 against the plain version; with every f32 operand split
+    into TF32 hi + lo the kernel stays within 0.02 of the f64 value (the
+    plain bf16 path: about 0.002)."""
+    args = _ssd_inputs(np.random.default_rng(23), b, t, h, p, n,
+                       torch.bfloat16, cuda)
+    y, _ = sops.ssd_scan(*args, chunk=chunk)
+    y64, _ = sops.ssd_ref(*(v.double() for v in args), chunk)
+    small = y64.abs() < 1
+    assert int(small.sum()) > 10_000
+    assert float((y.double() - y64).abs()[small].max()) <= 0.02
 
 
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
@@ -485,24 +520,30 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("arch,t,flash,ssd", [
-    ("qwen3-1.7b", 128, 2, 0), ("mamba2-1.3b", 16, 0, 2)])
+    ("qwen3-1.7b", 128, 2, 0), ("mamba2-1.3b", 16, 0, 2),
+    ("seamless-m4t-medium", 128, 2, 0), ("jamba-v0.1-52b", 128, 1, 3)])
 def test_prefill_launches_each_layers_kernel(cuda, arch, t, flash, ssd):
     """With the kernel flags on, every layer's prefill goes through its
-    kernel once, and the logits agree with the plain path's."""
+    kernel once (an encoder-decoder's decoder self-attention only, not its
+    encoder or cross attention), and the logits agree with the plain
+    path's."""
     import dataclasses
     cfg = get_config(arch, smoke=True)
     model = Model(dataclasses.replace(
         cfg, use_flash_kernel=True, use_ssd_kernel=True)).init(
         torch.Generator(device=cuda).manual_seed(0))
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, t))).to(cuda)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, t))).to(cuda)
+    frames = (torch.from_numpy(rng.normal(0, 0.02, (2, t, cfg.d_model))
+                               .astype(np.float32)).to(cuda)
+              if cfg.arch_kind == "encdec" else None)
     before = (fops.flash_attention.launches, sops.ssd_scan.launches)
-    logits, _ = model.prefill(tokens)
+    logits, _ = model.prefill(tokens, frames)
     after = (fops.flash_attention.launches, sops.ssd_scan.launches)
     assert (after[0] - before[0], after[1] - before[1]) == (flash, ssd)
     model.cfg = dataclasses.replace(model.cfg, use_flash_kernel=False,
                                     use_ssd_kernel=False)
-    plain, _ = model.prefill(tokens)
+    plain, _ = model.prefill(tokens, frames)
     torch.testing.assert_close(logits.float(), plain.float(), atol=0.08,
                                rtol=0.08)
 
@@ -579,3 +620,72 @@ def test_train_driver_on_card_resumes(cuda, tmp_path):
     assert [r["step"] for r in resumed] == [4, 5, 6, 7]
     for a, b in zip(full[4:], resumed):
         assert a["loss"] == pytest.approx(b["loss"], rel=1e-6, abs=1e-6)
+
+
+# ---------------------------------------------------------------------
+# the model families: MoE's grouped route, MLA, the encoder-decoder
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("t", [1, 256])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b",
+                                  "jamba-v0.1-52b"])
+def test_moe_grouped_route_equals_loop_on_card(cuda, arch, t):
+    """bf16 on the card takes the grouped route (`torch._grouped_mm`, the
+    group offsets on the card); it computes the per-expert loop's layer
+    at a decode and a prefill token count, and waits for the card at no
+    point (the loop waits once, for the group ends)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import make_moe_apply
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    lp = next(lp for lp, s in zip(model.layers, model.specs) if s["moe"])
+    params = {k: v.detach().to(torch.bfloat16) for k, v in lp["moe"].items()}
+    x = torch.randn((4, t, cfg.d_model), device=cuda).to(torch.bfloat16)
+    assert L.moe_route(x) == "grouped"
+    apply = make_moe_apply(cfg)
+    out, waits = {}, {}
+    orig = L.moe_route
+    for route in ("grouped", "loop"):
+        torch.cuda.synchronize()
+        try:
+            L.moe_route = lambda x, route=route: route
+            with sim.log_ops({}) as log:
+                out[route] = apply(params, x)
+        finally:
+            L.moe_route = orig
+        waits[route] = sum(1 for op in log if op.synced)
+    (got, aux), (want, aux2) = out["grouped"], out["loop"]
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert float(aux) == float(aux2)
+    assert waits == {"grouped": 0, "loop": 1}
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "seamless-m4t-medium",
+                                  "qwen3-moe-235b-a22b", "grok-1-314b",
+                                  "jamba-v0.1-52b"])
+def test_families_on_card_equal_cpu(cuda, arch):
+    """float32 prefill and three decode steps of each family's smoke
+    config on the card and on the CPU (the path the CPU tests hold against
+    the JAX package) within 1e-4."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype=torch.float32)
+    cpu = Model(cfg).init(torch.Generator().manual_seed(0))
+    card = Model(cfg).init(torch.Generator().manual_seed(0)).to(cuda)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
+    frames = (torch.from_numpy(rng.normal(0, 0.02, (2, 16, cfg.d_model))
+                               .astype(np.float32))
+              if cfg.arch_kind == "encdec" else None)
+    outs = []
+    for model, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        logits, caches = model.prefill(
+            toks.to(dev), None if frames is None else frames.to(dev))
+        seq = [logits.cpu()]
+        for i in range(3):
+            logits, caches = model.decode_step(caches, toks[:, i:i + 1].to(
+                dev), 16 + i)
+            seq.append(logits.cpu())
+        outs.append(seq)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

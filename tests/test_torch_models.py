@@ -23,7 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import Model as JaxModel, unbox  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS as ALL_ARCHS, get_config  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
@@ -200,18 +200,28 @@ def test_params_from_reference_rejects_bad_trees(reference_params):
         params_from_reference(shaped, cfg)
 
 
-def test_unported_archs_and_layers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Model(get_config("minicpm3-4b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Model(get_config("seamless-m4t-medium"))
-    moe = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
-                              n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Model(moe)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_arch_builds_prefills_and_decodes(arch):
+    """Each of the ten smoke configs builds, prefills and decodes two
+    steps with finite logits (MoE, MLA and the encoder-decoder included:
+    tests/test_torch_families.py holds them against the JAX package); a
+    model without parameters refuses to run."""
+    cfg = get_config(arch, smoke=True)
     with pytest.raises(RuntimeError, match="init"):
-        Model(get_config("qwen3-1.7b", smoke=True)).logits_fn(
-            torch.zeros((1, 4), dtype=torch.long))
+        Model(cfg).logits_fn(torch.zeros((1, 4), dtype=torch.long))
+    model = Model(cfg).init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(cfg, 2, 16)).long()
+    frames = (torch.randn((2, 16, cfg.d_model)) * 0.02
+              if cfg.arch_kind == "encdec" else None)
+    logits, caches = model.prefill(toks, frames)
+    assert tuple(logits.shape) == (2, cfg.vocab)
+    tok = logits.argmax(-1)[:, None]
+    for i in range(2):
+        logits, caches = model.decode_step(caches, tok, 16 + i)
+        assert tuple(logits.shape) == (2, 1, cfg.vocab)
+        assert bool(torch.isfinite(logits.float()).all())
+        tok = logits[:, -1].argmax(-1)[:, None]
+    assert len(caches) == cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -1,9 +1,9 @@
 """Compute the JAX reference tables of `chip_smoke.py`'s `experiments`,
-`collectives`, `adaptive_telemetry`, `synth`, `analysis` and `train`
-phases.
+`collectives`, `adaptive_telemetry`, `synth`, `analysis`, `train` and
+`families_parity` phases.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/smoke_reference.py \
-        [experiments|collectives|adaptive|synth|analysis|train]
+        [experiments|collectives|adaptive|synth|analysis|train|families]
 
 `experiments` builds that phase's Experiment
 (`chip_smoke.experiment_scenarios`: 15 scenarios at N = 256, organic,
@@ -34,7 +34,12 @@ chip_smoke's `TRAIN_ARCH` smoke config at float32 compute, from the
 parameters `chip_smoke.train_smoke_params` draws, over `TRAIN_SMOKE`'s
 steps of `SyntheticLMData`, with the train driver's schedule, once
 whole and once with microbatches=2, and prints each step's loss and grad
-norm (`REFERENCE_TRAIN`, seconds).  Without an argument, all six
+norm (`REFERENCE_TRAIN`, seconds).  `families` runs the smoke configs of
+`chip_smoke.FAMILY_ARCHS` (MLA, the encoder-decoder, MoE with and
+without virtual-split experts, the attention:SSM:MoE hybrid) at float32
+compute from `train_smoke_params`: prefill and two decode steps on
+`chip_smoke.family_inputs`, and the first train step's loss and grad
+norm (`REFERENCE_FAMILIES`, seconds).  Without an argument, all seven
 tables; the first three take several minutes each on an 8-core CPU.
 """
 import json
@@ -130,6 +135,46 @@ def analysis() -> dict:
     return chip_smoke.analysis_table(doc, rc, rep)
 
 
+def port_names(cfg, path, leaf):
+    """The port's parameter names of a JAX parameter leaf, and the leaf's
+    shape in the port: blocks are stacked over the pattern's repetitions
+    here (`layers.{rep * len(pattern) + slot}`), an encoder-decoder's
+    `enc_blocks` over its encoder layers (`enc_layers.{i}`)."""
+    pat, n_rep, _ = cfg.pattern()
+    keys = [str(getattr(k, "key", getattr(k, "idx", None))) for k in path]
+    if keys[0] == "blocks":
+        rest = ".".join(keys[2:])
+        return ([f"layers.{r * len(pat) + int(keys[1])}.{rest}"
+                 for r in range(n_rep)], leaf.shape[1:])
+    if keys[0] == "tail":
+        return ([f"layers.{n_rep * len(pat) + int(keys[1])}."
+                 + ".".join(keys[2:])], leaf.shape)
+    if keys[0] == "enc_blocks":
+        rest = ".".join(keys[1:])
+        return ([f"enc_layers.{i}.{rest}" for i in range(leaf.shape[0])],
+                leaf.shape[1:])
+    return [".".join(keys)], leaf.shape
+
+
+def smoke_params(model, seed: int):
+    """The JAX parameters of `model` that `chip_smoke.train_smoke_params`
+    draws by the port's names."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import unbox
+
+    shapes, _ = unbox(jax.eval_shape(model.init, jax.random.PRNGKey(0)))
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    named = [(name, shape) for path, leaf in leaves
+             for names, shape in [port_names(model.cfg, path, leaf)]
+             for name in names]
+    flat = chip_smoke.train_smoke_params(named, seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, leaf: jnp.asarray(np.stack(
+            [flat[n] for n in port_names(model.cfg, path, leaf)[0]]).reshape(
+                leaf.shape)), shapes)
+
+
 def train() -> dict:
     """The JAX package's losses and grad norms of chip_smoke's training
     parity run (`chip_smoke.TRAIN_SMOKE`)."""
@@ -139,37 +184,14 @@ def train() -> dict:
     import jax.numpy as jnp
     from repro.data import SyntheticLMData
     from repro.launch import steps as St
-    from repro.models import Model, unbox
+    from repro.models import Model
     from repro.optim import AdamWConfig, adamw_init
 
     ts = chip_smoke.TRAIN_SMOKE
     cfg = dataclasses.replace(C.get_config(chip_smoke.TRAIN_ARCH, smoke=True),
                               compute_dtype=jnp.float32)
     model = Model(cfg)
-    shapes, _ = unbox(jax.eval_shape(model.init, jax.random.PRNGKey(0)))
-    pat, n_rep, _ = cfg.pattern()
-
-    def port_names(path, leaf):
-        """The port's parameter names of a leaf, and the leaf's shape in
-        the port (blocks are stacked over the repetitions here)."""
-        keys = [str(getattr(k, "key", getattr(k, "idx", None))) for k in path]
-        if keys[0] == "blocks":
-            rest = ".".join(keys[2:])
-            return ([f"layers.{r * len(pat) + int(keys[1])}.{rest}"
-                     for r in range(n_rep)], leaf.shape[1:])
-        if keys[0] == "tail":
-            return ([f"layers.{n_rep * len(pat) + int(keys[1])}."
-                     + ".".join(keys[2:])], leaf.shape)
-        return [".".join(keys)], leaf.shape
-
-    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
-    named = [(name, shape) for path, leaf in leaves
-             for names, shape in [port_names(path, leaf)] for name in names]
-    flat = chip_smoke.train_smoke_params(named, ts["seed"])
-    params = jax.tree_util.tree_map_with_path(
-        lambda path, leaf: jnp.asarray(np.stack(
-            [flat[n] for n in port_names(path, leaf)[0]]).reshape(
-                leaf.shape)), shapes)
+    params = smoke_params(model, ts["seed"])
     data = SyntheticLMData(vocab=cfg.vocab, seq_len=ts["seq"],
                            global_batch=ts["batch"], seed=ts["seed"])
     out = {}
@@ -189,10 +211,62 @@ def train() -> dict:
     return out
 
 
+def families() -> dict:
+    """The JAX package's numbers of chip_smoke's `families_parity`: for
+    each of `chip_smoke.FAMILY_ARCHS` at float32 compute, from the
+    parameters `train_smoke_params` draws, the prefill logits and two
+    decode steps' logits (`chip_smoke.logits_summary`) on
+    `chip_smoke.family_inputs`, and the loss and grad norm of the train
+    driver's first step on `SyntheticLMData` (and, for the
+    encoder-decoder, the driver's frames of step 0)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.data import SyntheticLMData
+    from repro.launch import steps as St
+    from repro.models import Model
+    from repro.optim import AdamWConfig, adamw_init
+
+    fs = chip_smoke.FAMILIES_SMOKE
+    out = {}
+    for arch in chip_smoke.FAMILY_ARCHS:
+        cfg = dataclasses.replace(C.get_config(arch, smoke=True),
+                                  compute_dtype=jnp.float32)
+        model = Model(cfg)
+        params = smoke_params(model, fs["seed"])
+        toks, frames, steps = chip_smoke.family_inputs(cfg)
+        batch = {"tokens": jnp.asarray(toks, jnp.int32)}
+        if frames is not None:
+            batch["frames"] = jnp.asarray(frames)
+        logits, caches = jax.jit(model.prefill)(params, batch)
+        rows = [chip_smoke.logits_summary(np.asarray(logits))]
+        decode = jax.jit(model.decode_step)
+        for i in range(fs["decode"]):
+            logits, caches = decode(params, caches,
+                                    jnp.asarray(steps[i], jnp.int32),
+                                    jnp.int32(fs["prompt"] + i))
+            rows.append(chip_smoke.logits_summary(np.asarray(logits[:, -1])))
+        b, t = fs["train_batch"], fs["train_seq"]
+        tb = {k: jnp.asarray(v) for k, v in SyntheticLMData(
+            vocab=cfg.vocab, seq_len=t, global_batch=b,
+            seed=fs["seed"]).batch(0).items()}
+        if cfg.arch_kind == "encdec":
+            tb["frames"] = jnp.asarray(np.random.default_rng(0).normal(
+                0, 0.02, (b, t, cfg.d_model)), jnp.float32)
+        step = jax.jit(St.make_train_step(model, St.TrainConfig(
+            opt=AdamWConfig(), total_steps=1, warmup_steps=5)))
+        _, _, met = step(params, adamw_init(params), tb)
+        out[arch] = dict(prefill=rows[0], decode=rows[1:],
+                         loss=float(met["loss"]),
+                         grad_norm=float(met["grad_norm"]))
+    return out
+
+
 def main(argv=None) -> int:
     which = (argv or sys.argv[1:]) or ["experiments", "collectives",
                                        "adaptive", "synth", "analysis",
-                                       "train"]
+                                       "train", "families"]
     if "experiments" in which:
         t0 = time.perf_counter()
         frame = run(chip_smoke.experiment_scenarios(X, W, F, T),
@@ -215,7 +289,8 @@ def main(argv=None) -> int:
                               ici=ici, seconds=time.perf_counter() - t0)),
               flush=True)
     for name, fn in (("adaptive", adaptive), ("synth", synth),
-                     ("analysis", analysis), ("train", train)):
+                     ("analysis", analysis), ("train", train),
+                     ("families", families)):
         if name in which:
             t0 = time.perf_counter()
             out = fn()
