@@ -252,6 +252,35 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        memory, the host's waits in one decode step, and
                        the decode loop's device launches per token and
                        idle share
+  sharded              the sharded paths on a 1 x 1 NCCL mesh
+                       (`launch.mesh.make_host_mesh()`): qwen3-moe at full
+                       width, 2 of 94 layers, bf16, through `Model(cfg,
+                       ctx)` (decode layout) and `launch.serve.generate`,
+                       batch 4, prompt 1024, 32 new tokens; prefill takes
+                       `moe_ep_local` (4096 tokens), decode
+                       `moe_ep_stationary`.  At capacity_factor 16 (no
+                       token dropped) against the unsharded model: in f32
+                       its prefill logits and 32 teacher-forced decode
+                       steps (1e-3) and its greedy tokens (equal); in
+                       bf16 one MoE layer on one input at 4096 and 4
+                       tokens (2e-2, and its ms beside the grouped
+                       route's), the sharded bf16 model's mean distance
+                       from the f32 logits at most 1.1 x the unsharded
+                       bf16 model's (prefill and decode), their tokens
+                       reported; at the config's 1.25 the
+                       share of (token, expert) pairs dropped in prefill
+                       and decode, prefill ms, decode ms per token, device
+                       launches per token, host waits per decode step
+                       (0), collectives per decode step by kind
+                       (CommDebugMode), flash launches per prefill (2) and
+                       peak memory.  Then `decode_attention_dist` at
+                       qwen3-1.7b's decode shape, f32, against the dense
+                       decode (2e-5, the cache bit for bit); qwen3-1.7b,
+                       depth 2, f32, with sequence parallelism forced on
+                       (the grouped attention layout) against the
+                       unsharded prefill (1e-3); and its parameters saved
+                       from the unsharded model and restored onto the
+                       mesh's placements, bit for bit
 
 then the kernel summary line and, last, the `{"ok": true, ...}` line.
 A failed check raises and exits non-zero before the last line; without
@@ -1670,6 +1699,24 @@ FAMILY_FLASH = {
     "qwen3-moe-235b-a22b": dict(b=4, t=1024, h=64, kv=4, hd=128)}
 FAMILY_SSD = {"jamba-v0.1-52b": dict(b=4, t=1024, h=128, p=64, n=64,
                                      chunk=256)}
+# The sharded paths (launch.mesh, launch.steps, Model(cfg, ctx)) on a 1 x 1
+# NCCL mesh: qwen3-moe served as families_serve serves it; at capacity
+# factor 16 = n_experts / top_k each expert takes every token (nothing is
+# dropped), so it is held to the unsharded (dropless) model: in f32 at
+# CARD_VS_CPU's tolerance with equal greedy tokens, in bf16 one MoE layer
+# on one input at MOE_TOL and the whole model's mean distance from the f32
+# logits at most 1.1 x the unsharded bf16 model's (the families phase's
+# kernel-vs-plain ratio); the config's own 1.25 is timed and its drops
+# counted.
+SHARDED = dict(arch="qwen3-moe-235b-a22b", depth=2, dropless_cf=16.0,
+               flash=2, drop_decode_steps=4, bf16_mean_ratio=1.1)
+# decode_attention_dist at qwen3-1.7b's decode shape (q [4, 1, 16, 128],
+# cache [4, 1056, 8, 128], f32) at the reference test's tolerance
+DIST_DECODE = dict(b=4, s=1056, h=16, kv=8, hd=128, pos=1040, tol=2e-5)
+# sequence parallelism forced on, and the elastic restore: qwen3-1.7b at
+# full width, depth 2, f32, batch 4 x prompt 1024
+SEQ_PARALLEL = dict(arch="qwen3-1.7b", depth=2, batch=4, prompt=1024,
+                    tol=1e-3)
 REFERENCE_FAMILIES = {
     'minicpm3-4b':
         {'prefill': {'head': [[0.1623096466064453,
@@ -4244,6 +4291,327 @@ def families_phase(torch, dev, smi, fops, sops, serve) -> dict:
     return launches
 
 
+def lm_run(torch, serve, model, tokens, gen: int, forced=None) -> tuple:
+    """(prefill logits [B, V], greedy tokens [B, gen + 1] through
+    `serve.generate`, decode logits teacher-forced on `forced`'s tokens,
+    default its own), logits float32 on the host."""
+    logits = model.prefill(tokens)[0].float().cpu()
+    out, _ = serve.generate(model, tokens, gen)
+    return logits, out, forced_logits(torch, model, tokens,
+                                      out if forced is None else forced)
+
+
+def forced_logits(torch, model, tokens, out) -> list:
+    """Decode logits [B, V] (float32, on the host) of each step of
+    `model` fed `out`'s tokens after prefilling `tokens` (teacher
+    forcing: both models of a comparison see the same inputs)."""
+    _, caches = model.prefill(tokens)
+    steps = []
+    for i in range(out.shape[1] - 1):
+        logits, caches = model.decode_step(
+            caches, out[:, i:i + 1].to(tokens.device), tokens.shape[1] + i)
+        steps.append(logits[:, -1].float().cpu())
+    return steps
+
+
+def moe_drops(torch, L, SH, stats):
+    """Wrappers of the two expert-parallel bodies that add, per call, the
+    (token, expert) pairs routed and those beyond each expert's capacity
+    to stats[body] (host reads: for the counting pass only)."""
+    def counting(fn, body):
+        def wrapped(params, x, cfg, *args, **kwargs):
+            _, top_e, _ = L._router({"router": SH.full(params["router"])},
+                                    x, cfg)
+            counts = torch.bincount(top_e.reshape(-1),
+                                    minlength=cfg.n_experts)
+            cap = L.moe_capacity(x.shape[0] * x.shape[1], cfg)
+            row = stats.setdefault(body, dict(pairs=0, dropped=0, calls=0))
+            row["pairs"] += int(counts.sum())
+            row["dropped"] += int((counts - cap).clamp(min=0).sum())
+            row["calls"] += 1
+            return fn(params, x, cfg, *args, **kwargs)
+        return wrapped
+    return {"moe_ep_local": counting(L.moe_ep_local, "prefill"),
+            "moe_ep_stationary": counting(L.moe_ep_stationary, "decode")}
+
+
+def sharded_phase(torch, dev, smi, fops, serve) -> int:
+    """The `sharded` phase; returns the sharded prefill's flash launches."""
+    import shutil
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import tree as Tr
+    from repro_torch.checkpoint.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import make_moe_apply
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    ctx = St.build_ctx(mesh)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"host mesh: backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}")
+    sh = SHARDED
+    base = get_config(sh["arch"])
+    cfg = dataclasses.replace(base, n_layers=sh["depth"],
+                              use_flash_kernel=True, use_ssd_kernel=True,
+                              capacity_factor=sh["dropless_cf"])
+    b, t, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    tokens = torch.from_numpy(serve.prompts(cfg, b, t, 0)).to(dev)
+
+    # ---- (a) unsharded, dropless, bf16 and f32: results to the host --------
+    # The two bf16 models round differently (the MoE's products and
+    # combine), and a rounding upstream can flip a near-tied expert choice
+    # downstream, so the sharded model is held to the unsharded one in f32
+    # (logits 1e-3, greedy tokens equal), and in bf16 layer by layer on
+    # one input; the bf16 models' distances from the f32 logits and their
+    # greedy tokens are reported.
+    f32, bf16 = torch.float32, torch.bfloat16
+    torch.cuda.empty_cache()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    runs = {"plain_bf16": lm_run(torch, serve, model, tokens, gen)}
+    forced = runs["plain_bf16"][1]
+    model.cfg = dataclasses.replace(cfg, compute_dtype=f32)
+    runs["plain_f32"] = lm_run(torch, serve, model, tokens, gen, forced)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- (b) sharded, capacity factor 16 ------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, ctx).init(torch.Generator(device=dev).manual_seed(0),
+                                 serving_mode="decode")
+    leaves = Tr.leaves(model.param_tree())
+    check(all(isinstance(p, DTensor) for p in leaves),
+          "sharded model: a parameter is not a DTensor")
+    serving = model.cfg
+    flash_launches = {}
+    for name, dt in (("sharded_f32", f32), ("sharded_bf16", bf16)):
+        model.cfg = dataclasses.replace(serving, compute_dtype=dt)
+        model.prefill(tokens)              # warm-up: the compute copy
+        torch.cuda.synchronize()
+        fops.flash_attention.launches = 0
+        model.prefill(tokens)
+        flash_launches[name] = fops.flash_attention.launches
+        check(flash_launches[name] == sh["flash"], f"{name} prefill "
+              f"launched flash {flash_launches[name]} times, not "
+              f"{sh['flash']}")
+        runs[name] = lm_run(torch, serve, model, tokens, gen, forced)
+    model.cfg = serving
+    (sp, so, ss), (pp, po, ps) = runs["sharded_f32"], runs["plain_f32"]
+    f32_err = [check_close(torch, a, b_, CARD_VS_CPU["tol"],
+                           f"sharded vs unsharded f32, position {i}")
+               for i, (a, b_) in enumerate(zip([sp] + ss, [pp] + ps))]
+    check(torch.equal(so, po), f"sharded f32 greedy tokens {so.tolist()} != "
+          f"unsharded {po.tolist()}")
+    ref = [pp] + ps                        # f32 logits on `forced`
+    accuracy = {}
+    for name in ("sharded_bf16", "plain_bf16"):
+        got = [runs[name][0]] + runs[name][2]
+        accuracy[name] = dict(
+            prefill_max=max_err(got[0], ref[0]),
+            prefill_mean=mean_err(got[0], ref[0]),
+            decode_max=max(max_err(g, r) for g, r in zip(got[1:], ref[1:])),
+            decode_mean=sum(mean_err(g, r) for g, r in zip(got[1:], ref[1:]))
+            / len(ref[1:]))
+    # the sharded bf16 model is as near the f32 logits as the unsharded
+    # one, on the mean (one flipped expert choice moves a few rows, not
+    # the mean)
+    for key in ("prefill_mean", "decode_mean"):
+        got_d, want_d = (accuracy[n][key] for n in ("sharded_bf16",
+                                                    "plain_bf16"))
+        check(got_d <= sh["bf16_mean_ratio"] * want_d, f"sharded bf16 "
+              f"{key} distance from f32 {got_d} > {sh['bf16_mean_ratio']} x "
+              f"the unsharded bf16 model's {want_d}")
+    # bf16 greedy tokens: where a row first differs, the f32 logits' top-2
+    # margin there (how near the tie was)
+    bo, uo = runs["sharded_bf16"][1], runs["plain_bf16"][1]
+    diverged = []
+    for row in range(b):
+        diff = (bo[row] != uo[row]).nonzero()
+        if len(diff):
+            j = int(diff[0])
+            top2 = ref[j][row].topk(2).values
+            diverged.append(dict(row=row, position=j,
+                                 f32_margin=float(top2[0] - top2[1])))
+    # bf16, layer by layer on the same input (no expert choice can flip):
+    # the expert-parallel MoE against the unsharded one (the grouped route)
+    # at the prefill and the decode token counts, within the families'
+    # MoE tolerance; and their times
+    moe_rows = {}
+    p16 = model._cast()["layers"][0]["moe"]
+    plain_p = {k: SH.full(v) for k, v in p16.items()}
+    g = torch.Generator().manual_seed(22)
+    for label, tt in (("prefill", t), ("decode", 1)):
+        x = randn(torch, g, (b, tt, cfg.d_model), bf16, dev)
+        ep = lambda x=x: make_moe_apply(model.cfg, ctx, batch=b)(p16, x)
+        dense = lambda x=x: make_moe_apply(model.cfg)(plain_p, x)
+        (ye, ae), (yd, ad) = ep(), dense()
+        moe_rows[label] = dict(
+            tokens=b * tt,
+            body="moe_ep_local" if b * tt > 2048 else "moe_ep_stationary",
+            max_abs_err=check_close(torch, ye, yd, MOE_TOL,
+                                    f"sharded MoE {label} vs unsharded"),
+            aux_err=abs(float(ae) - float(ad)),
+            ep_ms=time_ms(torch, ep, LM_TIMING_SAMPLES, 2),
+            grouped_ms=time_ms(torch, dense, LM_TIMING_SAMPLES, 2))
+        check(moe_rows[label]["aux_err"] < 1e-5, f"sharded MoE {label} aux "
+              f"{float(ae)} vs {float(ad)}")
+    del p16, plain_p, x
+    emit("sharded_dropless", arch=cfg.name, layers=cfg.n_layers,
+         full_depth=base.n_layers, capacity_factor=cfg.capacity_factor,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+         backend=dist.get_backend(), serving_mode="decode",
+         flash_launches_per_prefill=flash_launches,
+         f32_max_abs_err=max(f32_err), f32_tol=CARD_VS_CPU["tol"],
+         f32_tokens_equal=True, bf16_vs_f32=accuracy,
+         bf16_moe_layer=moe_rows, moe_tol=MOE_TOL,
+         bf16_tokens_equal=bool(torch.equal(bo, uo)),
+         bf16_diverged_rows=diverged, sample=bo[0, :8].tolist(),
+         seconds=round(time.perf_counter() - t0, 3))
+    flash_launches = flash_launches["sharded_bf16"]
+    del runs, ref
+
+    # ---- (c) the config's capacity factor: drops, timings, counts ----------
+    t1 = time.perf_counter()
+    model.cfg = dataclasses.replace(model.cfg,
+                                    capacity_factor=base.capacity_factor)
+    stats = {}
+    saved = {name: getattr(L, name) for name in ("moe_ep_local",
+                                                 "moe_ep_stationary")}
+    try:
+        for name, fn in moe_drops(torch, L, SH, stats).items():
+            setattr(L, name, fn)
+        _, caches = model.prefill(tokens)
+        tok = tokens[:, -1:]
+        for i in range(sh["drop_decode_steps"]):
+            logits, caches = model.decode_step(caches, tok, t + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+    finally:
+        for name, fn in saved.items():
+            setattr(L, name, fn)
+    check(set(stats) == {"prefill", "decode"}, f"expert-parallel bodies "
+          f"taken: {sorted(stats)}, not moe_ep_local in prefill and "
+          f"moe_ep_stationary in decode")
+    model.prefill(tokens)
+    torch.cuda.synchronize()
+    fops.flash_attention.launches = 0
+    out, st = serve.generate(model, tokens, gen)
+    serve_flash = fops.flash_attention.launches
+    check(serve_flash == sh["flash"], f"sharded generate launched flash "
+          f"{serve_flash} times, not {sh['flash']}")
+    check(tuple(out.shape) == (b, gen + 1) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all()), f"sharded tokens "
+          f"{tuple(out.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    _, caches = model.prefill(tokens)
+    check(all(isinstance(c, DTensor) for c in Tr.leaves(caches)),
+          "sharded caches are not DTensors")
+    tok = out[:, :1].to(dev)
+    waits = host_waits(torch, lambda: model.decode_step(caches, tok, t))
+    check(waits == 0, f"a sharded decode step made the host wait for the "
+          f"card {waits} times")
+    torch.cuda.synchronize()
+    with CommDebugMode() as comm:
+        model.decode_step(caches, tok, t)
+    torch.cuda.synchronize()
+    collectives = {str(k).split(".")[-1]: v for k, v in
+                   comm.get_comm_counts().items()}
+    profile = decode_profile(torch, model, caches, tok, t + 1)
+    emit("sharded_serve", arch=cfg.name, layers=cfg.n_layers,
+         capacity_factor=base.capacity_factor,
+         capacity=dict(prefill=L.moe_capacity(b * t, model.cfg),
+                       decode=L.moe_capacity(b, model.cfg)),
+         dropped_share={k: v["dropped"] / v["pairs"] for k, v in
+                        stats.items()},
+         drop_counts=stats, prefill_ms=1e3 * st["prefill_s"],
+         decode_ms_per_token=1e3 * st["decode_s"] / gen,
+         tokens_per_s=b * gen / st["decode_s"],
+         flash_launches_per_prefill=serve_flash,
+         decode_host_waits_per_token=waits,
+         collectives_per_decode_step=collectives,
+         decode_profile=profile, peak_memory_gb=peak / 1e9,
+         params=sum(p.numel() for p in leaves), batch=b, prompt=t, gen=gen,
+         compute_dtype="bfloat16", nvidia_smi=smi,
+         seconds=round(time.perf_counter() - t1, 3))
+    del model, caches, leaves
+    torch.cuda.empty_cache()
+
+    # ---- (d) decode_attention_dist at qwen3-1.7b's decode shape ------------
+    t1 = time.perf_counter()
+    dd = DIST_DECODE
+    qcfg = get_config(SEQ_PARALLEL["arch"])
+    g = torch.Generator().manual_seed(21)
+    q = randn(torch, g, (dd["b"], 1, dd["h"], dd["hd"]), torch.float32, dev)
+    kn, vn = (randn(torch, g, (dd["b"], 1, dd["kv"], dd["hd"]),
+                    torch.float32, dev) for _ in range(2))
+    ck, cv = (randn(torch, g, (dd["b"], dd["s"], dd["kv"], dd["hd"]),
+                    torch.float32, dev) for _ in range(2))
+    ck_r, cv_r = ck.clone(), cv.clone()
+    ck_r[:, dd["pos"] % dd["s"]] = kn[:, 0]
+    cv_r[:, dd["pos"] % dd["s"]] = vn[:, 0]
+    want = L._sdpa(q, ck_r, cv_r, None)
+    got, (gk, gv) = L.decode_attention_dist(None, q, kn, vn, (ck, cv),
+                                            dd["pos"], qcfg, ctx)
+    dist_err = check_close(torch, got, want, dd["tol"],
+                           "decode_attention_dist vs dense")
+    check(torch.equal(gk, ck_r) and torch.equal(gv, cv_r),
+          "decode_attention_dist wrote the cache unlike the dense decode")
+    emit("sharded_decode_attention", q=list(q.shape), cache=list(ck.shape),
+         pos=dd["pos"], dtype="float32", max_abs_err=dist_err,
+         tol=dd["tol"], cache_bit_equal=True,
+         seconds=round(time.perf_counter() - t1, 3))
+    del q, kn, vn, ck, cv, ck_r, cv_r, got, gk, gv, want
+
+    # ---- (e) sequence parallelism forced on; (f) the elastic restore -------
+    t1 = time.perf_counter()
+    sp = SEQ_PARALLEL
+    cfg = dataclasses.replace(qcfg, n_layers=sp["depth"],
+                              compute_dtype=torch.float32)
+    toks = torch.from_numpy(serve.prompts(cfg, sp["batch"], sp["prompt"],
+                                          1)).to(dev)
+    plain = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    want = plain.prefill(toks)[0].cpu()
+    ckpt = ROOT / "build" / "sharded_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    save_checkpoint(str(ckpt), 0, plain.param_tree())
+    full = Tr.tree_map(lambda p: p.detach().cpu(), plain.param_tree())
+    del plain
+    torch.cuda.empty_cache()
+    seqp = Model(dataclasses.replace(cfg, seq_parallel=True), ctx).init(
+        torch.Generator(device=dev).manual_seed(0))
+    check(seqp.cfg.seq_parallel, "seq_parallel was not kept")
+    seq_err = check_close(torch, seqp.prefill(toks)[0].cpu(), want,
+                          sp["tol"], "seq-parallel vs unsharded prefill")
+    shapes, shardings = St.param_shardings(seqp, ctx)
+    del seqp
+    torch.cuda.empty_cache()
+    restored = restore_checkpoint(str(ckpt), 0, shapes, placements=shardings)
+    n_leaves = 0
+    for r, w in zip(Tr.leaves(restored), Tr.leaves(full)):
+        check(isinstance(r, DTensor) and r.device.type == dev.type and
+              torch.equal(r.full_tensor().cpu(), w),
+              "restored parameter differs from the saved one")
+        n_leaves += 1
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit("sharded_seq_parallel_elastic", arch=cfg.name, layers=cfg.n_layers,
+         batch=sp["batch"], prompt=sp["prompt"], dtype="float32",
+         seq_parallel_max_abs_err=seq_err, tol=sp["tol"],
+         restored_leaves=n_leaves, restore_bit_equal=True,
+         seconds=round(time.perf_counter() - t1, 3))
+    del restored, full
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    emit("sharded", seconds=round(time.perf_counter() - t0, 3))
+    return flash_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4547,6 +4915,8 @@ def main() -> int:
     fam_launches = families_phase(torch, dev, smi, fops, sops, serve)
     for row, i in zip(lm_rows, (0, 1)):
         row["launches_families"] = {a: c[i] for a, c in fam_launches.items()}
+    lm_rows[0]["launches_sharded"] = {
+        SHARDED["arch"]: sharded_phase(torch, dev, smi, fops, serve)}
 
     print(json.dumps({"kernels": [dict(
         name="netstep", route="cuda",

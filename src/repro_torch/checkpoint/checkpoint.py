@@ -14,8 +14,12 @@ checkpoint of the same plain nested dict reads in either package.
     step_<8 digits> or holds no manifest is never trusted;
   * async save: the tensors are copied to host numpy before the writer
     thread starts, so training may go on changing them in place;
-  * restore: each leaf is read as a full tensor and placed on `device`
-    (sharded restore waits for the port's `ParallelCtx`);
+  * restore: each leaf is read as a full tensor and placed on `device`;
+  * elastic restore: with `placements` (a tree of `sharding.Sharding`,
+    possibly on a mesh other than the one that saved), each rank keeps
+    its block of each leaf as a DTensor, so restarting on another mesh
+    shape is a no-op for the caller.  A DTensor leaf is saved whole:
+    every rank gathers it (a collective), and one process writes;
   * retention: keep the most recent `keep` checkpoints.
 """
 from __future__ import annotations
@@ -44,7 +48,11 @@ def _to_numpy(leaf) -> np.ndarray:
     """`leaf` (a tensor, numpy array or number) as a numpy array; a tensor
     is copied to the host, so that training, which changes its tensors in
     place, does not reach the copy (a CPU tensor's `.numpy()` would share
-    its memory)."""
+    its memory).  A DTensor is gathered whole first (every rank of its
+    mesh must call)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.asarray(leaf)
@@ -108,19 +116,34 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, target_tree, device=None):
+def restore_checkpoint(ckpt_dir: str, step: int, target_tree, device=None,
+                       placements=None):
     """Read checkpoint `step` into the structure of `target_tree` (whose
     leaves only name the files): a tree of tensors on `device` (the CPU
-    when None).  A leaf missing from the manifest raises KeyError."""
+    when None).  With `placements`, a matching tree of
+    `sharding.Sharding` (on a mesh that may differ from the one that
+    saved), each leaf becomes a DTensor holding this rank's block, cut on
+    `device` (None: the mesh's device) from the full array every rank
+    reads; no collective.  A leaf missing from the manifest raises
+    KeyError."""
+    from ..models import sharding as SH
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     names, _ = _flatten_with_names(target_tree)
     with open(os.path.join(d, "manifest.json")) as f:
         meta = json.load(f)
+    shards = (T.leaves(placements, is_leaf=SH.is_sharding)
+              if placements is not None else [None] * len(names))
+    if len(shards) != len(names):
+        raise ValueError(f"{len(shards)} placements for {len(names)} leaves")
     out = []
-    for name in names:
+    for name, sh in zip(names, shards):
         info = meta["leaves"][name]
-        arr = np.load(os.path.join(d, info["file"]))
-        out.append(torch.from_numpy(arr).to(device or "cpu"))
+        arr = torch.from_numpy(np.load(os.path.join(d, info["file"])))
+        if sh is None:
+            out.append(arr.to(device or "cpu"))
+        else:
+            dev = device or sh.mesh.device_type
+            out.append(SH.distribute(arr.to(dev), sh.mesh, sh.spec))
     return T.unflatten(target_tree, out)
 
 

@@ -55,8 +55,11 @@ def sched_from_reference(fields: dict) -> SchedSpec:
     return _from_fields(SchedSpec, fields, ("k", "n", "total"))
 
 
-def params_from_reference(params: dict, cfg) -> "Model":
-    """Port `Model` (on the CPU) holding the JAX package's parameters.
+def params_from_reference(params: dict, cfg, ctx=None) -> "Model":
+    """Port `Model` (on the CPU) holding the JAX package's parameters; with
+    `ctx`, the sharded `Model(cfg, ctx)` holding this rank's blocks, laid
+    out as `launch.steps.param_shardings(model, ctx)` says (the train
+    layout).
 
     `params` is the reference's *unboxed* parameter tree as numpy arrays
     (`unbox(Model.init(key))[0]` mapped through `np.asarray`): `embed`,
@@ -69,7 +72,7 @@ def params_from_reference(params: dict, cfg) -> "Model":
     is (`attn` of MLA, `xattn` / `ln_x`, `moe.{router,wi,wg,wo}` in the
     virtual-split layout).  A missing or unknown leaf, or a shape that
     differs, raises."""
-    model = Model(cfg).init(torch.Generator().manual_seed(0))
+    model = Model(cfg, ctx)._draw(torch.Generator().manual_seed(0))
     pat, n_rep, _ = cfg.pattern()
     flat = {}
     for key, val in params.items():
@@ -103,6 +106,9 @@ def params_from_reference(params: dict, cfg) -> "Model":
                 raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    if ctx is not None:
+        from .launch.steps import param_shardings
+        model.place(param_shardings(model, ctx)[1])
     return model
 
 
@@ -124,28 +130,30 @@ def opt_state_from_reference(state, cfg) -> dict:
             "m": tree(fields["m"]), "v": tree(fields["v"])}
 
 
-def reference_tree(tree, cfg) -> dict:
+def reference_tree(tree, cfg, stack=torch.stack, is_leaf=None) -> dict:
     """A port tree shaped like `Model.param_tree()` (parameters, or AdamW
     moments) in the JAX package's layout: `blocks[slot]` stacked over the
     pattern's repetitions, `tail[i]`, and for an encoder-decoder
     `enc_blocks` stacked over the encoder's layers.  Its leaves are
     named as the reference names them, so a checkpoint of it reads in
     either package (`convert.params_from_reference` takes it back as
-    numpy)."""
+    numpy).  `stack` joins the leaves of one slot's layers (a tensor
+    stack; for an axes or spec tree, with `is_leaf`, the leading
+    "layers" axis or None)."""
     pat, n_rep, tail = cfg.pattern()
     layers = tree["layers"]
 
-    def stack(group):
-        return T.unflatten(group[0], [torch.stack(ts) for ts in zip(
-            *(T.leaves(g) for g in group))])
+    def stack_group(group):
+        return T.unflatten(group[0], [stack(ts) for ts in zip(
+            *(T.leaves(g, is_leaf) for g in group))], is_leaf)
 
     out = {k: v for k, v in tree.items() if k not in ("layers",
                                                       "enc_layers")}
-    out["blocks"] = [stack(layers[slot:n_rep * len(pat):len(pat)])
+    out["blocks"] = [stack_group(layers[slot:n_rep * len(pat):len(pat)])
                      for slot in range(len(pat))]
     out["tail"] = list(layers[n_rep * len(pat):])
     if "enc_layers" in tree:
-        out["enc_blocks"] = stack(tree["enc_layers"])
+        out["enc_blocks"] = stack_group(tree["enc_layers"])
     return out
 
 

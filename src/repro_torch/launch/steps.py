@@ -1,13 +1,19 @@
-"""Step builders for training and serving.
+"""Step builders + input/parameter/cache specs for training and serving.
 
 `make_train_step` is the JAX package's step (`repro/launch/steps.py`)
 on one device: the float32 masters are cast to the compute dtype once per
 step, the loss is differentiated with respect to those copies (the
 gradients are the compute-dtype copies' gradients, accumulated in
 float32 across microbatches), and AdamW applies them to the masters in
-place.  The mesh helpers of the reference (`build_ctx`,
-`param_shardings`, `batch_specs`, `cache_specs`) wait for the port's
-sharded paths.
+place.
+
+The spec helpers work on shapes alone (meta tensors), so they give the
+layout of a production mesh without allocating anything, and with
+`ParallelCtx.mesh` a name -> size mapping, without any rank: `build_ctx`,
+`param_shapes_and_axes`, `param_shardings`, `batch_specs` and
+`cache_specs`.  Their trees are the port's (layers in true order, no
+stacked "layers" axis); each leaf's spec is the reference's without that
+leading None.
 """
 from __future__ import annotations
 
@@ -17,8 +23,88 @@ import torch
 
 from .. import tree as T
 from ..models import Model
+from ..models import layers as L
+from ..models import sharding as SH
+from ..models.model import DecodeDims, ModelConfig, param_axes
 from ..optim import AdamWConfig, adamw_update
 from ..optim.schedule import warmup_cosine
+
+
+def build_ctx(mesh) -> SH.ParallelCtx:
+    """The ctx of a mesh (a DeviceMesh, or {axis name: size}): the batch
+    over "pod" and "data", tensor axes over "model", weights' "embed"
+    over "data"."""
+    names = tuple(SH.mesh_shape(mesh))
+    batch_axes = tuple(n for n in names if n in ("pod", "data"))
+    return SH.ParallelCtx(mesh=mesh, batch_axes=batch_axes,
+                          model_axis="model", fsdp_axes=("data",))
+
+
+# ---------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------
+
+def param_shapes_and_axes(model: Model):
+    """(tree of meta tensors, tree of logical-axis tuples), shaped like
+    `model.param_tree()`; nothing is allocated."""
+    shapes = Model(model.cfg)._draw(L.META).param_tree()
+    return shapes, param_axes(shapes, model.cfg)
+
+
+def param_shardings(model: Model, ctx: SH.ParallelCtx,
+                    serving_mode: str = "train"):
+    """(shapes, tree of `sharding.Sharding`) of the parameters."""
+    shapes, axes = param_shapes_and_axes(model)
+    if serving_mode == "decode":
+        # weight-stationary serving: no FSDP (embed unsharded over data);
+        # instead the *output* dims (mlp/d_ff) shard over "data", and MoE
+        # experts match moe_ep_stationary's (model, data) layout.
+        ctx = dataclasses.replace(ctx, extra_rules={"embed": (),
+                                                    "mlp": ("data",)})
+    elif model.cfg.seq_parallel:
+        # sequence-parallel archs keep activations seq-sharded on the
+        # model axis; the (small) MLP weights are replicated over "model"
+        # and stay FSDP-sharded over "data".
+        ctx = dataclasses.replace(ctx, extra_rules={"mlp": ()})
+    return shapes, SH.tree_shardings(axes, shapes, ctx, for_weights=True)
+
+
+def batch_specs(cfg: ModelConfig, shape: dict, ctx: SH.ParallelCtx | None):
+    """(meta tensors of a step's inputs, {name: Sharding} or None)."""
+    b, t = shape["global_batch"], shape["seq_len"]
+    mode = shape["mode"]
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if mode == "train":
+        batch = {"tokens": sds((b, t), torch.int32),
+                 "labels": sds((b, t), torch.int32)}
+        if cfg.arch_kind == "encdec":
+            batch["frames"] = sds((b, t, cfg.d_model), torch.float32)
+    elif mode == "prefill":
+        batch = {"tokens": sds((b, t), torch.int32)}
+        if cfg.arch_kind == "encdec":
+            batch["frames"] = sds((b, t, cfg.d_model), torch.float32)
+    else:                          # decode
+        batch = {"tokens": sds((b, 1), torch.int32)}
+    if ctx is None:
+        return batch, None
+    return batch, {k: SH.Sharding(ctx.mesh, SH.batch_spec(ctx, b, v.ndim))
+                   for k, v in batch.items()}
+
+
+def cache_specs(model: Model, dims: DecodeDims, ctx: SH.ParallelCtx | None):
+    """(meta tensors of `init_cache(dims)`, tree of Sharding or None).
+    kv-head sharding is preferred; when the arch's kv heads cannot tile
+    the model axis, the sequence is sharded (the distributed decode
+    attention)."""
+    shapes = model.cache_shapes(dims)
+    if ctx is None:
+        return shapes, None
+    return shapes, SH.tree_shardings(model.cache_logical_axes(dims), shapes,
+                                     SH.cache_ctx(model.cfg, ctx),
+                                     for_weights=False)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,2 +1,3 @@
-"""Decoder LM family of the port: GQA and Mamba2 serving path."""
+"""The LM family of the port: every config, unsharded and sharded."""
 from .model import DecodeDims, Model, ModelConfig  # noqa: F401
+from .sharding import ParallelCtx  # noqa: F401

@@ -1,12 +1,24 @@
 """Model layers of the port: norm, rope, GQA attention (train / prefill /
 decode, optional qk-norm and sliding window, cross attention), MLA with
-its compressed cache, the SwiGLU MLP and the dropless top-k MoE.
+its compressed cache, the SwiGLU MLP and the top-k MoE, dropless and
+expert-parallel.
 
 Each layer is a function of a parameter mapping (name -> tensor) with
 the JAX package's names and layouts (`wq [d,h,hd]`, `wo [h,hd,d]`, ...),
 so the products read as they do there.  Every `init_*` returns such a
-mapping, drawn from a `torch.Generator` on the generator's device.  The
-sharded MoE paths (expert parallelism) wait for the port's `ParallelCtx`.
+mapping, drawn from a `torch.Generator` on the generator's device (or,
+from `META`, shaped tensors on the meta device and nothing drawn), and
+each has a table of the logical axes of its leaves (`*_AXES`, the
+reference's `Boxed(..., axes)` annotations), which `models/sharding`
+maps onto a mesh.  Logical axis vocabulary:
+    "embed"  d_model        "mlp"     d_ff           "vocab"  vocabulary
+    "heads"  q heads        "kv"      kv heads       "qkv"    per-head dim
+    "experts" MoE experts   "layers"  stacked layers  None     replicated
+
+The sharded bodies (`decode_attention_dist`, `moe_ep_local`,
+`moe_ep_stationary`: the reference's `shard_map` bodies) take each
+rank's local blocks and issue their collectives explicitly on the
+mesh's process groups (`models/sharding`).
 """
 from __future__ import annotations
 
@@ -16,9 +28,21 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as fops
+from . import sharding as SH
+
+
+class _Meta:
+    """Stands in for a generator: `init_*` then returns tensors of the
+    right shapes and dtypes on the meta device, drawing nothing."""
+    device = torch.device("meta")
+
+
+META = _Meta()
 
 
 def _norm(gen, shape, scale=0.02, dtype=torch.float32):
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32) * scale).to(dtype)
 
@@ -26,6 +50,9 @@ def _norm(gen, shape, scale=0.02, dtype=torch.float32):
 # ---------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------
+
+RMSNORM_AXES = {"w": ("embed",)}
+
 
 def init_rmsnorm(gen, d, dtype=torch.float32):
     return {"w": torch.ones((d,), dtype=dtype, device=gen.device)}
@@ -60,6 +87,12 @@ def rope(x, positions, theta=1e4):
 # Attention (GQA, optional qk-norm / sliding window; decode cache)
 # ---------------------------------------------------------------------
 
+ATTENTION_AXES = {
+    "wq": ("embed", "heads", "qkv"), "wk": ("embed", "kv", "qkv"),
+    "wv": ("embed", "kv", "qkv"), "wo": ("heads", "qkv", "embed"),
+    "qnorm": (None,), "knorm": (None,)}
+
+
 def init_attention(gen, cfg, dtype=torch.float32):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
@@ -80,15 +113,35 @@ def _head_rms(x, w, eps=1e-6):
     return (xf * w.float()).to(x.dtype)
 
 
-def _sdpa(q, k, v, mask, use_flash=False, window=None, causal=True):
+def _flash_shapes(tq, tk) -> bool:
+    """The shapes `_sdpa` hands to the flash kernel."""
+    return tq > 1 and tq % 128 == 0 and tk % 128 == 0
+
+
+def _sdpa(q, k, v, mask, use_flash=False, window=None, causal=True,
+          grouped=False):
     """q: [B,Tq,H,hd] k,v: [B,Tk,KV,hd]; mask [1,Tq,Tk] bool or None
-    (every key valid).  KV heads are repeated to the q heads at use; the
-    KV cache itself stays kv-sized.  When `use_flash` is set and shapes
-    allow, dispatches to the flash-attention kernel."""
+    (every key valid).
+
+    Default (head-sharded mode): KV heads are repeated to the q heads at
+    use; the KV cache itself stays kv-sized.  grouped=True (sequence-
+    parallel mode): the grouped [b, kv, g, q, s] layout, with no g-fold
+    KV copy.  When `use_flash` is set and shapes allow, dispatches to the
+    flash-attention kernel."""
     b, tq, h, hd = q.shape
-    g = h // k.shape[2]
-    if use_flash and tq > 1 and tq % 128 == 0 and k.shape[1] % 128 == 0:
+    kvh = k.shape[2]
+    g = h // kvh
+    if use_flash and _flash_shapes(tq, k.shape[1]):
         return fops.flash_attention(q, k, v, causal=causal, window=window)
+    if grouped and g > 1:
+        qg = q.reshape(b, tq, kvh, g, hd)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+        scores = scores / math.sqrt(hd)
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+        return out.reshape(b, tq, h, hd)
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
@@ -111,7 +164,7 @@ def project_kv(params, x):
 
 def attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
               window=None, cross_kv=None, causal=True, use_flash=False,
-              build_cache=False):
+              build_cache=False, ctx=None, seq=None):
     """Returns (out [B,T,D], new_cache).
 
     * training: cache=None, full sequence.
@@ -120,9 +173,18 @@ def attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
     * decode: x is [B,1,D]; cache = (k,v) with [B,S,KV,hd]; the new token
       is written into the cache ring at `cache_pos % S` **in place** (the
       reference returns an updated copy), then attends to all S entries.
+      With `ctx`, the cache is this rank's block of a cache sharded over
+      the model axis: along its kv heads (`sharding.kv_split`), decode
+      runs on the rank's heads and sums the output projection over the
+      axis; along its sequence, `decode_attention_dist`.
     * cross attention: cross_kv = (k, v) precomputed from the encoder:
       no rope, qk-norm on q only, every key valid, never the flash
       kernel, no cache written.
+    * sequence parallel (`seq`, a `sharding.SeqShard`): x and positions
+      are this rank's block of the sequence; k and v (and the key
+      positions) are all-gathered, the scores keep the local queries.
+      The flash kernel's causal mask starts q and k at 0, so with it the
+      queries are gathered too and the output cut back to the block.
     """
     b, t, d = x.shape
     h, hd = params["wq"].shape[1], params["wq"].shape[2]
@@ -137,11 +199,39 @@ def attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
         k = rope(k, positions, cfg.rope_theta)
     else:
         causal, use_flash = False, False
+    kpositions = positions
+    if seq is not None:
+        k, v, kpositions = seq.gather(k), seq.gather(v), seq.gather(positions)
 
     new_cache = None
     if build_cache:
         w = window or k.shape[1]
         new_cache = (k[:, -w:], v[:, -w:])
+    if cache is not None and ctx is not None and t == 1 \
+            and cross_kv is None:
+        if SH.kv_split(cfg, ctx):
+            # kv-head-sharded cache: this rank's kv heads and the query
+            # heads of their groups (the cache stays put, the output
+            # projection's partial sums are reduced)
+            ck, cv = cache
+            kvl, m = ck.shape[2], ctx.mesh_shape[ctx.model_axis]
+            g = h // k.shape[2]
+            i = ctx.mesh.get_local_rank(ctx.model_axis)
+            pos = cache_pos % ck.shape[1]
+            ck[:, pos:pos + 1] = k[:, :, i * kvl:(i + 1) * kvl].to(ck.dtype)
+            cv[:, pos:pos + 1] = v[:, :, i * kvl:(i + 1) * kvl].to(cv.dtype)
+            hs = slice(i * kvl * g, (i + 1) * kvl * g)
+            out = _sdpa(q[:, :, hs], ck, cv, None, grouped=cfg.seq_parallel)
+            out = out.reshape(b, t, -1) @ params["wo"][hs].reshape(-1, d)
+            if m > 1:
+                SH.all_reduce(out, ctx.mesh, ctx.model_axis)
+            return out, (ck, cv)
+        # seq-sharded cache: distributed decode attention (the cache
+        # stays put, the softmax statistics are reduced)
+        out, new_cache = decode_attention_dist(params, q, k, v, cache,
+                                               cache_pos, cfg, ctx)
+        out = out.reshape(b, t, h * hd) @ params["wo"].reshape(h * hd, d)
+        return out, new_cache
     if cache is not None:
         ck, cv = cache
         s = ck.shape[1]
@@ -156,7 +246,7 @@ def attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
     else:
         # positions are identical across the batch in train/prefill
         qpos = positions[:1, :, None]
-        kpos = positions[:1, None, :]
+        kpos = kpositions[:1, None, :]
         if causal:
             mask = qpos >= kpos
             if window is not None:
@@ -164,15 +254,70 @@ def attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
         else:
             mask = None
 
-    out = _sdpa(q, k, v, mask, use_flash=use_flash, window=window,
-                causal=causal and cache is None)
+    causal = causal and cache is None
+    if seq is not None and use_flash and _flash_shapes(k.shape[1],
+                                                       k.shape[1]):
+        out = seq.local(_sdpa(seq.gather(q), k, v, None, use_flash=True,
+                              window=window, causal=causal))
+    else:
+        out = _sdpa(q, k, v, mask, use_flash=use_flash, window=window,
+                    causal=causal, grouped=cfg.seq_parallel)
     out = out.reshape(b, t, h * hd) @ params["wo"].reshape(h * hd, d)
     return out, new_cache
+
+
+def decode_attention_dist(params, q, k_new, v_new, cache, pos, cfg, ctx):
+    """Distributed decode attention over a sequence-sharded KV cache (the
+    reference's `shard_map` body, on this rank's blocks).
+
+    When the kv heads do not tile the model axis, the cache is sharded
+    along its sequence over "model".  The cache stays where it is: each
+    model rank scores its slice, only the online-softmax statistics (a
+    max-reduce of the scores' maximum, sum-reduces of the denominator
+    and of the float32 output) cross the ranks, and the fresh token's k
+    / v is written, in place, by the rank that owns its ring slot.
+
+    q: [b,1,H,hd]; k_new/v_new: [b,1,KV,hd]; cache=(ck,cv) [b,S/m,KV,hd],
+    all this rank's blocks (the batch as the activations lie).  `pos` is
+    the token's absolute position (a host integer).  Returns (out
+    [b,1,H,hd], (ck, cv)).
+    """
+    mesh, maxis = ctx.mesh, ctx.model_axis
+    i = mesh.get_local_rank(maxis)
+    m = ctx.mesh_shape[maxis]
+    ck, cv = cache
+    hd = q.shape[-1]
+    s_loc = ck.shape[1]
+    loc = pos % (s_loc * m)
+    if loc // s_loc == i:                        # this rank owns the slot
+        ck[:, loc % s_loc] = k_new[:, 0].to(ck.dtype)
+        cv[:, loc % s_loc] = v_new[:, 0].to(cv.dtype)
+    bq, _, h, _ = q.shape
+    kvh = ck.shape[2]
+    g = h // kvh
+    qg = q.reshape(bq, 1, kvh, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                     ck.float()) / math.sqrt(hd)
+    mx = SH.all_reduce(s.amax(dim=-1, keepdim=True), mesh, maxis, "max")
+    p = torch.exp(s - mx)
+    denom = SH.all_reduce(p.sum(dim=-1, keepdim=True), mesh, maxis)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), cv)
+    o = SH.all_reduce(o.float(), mesh, maxis)
+    dn = denom[:, :, :, 0, 0]                    # [b, kv, g]
+    o = (o / dn[:, None, :, :, None]).to(q.dtype)
+    return o.reshape(bq, 1, h, hd), (ck, cv)
 
 
 # ---------------------------------------------------------------------
 # MLA — multi-head latent attention (MiniCPM3 / DeepSeek style)
 # ---------------------------------------------------------------------
+
+MLA_AXES = {
+    "wdq": ("embed", None), "wuq": (None, "heads", "qkv"),
+    "wdkv": ("embed", None), "wukv": (None, "heads", "qkv"),
+    "wkr": ("embed", None), "wo": ("heads", "qkv", "embed"),
+    "qnorm": (None,), "kvnorm": (None,)}
+
 
 def init_mla(gen, cfg, dtype=torch.float32):
     d, h = cfg.d_model, cfg.n_heads
@@ -192,7 +337,7 @@ def init_mla(gen, cfg, dtype=torch.float32):
 
 
 def mla_attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
-                  build_cache=False):
+                  build_cache=False, seq=None, ctx=None):
     """MLA with the compressed-KV cache (c_kv + one k_rope head shared by
     all heads): cache = (c_kv [B,S,kv_lora], k_rope [B,S,rope_dim]).
 
@@ -200,7 +345,14 @@ def mla_attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
     `cache_pos % S` in place and attends to all S slots without a mask.
     The scores are the nope and rope products summed in float32, scaled
     by 1/sqrt(nope + rope) (not the head dim of `cfg.hd`), so MLA never
-    goes through `_sdpa` or the flash kernel."""
+    goes through `_sdpa` or the flash kernel.  With `seq` (sequence
+    parallel), x and positions are this rank's block of the sequence and
+    the compressed cache entries are all-gathered, as `attention` does.
+    With `ctx` (decode), the cache is this rank's block of a cache
+    sequence-sharded over the model axis and stays put, as in
+    `decode_attention_dist`: the rank that owns the ring slot writes it,
+    and the softmax's max, denominator and float32 output are reduced
+    over the axis."""
     b, t, d = x.shape
     h, dn, dr = cfg.n_heads, cfg.mla_nope_dim, cfg.mla_rope_dim
     qr, kvr = params["wdq"].shape[1], params["wdkv"].shape[1]
@@ -214,15 +366,27 @@ def mla_attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
     ckv = _head_rms(x @ params["wdkv"], params["kvnorm"])
     krope = rope((x @ params["wkr"])[:, :, None, :], positions,
                  cfg.rope_theta)[:, :, 0, :]
+    kpositions = positions
+    if seq is not None:
+        ckv, krope = seq.gather(ckv), seq.gather(krope)
+        kpositions = seq.gather(positions)
 
     new_cache = None
     if build_cache:
         new_cache = (ckv, krope)
+    dist = cache is not None and ctx is not None and t == 1
     if cache is not None:
         c_ckv, c_kr = cache
-        pos = cache_pos % c_ckv.shape[1]
-        c_ckv[:, pos:pos + t] = ckv.to(c_ckv.dtype)
-        c_kr[:, pos:pos + t] = krope.to(c_kr.dtype)
+        s_loc = c_ckv.shape[1]
+        pos, own = cache_pos % s_loc, True
+        if dist:
+            m = ctx.mesh_shape[ctx.model_axis]
+            loc = cache_pos % (s_loc * m)
+            pos = loc % s_loc
+            own = loc // s_loc == ctx.mesh.get_local_rank(ctx.model_axis)
+        if own:
+            c_ckv[:, pos:pos + t] = ckv.to(c_ckv.dtype)
+            c_kr[:, pos:pos + t] = krope.to(c_kr.dtype)
         new_cache = (c_ckv, c_kr)
         ckv, krope = c_ckv, c_kr
 
@@ -236,10 +400,20 @@ def mla_attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
               torch.einsum("bthk,bsk->bhts", q_rope.float(), krope.float()))
     scores = scores / math.sqrt(dn + dr)
     if cache is None:
-        mask = positions[:1, None, :, None] >= positions[:1, None, None, :]
+        mask = positions[:1, None, :, None] >= kpositions[:1, None, None, :]
         scores = scores.masked_fill(~mask, -1e30)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhts,bshk->bthk", w, v)
+    if dist:
+        mesh, maxis = ctx.mesh, ctx.model_axis
+        mx = SH.all_reduce(scores.amax(dim=-1, keepdim=True), mesh, maxis,
+                           "max")
+        p = torch.exp(scores - mx)
+        denom = SH.all_reduce(p.sum(dim=-1, keepdim=True), mesh, maxis)
+        out = torch.einsum("bhts,bshk->bthk", p.to(x.dtype), v)
+        out = SH.all_reduce(out.float(), mesh, maxis)
+        out = (out / denom[:, :, :, 0, None].transpose(1, 2)).to(x.dtype)
+    else:
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bhts,bshk->bthk", w, v)
     out = out.reshape(b, t, h * dn) @ params["wo"].reshape(h * dn, d)
     return out, new_cache
 
@@ -247,6 +421,10 @@ def mla_attention(params, x, cfg, *, positions, cache=None, cache_pos=None,
 # ---------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------
+
+MLP_AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
+
 
 def init_mlp(gen, d, f, dtype=torch.float32):
     return {
@@ -263,8 +441,15 @@ def mlp(params, x):
 
 
 # ---------------------------------------------------------------------
-# MoE: top-k routing, dropless (sort by expert, grouped products)
+# MoE: top-k routing.
+#   * dropless: sort by expert, grouped products (`moe_ragged`)
+#   * expert parallel: capacity-based selection per expert on each model
+#     rank and a sum-reduce combine (`moe_ep_local`, `moe_ep_stationary`)
 # ---------------------------------------------------------------------
+
+MOE_AXES = {"router": ("embed", None), "wi": ("experts", "embed", "mlp"),
+            "wg": ("experts", "embed", "mlp"),
+            "wo": ("experts", "mlp", "embed")}
 
 def init_moe(gen, cfg, dtype=torch.float32):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
@@ -276,12 +461,13 @@ def init_moe(gen, cfg, dtype=torch.float32):
     }
 
 
-def _router(params, x, cfg):
-    """(top_p [B,T,k] renormalised, top_e [B,T,k], aux) from float32
-    router logits.  Ties go to the lower expert index, as
-    `jax.lax.top_k` breaks them (a stable descending sort); aux is the
-    Switch load-balancing loss E * sum(me * ce)."""
-    e, k = cfg.n_experts, cfg.top_k
+def _route(params, x, cfg):
+    """(top_p [B,T,k] renormalised, top_e [B,T,k], me [E], ce [E]) from
+    float32 router logits.  Ties go to the lower expert index, as
+    `jax.lax.top_k` breaks them (a stable descending sort); me is the
+    mean router probability and ce the share of the (token, expert)
+    pairs of each expert, the Switch load-balancing loss's factors."""
+    k = cfg.top_k
     logits = x.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -292,7 +478,14 @@ def _router(params, x, cfg):
     ce = torch.zeros_like(me).index_add_(
         0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
                             device=flat.device))
-    return top_p, top_e, e * torch.sum(me * ce)
+    return top_p, top_e, me, ce
+
+
+def _router(params, x, cfg):
+    """(top_p, top_e, aux) with aux the Switch load-balancing loss
+    E * sum(me * ce) (`_route`)."""
+    top_p, top_e, me, ce = _route(params, x, cfg)
+    return top_p, top_e, cfg.n_experts * torch.sum(me * ce)
 
 
 def _segment_ends(counts) -> list:
@@ -357,3 +550,103 @@ def moe_ragged(params, x, cfg, route=None):
     y = y[torch.argsort(order)].reshape(b * t, k, d)
     y = (y * top_p.reshape(b * t, k, 1).to(y.dtype)).sum(1)
     return y.reshape(b, t, d), aux
+
+
+def moe_capacity(tokens: int, cfg) -> int:
+    """Tokens each expert takes in the expert-parallel paths, on the host
+    as the reference computes it (Python's `round`, half to even), so the
+    selection keeps a static shape."""
+    return int(min(tokens, max(1, round(tokens * cfg.top_k *
+                                        cfg.capacity_factor /
+                                        cfg.n_experts))))
+
+
+def _ep_experts(params, xt, pe, pp, cfg, e0: int, cap: int, dtype):
+    """The per-expert loop of both expert-parallel bodies: for each local
+    (virtual) expert `e0 + le`, the `cap` tokens with the largest gate
+    weight (ties to the lower token index, as `jax.lax.top_k`; untouched
+    tokens score -1), its SwiGLU on them, and the gated output summed in
+    float32 into a [N, D] buffer."""
+    s = cfg.moe_virtual_split
+    outs = torch.zeros(xt.shape, dtype=torch.float32, device=xt.device)
+    for le in range(params["wi"].shape[0]):
+        eid = (e0 + le) // s                          # real expert id
+        w = torch.where(pe == eid, pp, 0.0).sum(-1)   # [N] gate weight
+        score = torch.where(w > 0, w, -1.0)
+        sel = torch.sort(score, descending=True, stable=True)[1][:cap]
+        xe = xt[sel]                                  # [cap, d]
+        h = xe @ params["wi"][le]
+        g = xe @ params["wg"][le]
+        ye = (F.silu(g) * h).to(dtype) @ params["wo"][le]
+        outs.index_add_(0, sel, ye.float() * w[sel][:, None])
+    return outs
+
+
+def moe_ep_local(params, x, cfg, mesh, axis_name, e_par, f_par,
+                 stats_axes=()):
+    """Expert parallelism over `axis_name` (the reference's `shard_map`
+    body, on this rank's blocks).
+
+    Each rank owns E_virt / e_par *virtual* experts (an expert split
+    `moe_virtual_split` ways along d_ff when E < the model axis), params
+    `wi`/`wg` [e_loc, D, F/s] and `wo` [e_loc, F/s, D] its block and the
+    router whole; x [b, t, D] is this rank's batch, whole over the axis.
+    Each expert takes `moe_capacity(b*t)` tokens (the rest are dropped),
+    and a sum-reduce over the axis combines the experts' contributions
+    and the d_ff partials.  The aux loss's factors are averaged over
+    `stats_axes` (the mesh axes the batch is split over), so it is the
+    whole batch's, as the unsharded model's.  Returns (y [b, t, D], aux).
+    """
+    b, t, d = x.shape
+    e_loc = params["wi"].shape[0]
+    cap = moe_capacity(b * t, cfg)
+    top_p, top_e, me, ce = _route(params, x, cfg)
+    if stats_axes:
+        both = SH.all_reduce(torch.stack([me, ce]), mesh, stats_axes)
+        me, ce = both / math.prod(SH.mesh_shape(mesh)[a]
+                                  for a in stats_axes)
+    aux = cfg.n_experts * torch.sum(me * ce)
+    idx = mesh.get_local_rank(axis_name)
+    my_e0 = (idx // f_par) * e_loc
+    outs = _ep_experts(params, x.reshape(b * t, d),
+                       top_e.reshape(b * t, -1), top_p.reshape(b * t, -1),
+                       cfg, my_e0, cap, x.dtype)
+    outs = SH.all_reduce(outs, mesh, axis_name)
+    return outs.reshape(b, t, d).to(x.dtype), aux
+
+
+def moe_ep_stationary(params, x, cfg, ctx, batch=None):
+    """Weight-stationary MoE for serving (few tokens, large experts).
+
+    Experts shard over the model axis AND their d_ff over "data" (`wi`,
+    `wg` (model, None, data), `wo` (model, data, None)); the token
+    activations are all-gathered over "data", each rank computes its
+    (expert, d_ff slice) contribution, and a sum-reduce over "model" and
+    a reduce-scatter over "data" (a sum-reduce when the batch does not
+    lie on "data") reassemble this rank's batch.  params: DTensors, or
+    full tensors that every rank holds; x [b, t, D] this rank's batch
+    block of a global batch of `batch` rows (default b).  Returns (y [b,
+    t, D], aux)."""
+    mesh, maxis, daxis = ctx.mesh, ctx.model_axis, "data"
+    bl, t, d = x.shape
+    bspec = SH.batch_spec(ctx, bl if batch is None else batch, 3)
+    batch_on_data = daxis in SH.entry_axes(bspec[0])
+    xg = SH.gather_dim(x, mesh, daxis, 0) if batch_on_data else x
+    bg = xg.shape[0]
+    cap = moe_capacity(bg * t, cfg)
+    lp = {"router": SH.full(params["router"])}
+    for nm, spec in (("wi", (maxis, None, daxis)),
+                     ("wg", (maxis, None, daxis)),
+                     ("wo", (maxis, daxis, None))):
+        lp[nm] = SH.to_local(params[nm], mesh, SH.Spec(spec))
+    top_p, top_e, aux = _router(lp, xg, cfg)
+    my_e0 = mesh.get_local_rank(maxis) * lp["wi"].shape[0]
+    outs = _ep_experts(lp, xg.reshape(bg * t, d),
+                       top_e.reshape(bg * t, -1), top_p.reshape(bg * t, -1),
+                       cfg, my_e0, cap, x.dtype)
+    outs = SH.all_reduce(outs, mesh, maxis)
+    if batch_on_data:
+        outs = SH.reduce_scatter_dim(outs, mesh, daxis, 0)
+    else:
+        outs = SH.all_reduce(outs, mesh, daxis)
+    return outs.reshape(bl, t, d).to(x.dtype), aux

@@ -17,6 +17,20 @@ parameters; `loss_fn` is differentiable in an explicit parameter tree
 says.  The MoE layers' load-balancing aux loss is summed over layers:
 `logits_fn(..., return_aux=True)` returns it, and `loss_fn` adds
 `0.01 * aux`, as the JAX package does.
+
+`Model(cfg, ctx)` with a `sharding.ParallelCtx` is the sharded model:
+each parameter is a DTensor holding this rank's block, laid out by
+`launch.steps.param_shardings`; at use a layer's dense leaves are
+gathered whole (FSDP-style), while the MoE experts stay blocks for the
+expert-parallel paths (`layers.moe_ep_stationary` for b*t <= 2048
+tokens, else `layers.moe_ep_local`), and a decode over a cache
+sequence-sharded over "model" runs `layers.decode_attention_dist`.
+Activations are this rank's batch block (`_bshard`), and its sequence
+block under sequence parallelism (set when the q heads do not tile the
+model axis, as in the reference).  Entry points take and return global
+tensors, the same on every rank; caches are DTensors laid out by
+`launch.steps.cache_specs`.  The flash and SSD kernels run on each
+rank's blocks, through the same wrappers as unsharded.
 """
 from __future__ import annotations
 
@@ -32,6 +46,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import tree as T
 from . import layers as L
+from . import sharding as SH
 from . import ssm as S
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +94,8 @@ class ModelConfig:
     use_flash_kernel: bool = False
     use_ssd_kernel: bool = False
     scan_unroll: int = 1               # dry-run cost extrapolation knob
-    seq_parallel: bool = False         # sharded path, not ported
+    seq_parallel: bool = False         # set by Model when heads don't
+                                       # tile the model axis (see __init__)
 
     @property
     def hd(self):
@@ -183,12 +199,41 @@ def init_layer(gen, spec, cfg: ModelConfig, cross: bool = False) -> dict:
     return p
 
 
-def make_moe_apply(cfg: ModelConfig):
-    """fn(params, x) -> (y, aux): the dropless MoE.  With
+def make_moe_apply(cfg: ModelConfig, ctx=None, *, batch=None, seq=None):
+    """fn(params, x) -> (y, aux).  Without `ctx` the dropless MoE; with
     `moe_virtual_split` s > 1 the E real experts are reassembled from
     their E * s virtual slices first, as the reference's unsharded path
-    does."""
+    does.  With `ctx`, expert parallelism over the model axis: params are
+    DTensors (or full tensors every rank holds), x this rank's batch
+    block of a global batch of `batch` rows (and, with `seq`, its
+    sequence block, gathered first); `moe_ep_stationary` when the
+    global b*t <= 2048, else `moe_ep_local` on the experts' blocks."""
     s, e = cfg.moe_virtual_split, cfg.n_experts
+    if ctx is not None:
+        mesh, maxis = ctx.mesh, ctx.model_axis
+        m = ctx.mesh_shape[maxis]
+        if (e * s) % m:
+            raise ValueError(f"{cfg.name}: {e * s} (virtual) experts do not "
+                             f"tile the model axis of {m}")
+
+        def apply(params, x):
+            if seq is not None:
+                x = seq.gather(x)
+            bl, t, _ = x.shape
+            b = bl if batch is None else batch
+            if b * t <= 2048:
+                # serving / few tokens: weight-stationary expert parallelism
+                y, aux = L.moe_ep_stationary(params, x, cfg, ctx, batch=b)
+            else:
+                lp = {"router": SH.full(params["router"])}
+                for nm in ("wi", "wg", "wo"):
+                    lp[nm] = SH.to_local(params[nm], mesh,
+                                         SH.Spec((maxis, None, None)))
+                y, aux = L.moe_ep_local(
+                    lp, x, cfg, mesh, maxis, e_par=m, f_par=1,
+                    stats_axes=SH.entry_axes(SH.batch_spec(ctx, b, 3)[0]))
+            return (y if seq is None else seq.local(y)), aux
+        return apply
     if s == 1:
         return lambda params, x: L.moe_ragged(params, x, cfg)
 
@@ -204,27 +249,31 @@ def make_moe_apply(cfg: ModelConfig):
 
 
 def apply_layer(spec, p, x, cfg: ModelConfig, *, positions, cache,
-                cache_pos, enc_out=None, moe_apply=None, build=False):
+                cache_pos, enc_out=None, moe_apply=None, build=False,
+                attn_ctx=None, seq=None):
     """One layer -> (x, new_cache, aux).  A decoder layer of an
     encoder-decoder (it holds `xattn`) attends to `enc_out` [B, Te, D]
     in training and prefill, and to the cross (k, v) that closes its
     cache entry in decode; its new cache entry ends with that (k, v),
     passed on unchanged.  aux is the MoE layer's load-balancing loss
     (through `moe_apply`, `make_moe_apply(cfg)`), None for the other
-    layers."""
+    layers.  `attn_ctx`: the self-attention (or MLA) cache is this rank's
+    block of a cache sharded over the model axis (decode on the block);
+    `seq`: x is this rank's sequence block (`sharding.SeqShard`)."""
     h = L.rms_norm(p["ln1"], x)
     if spec["kind"] == "attn":
         c_self = cache[0] if cache is not None else None
         out, nc = L.attention(
             p["attn"], h, cfg, positions=positions, cache=c_self,
             cache_pos=cache_pos, window=spec["window"] or None,
-            use_flash=cfg.use_flash_kernel, build_cache=build)
+            use_flash=cfg.use_flash_kernel, build_cache=build,
+            ctx=attn_ctx, seq=seq)
         new_cache = (nc,)
     elif spec["kind"] == "mla":
         c_self = cache[0] if cache is not None else None
         out, nc = L.mla_attention(
             p["attn"], h, cfg, positions=positions, cache=c_self,
-            cache_pos=cache_pos, build_cache=build)
+            cache_pos=cache_pos, build_cache=build, seq=seq, ctx=attn_ctx)
         new_cache = (nc,)
     else:
         st = cache[0] if cache is not None else None
@@ -276,14 +325,31 @@ REMAT_CONTEXT = {
 class Model(nn.Module):
     """The LM (decoder or encoder-decoder).  `Model(cfg)` is empty;
     `init(generator)` draws the parameters on the generator's device (or
-    `convert.params_from_reference` loads the JAX package's)."""
+    `convert.params_from_reference` loads the JAX package's).  With a
+    `ctx` (`sharding.ParallelCtx` on a DeviceMesh) it is the sharded
+    model of the module's docstring."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, ctx=None):
         super().__init__()
         if cfg.arch_kind not in ("decoder", "encdec"):
             raise ValueError(f"arch_kind must be decoder or encdec, not "
                              f"{cfg.arch_kind!r}")
+        # Sequence parallelism: when the q-head count does not tile the
+        # model axis (gemma3: 4, starcoder2: 24, minicpm3: 40 vs 16),
+        # head sharding fails; sharding the *sequence* over the model
+        # axis keeps attention distributed (k/v are all-gathered).
+        if ctx is not None and cfg.attn_kind in ("gqa", "mla") and \
+                cfg.attn_every == 0 and \
+                cfg.n_heads % ctx.mesh_shape[ctx.model_axis] != 0:
+            cfg = dataclasses.replace(cfg, seq_parallel=True)
+        if ctx is not None and cfg.seq_parallel and \
+                ctx.mesh_shape[ctx.model_axis] > 1 and (
+                    cfg.arch_kind == "encdec" or cfg.attn_every):
+            raise NotImplementedError(
+                f"{cfg.name}: sequence parallelism over a model axis of "
+                f"more than one rank covers attention-only decoders")
         self.cfg = cfg
+        self.ctx = ctx            # ParallelCtx or None
         self.specs = cfg.layer_specs()
         self.cross = cfg.arch_kind == "encdec"
         self.register_parameter("embed", None)
@@ -294,7 +360,20 @@ class Model(nn.Module):
         self._compute = None
 
     @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "Model":
+    def init(self, generator, serving_mode: str = "train") -> "Model":
+        """Draw the parameters from `generator` (on its device); with a
+        ctx, every rank draws them whole, then keeps its blocks as
+        `launch.steps.param_shardings(self, ctx, serving_mode)` lays
+        them out."""
+        self._draw(generator)
+        if self.ctx is not None:
+            from ..launch.steps import param_shardings
+            self.place(param_shardings(self, self.ctx, serving_mode)[1])
+        return self
+
+    @torch.no_grad()
+    def _draw(self, generator) -> "Model":
+        """The parameters, whole (`layers.META`: meta tensors, no draws)."""
         cfg = self.cfg
 
         def module(tree):
@@ -317,6 +396,29 @@ class Model(nn.Module):
         self._compute = None
         return self
 
+    @torch.no_grad()
+    def place(self, shardings) -> "Model":
+        """Lay each parameter out as `shardings` (a tree shaped like
+        `param_tree()` of `sharding.Sharding`) says: a whole tensor is cut
+        to this rank's block (no collective), a DTensor redistributed."""
+        want = dict(T.leaves_with_paths(shardings, is_leaf=SH.is_sharding))
+        for path, _ in T.leaves_with_paths(self.param_tree()):
+            owner = self
+            for key in path[:-1]:
+                owner = getattr(owner, key) if owner is self else owner[key]
+            old = getattr(owner, path[-1]) if owner is self \
+                else owner[path[-1]]
+            sh = want[path]
+            new = nn.Parameter(SH.distribute(old.detach(), sh.mesh, sh.spec),
+                               requires_grad=old.requires_grad)
+            if owner is self:
+                setattr(self, path[-1], new)
+            else:
+                owner[path[-1]] = new
+            del old
+        self._compute = None
+        return self
+
     # The JAX package casts every float32 parameter to the compute dtype
     # on every call (`Model._cast`).  Serving keeps one compute-dtype copy
     # instead, made at the first call after `init`, `load_state_dict`, a
@@ -325,7 +427,8 @@ class Model(nn.Module):
     # weights too).  Change parameters only through those or followed by
     # `drop_compute_copy`, or the copy goes stale.  Training never reads
     # it: its step casts the masters itself, once per step, and
-    # differentiates with respect to that cast (`launch.steps`).
+    # differentiates with respect to that cast (`launch.steps`).  With a
+    # ctx the copy holds this rank's blocks.
     def _apply(self, fn, *args, **kwargs):
         self._compute = None
         return super()._apply(fn, *args, **kwargs)
@@ -371,6 +474,90 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    # ---- the sharded layout (ctx) -----------------------------------------
+    def _at_use(self, lp: dict) -> dict:
+        """A layer's parameters as its functions take them: with a ctx,
+        each leaf gathered whole (FSDP-style) but the MoE experts, which
+        the expert-parallel paths take as blocks."""
+        if self.ctx is None:
+            return lp
+        return {g: {n: t if g == "moe" and n != "router" else SH.full(t)
+                    for n, t in grp.items()} for g, grp in lp.items()}
+
+    def _seq(self, t: int):
+        """The `SeqShard` of a sequence of `t` under sequence parallelism
+        (None unless the model axis has more than one rank and divides
+        t, so a decode step's single token is never split)."""
+        if self.ctx is None or not self.cfg.seq_parallel:
+            return None
+        m = self.ctx.mesh_shape[self.ctx.model_axis]
+        return (SH.SeqShard(self.ctx.mesh, self.ctx.model_axis)
+                if m > 1 and t % m == 0 else None)
+
+    def _bshard(self, x, seq=None):
+        """This rank's block of a global activation [B, T, ...]: the batch
+        as `batch_spec` splits it and, with `seq`, the sequence over the
+        model axis (a slice; every rank holds the global tensor)."""
+        if self.ctx is None:
+            return x
+        spec = SH.batch_spec(self.ctx, x.shape[0], x.ndim)
+        if seq is not None:
+            spec = SH.Spec((spec[0], self.ctx.model_axis) + spec[2:])
+        return SH.local_shard(x, self.ctx.mesh, spec)
+
+    def _logits_shard(self, logits, batch: int, seq=None):
+        """The global logits, which every rank returns, from this rank's
+        block (batch rows as `batch_spec` splits `batch`, and the sequence
+        block with `seq`; the vocabulary is whole on every rank)."""
+        if self.ctx is None:
+            return logits
+        if seq is not None:
+            logits = seq.gather(logits)
+        bs = SH.batch_spec(self.ctx, batch, logits.ndim)[0]
+        return SH.gather_dim(logits, self.ctx.mesh, bs, 0) if bs else logits
+
+    def _cache_in(self, entry, spec):
+        """A layer's cache entry of DTensors as its functions take it:
+        (entry, ctx).  A self-attention cache sharded over the model axis
+        (attention: along its sequence or its kv heads; MLA: along its
+        sequence) stays this rank's blocks and ctx is returned (decode
+        runs on the blocks); every other leaf, the Mamba2 state and conv
+        window and the cross (k, v), is gathered to the batch block (ctx
+        None)."""
+        from torch.distributed.tensor import Replicate
+        leaves = T.leaves(entry)
+        dist = spec["kind"] in ("attn", "mla") and any(
+            p.is_shard() and p.dim in (1, 2) for p in leaves[0].placements)
+        out = []
+        for j, c in enumerate(leaves):
+            if dist and j < 2:
+                out.append(c.to_local())
+            else:
+                keep = [p if p.is_shard() and p.dim == 0 else Replicate()
+                        for p in c.placements]
+                out.append(c.redistribute(c.device_mesh, keep).to_local())
+        return T.unflatten(entry, out), (self.ctx if dist else None)
+
+    def _place_cache(self, entry, axes, batch: int):
+        """A layer's cache entry of batch blocks (whole otherwise) as
+        DTensors laid out by `cache_specs`' rules; DTensor leaves pass as
+        they are."""
+        from torch.distributed.tensor import DTensor
+        ctx = self.ctx
+        rules = SH.cache_ctx(self.cfg, ctx).rules(for_weights=False)
+        sizes, mesh = ctx.mesh_shape, ctx.mesh
+        out = []
+        for t, ax in zip(T.leaves(entry),
+                         T.leaves(axes, is_leaf=SH.is_axes_leaf)):
+            if not isinstance(t, DTensor):
+                spec = SH._spec_for(ax, (batch,) + tuple(t.shape[1:]), rules,
+                                    sizes)
+                t = DTensor.from_local(
+                    SH.local_shard(t, mesh, SH.Spec((None,) + spec[1:])),
+                    mesh, SH.placements(mesh, spec), run_check=False)
+            out.append(t)
+        return T.unflatten(entry, out)
+
     def _encode(self, p, frames):
         """The encoder over frame embeddings [B, Te, D]: non-causal
         attention with rope, never the flash kernel, then enc_norm.  Not
@@ -380,28 +567,49 @@ class Model(nn.Module):
             raise ValueError(f"{self.cfg.name} is an encoder-decoder: it "
                              f"needs frames [B, T, d_model]")
         cfg = self.cfg
-        x = frames.to(device=self.device, dtype=cfg.compute_dtype)
+        x = self._bshard(frames.to(device=self.device,
+                                   dtype=cfg.compute_dtype))
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         for lp in p["enc_layers"]:
+            lp = self._at_use(lp)
             h = L.rms_norm(lp["ln1"], x)
             out, _ = L.attention(lp["attn"], h, cfg, positions=positions,
                                  causal=False)
             x = x + out
             x = x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x))
-        return L.rms_norm(p["enc_norm"], x)
+        return L.rms_norm({"w": SH.full(p["enc_norm"]["w"])}, x)
 
     def _run_layers(self, p, x, *, positions, caches, cache_pos,
-                    enc_out=None, build=False):
-        """-> (x, new caches in layer order, summed aux or None)."""
-        moe_apply = make_moe_apply(self.cfg) if self.cfg.n_experts else None
+                    enc_out=None, build=False, batch=None, seq=None):
+        """-> (x, new caches in layer order, summed aux or None).  With a
+        ctx, `batch` is the global batch, `seq` the sequence split, and
+        the caches are DTensors (in and out)."""
+        from torch.distributed.tensor import DTensor
+        cfg, ctx = self.cfg, self.ctx
+        moe_apply = (make_moe_apply(cfg, ctx, batch=batch, seq=seq)
+                     if cfg.n_experts else None)
+        axes = (self.cache_logical_axes(None)
+                if ctx is not None and (build or caches is not None)
+                else None)
         new_caches, aux = [], None
         for i, spec in enumerate(self.specs):
             c = caches[i] if caches is not None else None
-            x, nc, a = apply_layer(spec, p["layers"][i], x, self.cfg,
-                                   positions=positions, cache=c,
+            attn_ctx = None
+            if ctx is not None and c is not None:
+                old, (c, attn_ctx) = c, self._cache_in(c, spec)
+            x, nc, a = apply_layer(spec, self._at_use(p["layers"][i]), x,
+                                   cfg, positions=positions, cache=c,
                                    cache_pos=cache_pos, enc_out=enc_out,
-                                   moe_apply=moe_apply, build=build)
+                                   moe_apply=moe_apply, build=build,
+                                   attn_ctx=attn_ctx, seq=seq)
+            if axes is not None:
+                if attn_ctx is not None:       # the blocks stay in place
+                    olds = T.leaves(old)
+                    nc = (tuple(DTensor.from_local(
+                        t, ctx.mesh, o.placements, run_check=False)
+                        for t, o in zip(nc[0], olds)),) + nc[1:]
+                nc = self._place_cache(nc, axes[i], batch)
             new_caches.append(nc)
             if a is not None:
                 aux = a if aux is None else aux + a
@@ -440,15 +648,23 @@ class Model(nn.Module):
         return x, aux
 
     def _embed(self, p, tokens):
-        return p["embed"][tokens].to(self.cfg.compute_dtype)
+        return SH.full(p["embed"])[tokens].to(self.cfg.compute_dtype)
 
-    def _start(self, p, tokens, frames):
-        """(embedded tokens, positions, encoder output or None)."""
+    def _start(self, p, tokens, frames, seq=None):
+        """(embedded tokens, positions, encoder output or None); with a
+        ctx, of this rank's block of `tokens`."""
         b, t = tokens.shape
+        positions = torch.arange(t, device=self.device)[None].expand(b, t)
+        tokens, positions = self._bshard(tokens, seq), \
+            self._bshard(positions, seq)
         x = self._embed(p, tokens)
-        positions = torch.arange(t, device=x.device)[None].expand(b, t)
         enc_out = self._encode(p, frames) if self.cross else None
         return x, positions, enc_out
+
+    def _head(self, p, x):
+        """final_norm, then the logits against the embedding."""
+        x = L.rms_norm({"w": SH.full(p["final_norm"]["w"])}, x)
+        return x @ SH.full(p["embed"]).T
 
     # ---- entry points -----------------------------------------------------
     @torch.no_grad()
@@ -459,11 +675,12 @@ class Model(nn.Module):
         load-balancing loss, a float32 scalar (0 without MoE layers), as
         the JAX package's `logits_fn` returns it."""
         p = self._cast()
-        x, positions, enc_out = self._start(p, tokens, frames)
+        seq = self._seq(tokens.shape[1])
+        x, positions, enc_out = self._start(p, tokens, frames, seq)
         x, _, aux = self._run_layers(p, x, positions=positions, caches=None,
-                                     cache_pos=None, enc_out=enc_out)
-        x = L.rms_norm(p["final_norm"], x)
-        logits = x @ p["embed"].T
+                                     cache_pos=None, enc_out=enc_out,
+                                     batch=tokens.shape[0], seq=seq)
+        logits = self._logits_shard(self._head(p, x), tokens.shape[0], seq)
         if not return_aux:
             return logits
         if aux is None:
@@ -477,18 +694,42 @@ class Model(nn.Module):
         `repro.models.Model.loss_fn`; differentiable in `params`, a tree
         as `param_tree` gives (float32 leaves are cast to the compute
         dtype; leaves already in it are used as they are).  log_softmax
-        in float32."""
+        in float32.  With a ctx it is forward-only (the sharded train step
+        is not ported): call it under `torch.no_grad()`; each rank sums
+        its block and the sums are all-reduced."""
         cd = self.cfg.compute_dtype
         p = T.tree_map(lambda t: _to_compute(t, cd), params)
         tokens = batch["tokens"].long()
         labels = batch["labels"].long()
-        x, positions, enc_out = self._start(p, tokens, batch.get("frames"))
-        x, aux = self._train_layers(p, x, positions, enc_out)
-        x = L.rms_norm(p["final_norm"], x)
-        logp = torch.log_softmax((x @ p["embed"].T).float(), dim=-1)
+        if self.ctx is None:
+            x, positions, enc_out = self._start(p, tokens,
+                                                batch.get("frames"))
+            x, aux = self._train_layers(p, x, positions, enc_out)
+        else:
+            if torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "the sharded loss_fn is forward-only: call it under "
+                    "torch.no_grad()")
+            seq = self._seq(tokens.shape[1])
+            x, positions, enc_out = self._start(p, tokens,
+                                                batch.get("frames"), seq)
+            x, _, aux = self._run_layers(p, x, positions=positions,
+                                         caches=None, cache_pos=None,
+                                         enc_out=enc_out,
+                                         batch=tokens.shape[0], seq=seq)
+            labels = self._bshard(labels, seq)
+        logp = torch.log_softmax(self._head(p, x).float(), dim=-1)
         ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
         mask = (labels >= 0).float()
-        loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        sums = torch.stack([(ll * mask).sum(), mask.sum()])
+        if self.ctx is not None:
+            axes = SH.entry_axes(SH.batch_spec(self.ctx, tokens.shape[0],
+                                                2)[0])
+            if seq is not None:
+                axes = axes + (self.ctx.model_axis,)
+            if axes:
+                SH.all_reduce(sums, self.ctx.mesh, axes)
+        loss = -sums[0] / torch.clamp(sums[1], min=1.0)
         return loss if aux is None else loss + 0.01 * aux
 
     @torch.no_grad()
@@ -497,12 +738,38 @@ class Model(nn.Module):
         (and frames [B, Te, D] for an encoder-decoder) -> (logits [B, V]
         of the last position, caches)."""
         p = self._cast()
-        x, positions, enc_out = self._start(p, tokens, frames)
+        b, t = tokens.shape
+        seq = self._seq(t)
+        x, positions, enc_out = self._start(p, tokens, frames, seq)
         x, caches, _ = self._run_layers(p, x, positions=positions,
                                         caches=None, cache_pos=None,
-                                        enc_out=enc_out, build=True)
-        x = L.rms_norm(p["final_norm"], x)
-        return x[:, -1] @ p["embed"].T, caches
+                                        enc_out=enc_out, build=True,
+                                        batch=b, seq=seq)
+        if seq is not None:
+            x = seq.gather(x)
+        return self._logits_shard(self._head(p, x[:, -1]), b), caches
+
+    def cache_logical_axes(self, dims=None) -> list:
+        """Logical-axis tree mirroring `init_cache`'s structure (one entry
+        per layer, in layer order; no "layers" axis, the port does not
+        stack layers).  `dims` is unused, as in the reference."""
+        kv = ("batch", "seq", "kv", "qkv")
+        out = []
+        for spec in self.specs:
+            if spec["kind"] == "attn":
+                c = ((kv, kv),)
+            elif spec["kind"] == "mla":
+                c = ((("batch", "seq", None), ("batch", "seq", None)),)
+            else:
+                c = (("batch", "heads", None, None), ("batch", None, "mlp"))
+            if self.cross:
+                c = c + ((kv, kv),)
+            out.append(c)
+        return out
+
+    def cache_shapes(self, dims: DecodeDims) -> list:
+        """`init_cache`'s tree as meta tensors (whole, no allocation)."""
+        return self._zero_caches(dims, torch.device("meta"))
 
     def init_cache(self, dims: DecodeDims) -> list:
         """Zero decode caches for every layer, in layer order: ((k, v),)
@@ -510,10 +777,24 @@ class Model(nn.Module):
         window), ((c_kv [B, S, kv_lora], k_rope [B, S, rope_dim]),) for
         MLA, (state [B, H, N, P] f32, conv [B, K-1, conv_dim]) for Mamba2;
         an encoder-decoder's layers end with the cross (k, v) [B, S, KV,
-        hd]."""
+        hd].  With a ctx, DTensors of which this rank allocates only its
+        blocks, laid out by `launch.steps.cache_specs`."""
+        if self.ctx is None:
+            return self._zero_caches(dims, self.device)
+        from torch.distributed.tensor import DTensor
+        from ..launch.steps import cache_specs
+        shapes, shardings = cache_specs(self, dims, self.ctx)
+        return T.unflatten(shapes, [
+            DTensor.from_local(torch.zeros(sh.shard_shape(t.shape),
+                                           dtype=t.dtype, device=self.device),
+                               sh.mesh, sh.placements, run_check=False)
+            for t, sh in zip(T.leaves(shapes),
+                             T.leaves(shardings, is_leaf=SH.is_sharding))])
+
+    def _zero_caches(self, dims: DecodeDims, dev) -> list:
         cfg = self.cfg
         b, s = dims.batch, dims.seq
-        dt, dev = cfg.compute_dtype, self.device
+        dt = cfg.compute_dtype
 
         def zeros(*shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -548,10 +829,36 @@ class Model(nn.Module):
         encoder-decoder is read, never written."""
         p = self._cast()
         b = tokens.shape[0]
-        x = self._embed(p, tokens)
-        positions = torch.full((b, 1), pos, dtype=torch.int64,
+        x = self._embed(p, self._bshard(tokens))
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
                                device=x.device)
         x, new_caches, _ = self._run_layers(p, x, positions=positions,
-                                            caches=caches, cache_pos=pos)
-        x = L.rms_norm(p["final_norm"], x)
-        return x @ p["embed"].T, new_caches
+                                            caches=caches, cache_pos=pos,
+                                            batch=b)
+        return self._logits_shard(self._head(p, x), b), new_caches
+
+
+def param_axes(tree: dict, cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of a parameter tree shaped like
+    `Model.param_tree()` (the reference's `Boxed` annotations, without
+    the "layers" axis its stacked blocks add)."""
+    specs = cfg.layer_specs()
+    groups = {"ln1": L.RMSNORM_AXES, "ln2": L.RMSNORM_AXES,
+              "ln_x": L.RMSNORM_AXES, "xattn": L.ATTENTION_AXES,
+              "mlp": L.MLP_AXES, "moe": L.MOE_AXES, "ssm": S.MAMBA2_AXES}
+
+    def layer(lp, spec):
+        out = {}
+        for g, grp in lp.items():
+            table = groups.get(g) if g != "attn" else (
+                L.MLA_AXES if spec["kind"] == "mla" else L.ATTENTION_AXES)
+            out[g] = {n: table[n] for n in grp}
+        return out
+
+    out = {"embed": ("vocab", "embed"), "final_norm": dict(L.RMSNORM_AXES),
+           "layers": [layer(lp, sp) for lp, sp in zip(tree["layers"],
+                                                      specs)]}
+    if "enc_layers" in tree:
+        out["enc_layers"] = [layer(lp, ENC_SPEC) for lp in tree["enc_layers"]]
+        out["enc_norm"] = dict(L.RMSNORM_AXES)
+    return out

@@ -1,18 +1,351 @@
-"""The collective plan of a sharded training step, without a mesh.
+"""Logical-axis -> mesh specs (MaxText-style), their DTensor placements,
+and the collective plan of a sharded training step.
 
-The JAX package's `models/sharding.py` maps logical axes onto a JAX
-device mesh (`ParallelCtx`, `to_pspec`, the sharded paths) and, beside
-that, derives the ordered collectives a sharded train step issues from
-the architecture config alone (`CollectiveOp`, `step_collective_ops`).
-This module holds the second part, which the collective workloads
-(`workloads/collective.py`) need; it is the same arithmetic and needs
-neither jax nor torch.  `ParallelCtx` and the sharded paths come with
-the `torch.distributed` slice of the port (ROADMAP Queue 1).
+Parameters, caches and activations carry *logical* axis names ("embed",
+"mlp", "heads", "vocab", "experts", ...).  A rule set maps each logical
+axis to zero or more mesh axes; `tree_pspecs` applies the rules to a
+whole tree of axis tuples, skipping mesh axes that do not divide the
+dimension (so the same rules work for every architecture).  This is the
+JAX package's `models/sharding.py`, with two differences:
+
+  * a spec is a `Spec`, a tuple with one entry per dimension: None, one
+    mesh-axis name, or a tuple of names (major first), as the entries of
+    jax's `PartitionSpec`;
+  * the mesh sizes are passed explicitly (the JAX package passes them
+    through a module global that `tree_pspecs` sets), and
+    `ParallelCtx.mesh` is a `torch.distributed` `DeviceMesh` or a plain
+    name -> size mapping, so specs for a production mesh are computed
+    with no ranks at all.
+
+`Sharding` pairs a mesh with a spec (the counterpart of jax's
+`NamedSharding`) and gives its DTensor placements.  `local_shard`,
+`distribute` and `to_local` move a tensor between its full form and a
+rank's block without a collective where none is needed; `gather_dim`
+and `all_reduce` are the explicit collectives of the sharded layers.
+
+Default layout (single pod 16x16, multi-pod 2x16x16):
+    batch   -> ("pod", "data")     tensor axes -> "model"
+    fsdp: the "embed" axis of *weights* is sharded over "data" (2D weight
+    sharding, ZeRO-3 style).
+
+`CollectiveOp` / `step_collective_ops` derive the ordered collectives a
+sharded train step issues from the architecture config alone; the
+collective workloads (`workloads/collective.py`) need them, and they
+need neither a mesh nor torch.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from collections.abc import Mapping
+from typing import Any
 
+import torch
+
+from .. import tree as T
+
+
+class Spec(tuple):
+    """A partition spec: one entry per dimension, each None (replicated),
+    a mesh-axis name, or a tuple of mesh-axis names (major first)."""
+
+
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, as a tuple (major first)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} of a `DeviceMesh` or of a name -> size mapping."""
+    if isinstance(mesh, Mapping):
+        return {k: int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    mesh: Any                         # DeviceMesh, or {axis name: size}
+    batch_axes: tuple = ("data",)     # ("pod", "data") multi-pod
+    model_axis: str = "model"
+    fsdp_axes: tuple = ("data",)      # weight "embed" dim sharding
+    # rules: logical axis -> tuple of mesh axes (applied if divisible)
+    extra_rules: Any = None
+
+    def rules(self, *, for_weights: bool) -> dict:
+        r = {
+            "batch": tuple(self.batch_axes),
+            "vocab": (self.model_axis,),
+            "heads": (self.model_axis,),
+            "kv": (self.model_axis,),
+            "mlp": (self.model_axis,),
+            "experts": (self.model_axis,),
+            "qkv": (),
+            "layers": (),
+            "seq": (),
+            "embed": tuple(self.fsdp_axes) if for_weights else (),
+        }
+        if self.extra_rules:
+            r.update(self.extra_rules)
+        return r
+
+    @property
+    def mesh_shape(self) -> dict:
+        return mesh_shape(self.mesh)
+
+    def axis_size(self, names) -> int:
+        sizes = self.mesh_shape
+        return math.prod(sizes[nm] for nm in names)
+
+
+def _spec_for(axes: tuple, shape: tuple, rules: dict, sizes: dict) -> Spec:
+    """The spec of one array, dropping mesh axes that do not divide."""
+    parts = []
+    used = set()
+    for dim, ax in enumerate(axes):
+        if ax is None or ax not in rules:
+            parts.append(None)
+            continue
+        mesh_axes = tuple(a for a in rules[ax] if a not in used)
+        size = math.prod(sizes[a] for a in mesh_axes)
+        if mesh_axes and shape[dim] % size == 0:
+            parts.append(mesh_axes if len(mesh_axes) > 1 else mesh_axes[0])
+            used.update(mesh_axes)
+        else:
+            # try a prefix of the mesh axes that divides
+            ok = None
+            for k in range(len(mesh_axes) - 1, 0, -1):
+                sub = mesh_axes[:k]
+                if shape[dim] % math.prod(sizes[a] for a in sub) == 0:
+                    ok = sub
+                    break
+            if ok:
+                parts.append(ok if len(ok) > 1 else ok[0])
+                used.update(ok)
+            else:
+                parts.append(None)
+    return Spec(parts)
+
+
+def is_axes_leaf(x) -> bool:
+    """A logical-axes tuple (a leaf of an axes tree)."""
+    return isinstance(x, tuple) and len(x) > 0 and all(
+        isinstance(e, (str, type(None))) for e in x)
+
+
+def tree_pspecs(axes_tree, shape_tree, ctx: ParallelCtx,
+                for_weights: bool = True):
+    """Map a tree of logical-axis tuples + shapes (tensors, meta tensors
+    or anything with `.shape`) to a tree of `Spec`s."""
+    rules = ctx.rules(for_weights=for_weights)
+    sizes = ctx.mesh_shape
+    shapes = T.leaves(shape_tree)
+    axes = T.leaves(axes_tree, is_leaf=is_axes_leaf)
+    if len(shapes) != len(axes):
+        raise ValueError(f"{len(axes)} axes tuples for {len(shapes)} arrays")
+    return T.unflatten(axes_tree, [
+        _spec_for(tuple(a), tuple(s.shape), rules, sizes)
+        for a, s in zip(axes, shapes)], is_leaf=is_axes_leaf)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A mesh and a spec: how one tensor lies across the ranks."""
+    mesh: Any
+    spec: Spec
+
+    @property
+    def placements(self) -> list:
+        return placements(self.mesh, self.spec)
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape of one rank's block of a tensor of `shape`."""
+        sizes = mesh_shape(self.mesh)
+        return tuple(n // math.prod(sizes[a] for a in entry_axes(e))
+                     for n, e in zip(shape, self.spec))
+
+
+def is_sharding(x) -> bool:
+    return isinstance(x, Sharding)
+
+
+def tree_shardings(axes_tree, shape_tree, ctx: ParallelCtx,
+                   for_weights: bool = True):
+    return T.tree_map(lambda s: Sharding(ctx.mesh, s),
+                      tree_pspecs(axes_tree, shape_tree, ctx, for_weights),
+                      is_leaf=lambda x: isinstance(x, Spec))
+
+
+def batch_spec(ctx: ParallelCtx, batch_size: int, ndim: int) -> Spec:
+    """Spec for a [B, ...] array: shard batch if divisible, else replicate."""
+    bsz_axes = tuple(ctx.batch_axes)
+    if batch_size % ctx.axis_size(bsz_axes) == 0:
+        return Spec((bsz_axes if len(bsz_axes) > 1 else bsz_axes[0],)
+                    + (None,) * (ndim - 1))
+    # try prefix
+    for k in range(len(bsz_axes) - 1, 0, -1):
+        if batch_size % ctx.axis_size(bsz_axes[:k]) == 0:
+            sub = bsz_axes[:k]
+            return Spec((sub if len(sub) > 1 else sub[0],)
+                        + (None,) * (ndim - 1))
+    return Spec((None,) * ndim)
+
+
+def kv_split(cfg, ctx: ParallelCtx) -> bool:
+    """Whether the attention caches shard their kv heads over the model
+    axis (they tile it), rather than their sequence."""
+    return cfg.attn_kind == "gqa" and \
+        cfg.n_kv_heads % ctx.mesh_shape[ctx.model_axis] == 0
+
+
+def cache_ctx(cfg, ctx: ParallelCtx) -> ParallelCtx:
+    """`ctx` with the decode caches' rules: kv-head sharding where the kv
+    heads tile the model axis, else sequence sharding (the distributed
+    decode attention)."""
+    if kv_split(cfg, ctx):
+        extra = {"seq": (), "kv": (ctx.model_axis,)}
+    else:
+        extra = {"seq": (ctx.model_axis,), "kv": ()}
+    return dataclasses.replace(ctx, extra_rules=extra)
+
+
+# =====================================================================
+# specs on a DeviceMesh: placements, local blocks, collectives
+# =====================================================================
+
+def placements(mesh, spec) -> list:
+    """DTensor placements of `spec` on `mesh` (a DeviceMesh), one per mesh
+    dimension.  A tensor dimension split over several mesh axes must name
+    them in the mesh's order (DTensor splits major mesh dimension first,
+    as jax does); any other order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dimension {dim} is split over "
+                             f"{axes}, against the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def local_shard(full: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of `full` laid out by `spec` (a slice, no
+    collective); a block smaller than `full` is copied, so that the full
+    tensor's memory can be freed."""
+    out = full
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        n, idx = 1, 0
+        sizes = mesh_shape(mesh)
+        for a in axes:                              # major first
+            idx, n = idx * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
+        if full.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(full.shape)} does "
+                             f"not split {n} ways")
+        step = full.shape[dim] // n
+        out = out.narrow(dim, idx * step, step)
+    return out.clone() if out.numel() < full.numel() else out
+
+
+def distribute(t: torch.Tensor, mesh, spec):
+    """`t` as a DTensor laid out by `spec`: a full tensor is cut to this
+    rank's block (every rank holds the same full tensor; no collective),
+    a DTensor is redistributed."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, placements(mesh, spec))
+    return DTensor.from_local(local_shard(t, mesh, spec), mesh,
+                              placements(mesh, spec), run_check=False)
+
+
+def to_local(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of `t` laid out by `spec`: a DTensor is
+    redistributed (collectives only where its layout differs), a plain
+    tensor is taken as the full tensor, the same on every rank."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, placements(mesh, spec)).to_local()
+    return local_shard(t, mesh, spec)
+
+
+def full(t: torch.Tensor) -> torch.Tensor:
+    """The full tensor of a DTensor (an all-gather where it is split); a
+    plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def gather_dim(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """All-gather `t` along `dim` over the mesh axes `axes` (one name or
+    a tuple, major first): the blocks of the ranks in rank order along
+    those axes.  Over an axis of size 1 it is the identity and issues
+    nothing."""
+    import torch.distributed as dist
+    for a in reversed(entry_axes(axes)):           # minor axis first
+        n = mesh_shape(mesh)[a]
+        if n == 1:
+            continue
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+        dist.all_gather_into_tensor(out, src, group=mesh.get_group(a))
+        t = out.movedim(0, dim)
+    return t
+
+
+def reduce_scatter_dim(t: torch.Tensor, mesh, axis: str,
+                       dim: int) -> torch.Tensor:
+    """Sum `t` over the mesh axis `axis` and keep this rank's block along
+    `dim` (jax's tiled `psum_scatter`).  Over an axis of size 1 it is the
+    identity and issues nothing."""
+    import torch.distributed as dist
+    n = mesh_shape(mesh)[axis]
+    if n == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=mesh.get_group(axis))
+    return out.movedim(0, dim)
+
+
+def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
+    """In-place all-reduce of `t` over each of `axes` ("sum" or "max"),
+    issued even over an axis of size 1, as the `psum` / `pmax` of the
+    reference's `shard_map` bodies.  Returns `t`."""
+    import torch.distributed as dist
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for a in entry_axes(axes):
+        dist.all_reduce(t, op=red, group=mesh.get_group(a))
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """Activations whose sequence (dimension 1) is split over the mesh
+    axis `axis` (sequence parallelism): `gather` all-gathers a dimension,
+    `local` cuts this rank's block of it."""
+    mesh: Any
+    axis: str
+
+    def gather(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return gather_dim(t, self.mesh, self.axis, dim)
+
+    def local(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        n = mesh_shape(self.mesh)[self.axis]
+        step = t.shape[dim] // n
+        return t.narrow(dim, self.mesh.get_local_rank(self.axis) * step,
+                        step)
+
+
+# =====================================================================
+# collective plan of a sharded training step (workload bridge, §9)
+# =====================================================================
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveOp:

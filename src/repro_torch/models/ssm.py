@@ -2,8 +2,9 @@
 
 The chunked, matmul-dominant SSD form: a within-chunk attention-like
 term plus an inter-chunk state recurrence.  Used by `mamba2-1.3b` (pure
-SSM).  The chunked core can be dispatched to the SSD scan kernel
-(`kernels/ssd_scan`).
+SSM) and `jamba-v0.1-52b` (hybrid).  The chunked core can be dispatched
+to the SSD scan kernel (`kernels/ssd_scan`).  `MAMBA2_AXES` gives each
+parameter's logical axes (the reference's `Boxed` annotations).
 
 Decode keeps the recurrent state S [B, H, N, P] plus a depthwise-conv
 cache; one step is O(H*P*N).
@@ -16,6 +17,14 @@ import torch.nn.functional as F
 from ..kernels.ssd_scan import ops as sops
 from ..kernels.ssd_scan.ref import ssd_chunked_core
 from .layers import _norm
+
+
+MAMBA2_AXES = {
+    "in_z": ("embed", "mlp"), "in_x": ("embed", "mlp"),
+    "in_b": ("embed", None), "in_c": ("embed", None),
+    "in_dt": ("embed", "heads"), "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+    "a_log": ("heads",), "d_skip": ("heads",), "dt_bias": ("heads",),
+    "norm_w": ("mlp",), "out_proj": ("mlp", "embed")}
 
 
 def init_mamba2(gen, cfg, dtype=torch.float32):

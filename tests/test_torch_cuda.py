@@ -689,3 +689,100 @@ def test_families_on_card_equal_cpu(cuda, arch):
         outs.append(seq)
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------
+# the sharded paths on one card (world size 1)
+# ---------------------------------------------------------------------
+
+@pytest.fixture
+def fresh_world():
+    """No process group before the test; the test's own is destroyed
+    after it."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _mixed_world(dist, tmp_path):
+    """A world of one rank whose collectives take gloo for CPU tensors
+    and NCCL for the card's, and its 1 x 1 meshes on both."""
+    from repro_torch.launch import mesh as M
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    return M.make_host_mesh(), M.make_host_mesh("cpu")
+
+
+def test_host_mesh_brings_up_nccl(cuda, fresh_world):
+    """With no argument and no process group, `make_host_mesh` starts a
+    world of one NCCL rank and returns its 1 x 1 ("data", "model") mesh
+    on the card; an all-reduce over "model" runs."""
+    from repro_torch.launch import mesh as M
+    mesh = M.make_host_mesh()
+    assert fresh_world.get_backend() == "nccl"
+    assert mesh.device_type == "cuda"
+    assert mesh.mesh_dim_names == ("data", "model")
+    x = torch.ones(3, device=cuda)
+    fresh_world.all_reduce(x, group=mesh.get_group("model"))
+    assert x.tolist() == [1.0, 1.0, 1.0]
+
+
+@pytest.mark.parametrize("body", ["local", "stationary"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b",
+                                  "jamba-v0.1-52b"])
+def test_moe_ep_on_card_equals_cpu(cuda, fresh_world, tmp_path, arch, body):
+    """Each expert-parallel body in bf16 on the card equals the same body
+    on the CPU within 2e-2, at the config's capacity factor (drops
+    included), at a prefill token count."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models import layers as L
+    card_mesh, cpu_mesh = _mixed_world(fresh_world, tmp_path)
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg).init(torch.Generator().manual_seed(0))
+    lp = next(lp for lp, s in zip(model.layers, model.specs) if s["moe"])
+    params = {k: v.detach().to(torch.bfloat16) for k, v in lp["moe"].items()}
+    x = torch.randn((4, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).to(
+                        torch.bfloat16)
+    outs = []
+    for mesh, dev in ((card_mesh, cuda), (cpu_mesh, torch.device("cpu"))):
+        p = {k: v.to(dev) for k, v in params.items()}
+        if body == "local":
+            y, aux = L.moe_ep_local(p, x.to(dev), cfg, mesh, "model",
+                                    e_par=1, f_par=1)
+        else:
+            y, aux = L.moe_ep_stationary(p, x.to(dev), cfg,
+                                         St.build_ctx(mesh))
+        outs.append((y.float().cpu(), float(aux)))
+    torch.testing.assert_close(outs[0][0], outs[1][0], atol=2e-2, rtol=2e-2)
+    assert abs(outs[0][1] - outs[1][1]) < 2e-2
+
+
+def test_sharded_prefill_launches_flash_on_local_shard(cuda, fresh_world):
+    """The sharded model's prefill on the card's 1 x 1 mesh goes through
+    the flash kernel once per attention layer, on the rank's blocks, and
+    gives the unsharded model's logits (f32, no token dropped)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree as Tr
+    from repro_torch.launch import mesh as M, steps as St
+    ctx = St.build_ctx(M.make_host_mesh())
+    cfg = dataclasses.replace(
+        get_config("qwen3-moe-235b-a22b", smoke=True),
+        compute_dtype=torch.float32, capacity_factor=8.0,
+        use_flash_kernel=True)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 128))).to(cuda)
+    plain = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    sharded = Model(cfg, ctx).init(torch.Generator(device=cuda).manual_seed(0))
+    assert all(isinstance(p, DTensor)
+               for p in Tr.leaves(sharded.param_tree()))
+    want, _ = plain.prefill(toks)
+    before = fops.flash_attention.launches
+    got, caches = sharded.prefill(toks)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches - before == 2
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
