@@ -281,6 +281,22 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        unsharded prefill (1e-3); and its parameters saved
                        from the unsharded model and restored onto the
                        mesh's placements, bit for bit
+  sharded_train        the sharded train step on a 1 x 1 NCCL mesh:
+                       qwen3-1.7b at full width, depth 2, f32, three
+                       `make_train_step` steps on `Model(cfg, ctx)` against
+                       the unsharded step (loss, grad norm, parameters, m,
+                       v within 1e-5 relative); at full depth, bf16,
+                       `launch.train.run` for TRAIN_FULL's 10 steps, each
+                       loss within 1e-3 (relative) of the unsharded
+                       `train_full` losses, with ms per step, tokens/s,
+                       MFU, peak memory, device launches and idle share,
+                       host waits (0) and collectives per step, flash / SSD
+                       launches (0); its step-5 checkpoint restored
+                       unsharded takes step 6 bit for bit; one qwen3-moe
+                       MoE layer at full width, f32, capacity factor 16:
+                       the input's and every expert weight's gradients
+                       through `moe_ep_local` and `moe_ep_stationary`
+                       within 1e-4 (relative) of the dropless loop route
 
 then the kernel summary line and, last, the `{"ok": true, ...}` line.
 A failed check raises and exits non-zero before the last line; without
@@ -1717,6 +1733,21 @@ DIST_DECODE = dict(b=4, s=1056, h=16, kv=8, hd=128, pos=1040, tol=2e-5)
 # full width, depth 2, f32, batch 4 x prompt 1024
 SEQ_PARALLEL = dict(arch="qwen3-1.7b", depth=2, batch=4, prompt=1024,
                     tol=1e-3)
+# The sharded train step (`launch.steps.make_train_step` and
+# `launch.train.run` on `Model(cfg, ctx)`) on a 1 x 1 NCCL mesh, from
+# TRAIN_FULL's batch and seed: (a) qwen3-1.7b at full width, depth 2, f32,
+# three steps against the unsharded step from the same parameters (loss,
+# grad norm, every parameter, m and v after each step, relative to each
+# leaf's largest magnitude); (b) full depth, bf16, remat "full", the
+# driver's 10 steps against the unsharded `train_full` losses, saving
+# after step 5; (c) one qwen3-moe MoE layer at full width, f32, at capacity
+# factor 16 (nothing dropped): the gradients of the input and of every
+# expert weight through both expert-parallel bodies against the dropless
+# loop route; (d) (b)'s step-5 checkpoint restored unsharded takes step 6
+# as (b) did, bit for bit.
+SHARDED_TRAIN = dict(depth=2, steps=3, tol=1e-5, full_tol=1e-3, ckpt_every=5,
+                     moe_arch="qwen3-moe-235b-a22b", moe_cf=16.0, moe_tol=1e-4,
+                     profile_steps=2)
 REFERENCE_FAMILIES = {
     'minicpm3-4b':
         {'prefill': {'head': [[0.1623096466064453,
@@ -3755,9 +3786,10 @@ def expect_no_backward(fn, what: str) -> str:
     raise RuntimeError(f"check failed: {what} ran with grad enabled")
 
 
-def train_phase(torch, dev, smi, fops, sops) -> None:
+def train_phase(torch, dev, smi, fops, sops) -> list:
     """The training phases: (a) `train_parity`, (b) `train_card_vs_cpu`,
-    (c) `train_full` and `train_remat_memory`, (d) `train_kernels`."""
+    (c) `train_full` and `train_remat_memory`, (d) `train_kernels`.
+    Returns `train_full`'s losses."""
     import os
     import shutil
     import statistics
@@ -4037,6 +4069,7 @@ def train_phase(torch, dev, smi, fops, sops) -> None:
          kernel_launches_in_training={"flash_attention": launched[0],
                                       "ssd_scan": launched[1]},
          seconds=round(time.perf_counter() - t0, 3))
+    return losses
 
 
 # ---------------------------------------------------------------------------
@@ -4612,6 +4645,259 @@ def sharded_phase(torch, dev, smi, fops, serve) -> int:
     return flash_launches
 
 
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want| (a DTensor taken whole)."""
+    from torch.distributed.tensor import DTensor
+    got = got.full_tensor() if isinstance(got, DTensor) else got
+    want = want.full_tensor() if isinstance(want, DTensor) else want
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def sharded_train_phase(torch, dev, smi, fops, sops, full_losses) -> tuple:
+    """The `sharded_train` phase; returns the (flash, SSD) launches it saw
+    (the training path takes neither kernel)."""
+    import shutil
+    import statistics
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import tree as Tr
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulator import log_ops
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as St
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import make_moe_apply
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t0 = time.perf_counter()
+    before = (fops.flash_attention.launches, sops.ssd_scan.launches)
+    mesh = make_host_mesh()
+    ctx = St.build_ctx(mesh)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"host mesh: backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}")
+    st, tf = SHARDED_TRAIN, TRAIN_FULL
+    f32 = torch.float32
+
+    def on(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    # ---- (a) full width, depth 2, f32: sharded against unsharded -----------
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=st["depth"],
+                              compute_dtype=f32)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=tf["seq"],
+                           global_batch=tf["batch"], seed=0)
+    tcfg = St.TrainConfig(total_steps=tf["steps"],
+                          warmup_steps=max(tf["steps"] // 20, 5))
+    models = [Model(cfg).init(torch.Generator(device=dev).manual_seed(0)),
+              Model(cfg, ctx).init(torch.Generator(device=dev).manual_seed(0))]
+    check(all(isinstance(p, DTensor) for p in
+              Tr.leaves(models[1].param_tree())),
+          "sharded train model: a parameter is not a DTensor")
+    runs = [(St.make_train_step(m, tcfg), adamw_init(m.param_tree()))
+            for m in models]
+    check(all(isinstance(x, DTensor) for x in Tr.leaves(runs[1][1]["m"])),
+          "sharded AdamW state: m is not laid out as the parameters")
+    rows = []
+    for i in range(st["steps"]):
+        batch = on(data.batch(i))
+        (lp, gp), (ls, gs) = [step(opt, batch) for step, opt in runs]
+        row = dict(step=i, loss=float(ls), grad_norm=float(gs),
+                   loss_rel_err=abs(float(ls) - float(lp)) / abs(float(lp)),
+                   grad_norm_rel_err=abs(float(gs) - float(gp))
+                   / abs(float(gp)))
+        for key, get in (("params", lambda k: models[k].param_tree()),
+                         ("m", lambda k: runs[k][1]["m"]),
+                         ("v", lambda k: runs[k][1]["v"])):
+            row[f"{key}_rel_err"] = max(
+                rel_err(torch, a, b)
+                for a, b in zip(Tr.leaves(get(1)), Tr.leaves(get(0))))
+        for key in ("loss", "grad_norm", "params", "m", "v"):
+            check(row[f"{key}_rel_err"] <= st["tol"], f"sharded train step "
+                  f"{i}: {key} differs from the unsharded step by "
+                  f"{row[f'{key}_rel_err']} (relative)")
+        rows.append(row)
+    emit("sharded_train_parity", arch=TRAIN_ARCH, d_model=cfg.d_model,
+         depth=cfg.n_layers, batch=tf["batch"], seq=tf["seq"],
+         compute_dtype="float32", remat=cfg.remat,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         backend=dist.get_backend(), tol=st["tol"], steps=rows,
+         seconds=round(time.perf_counter() - t1, 3))
+    del models, runs
+    torch.cuda.empty_cache()
+
+    # ---- (b) full width and depth, bf16: the driver on the mesh ------------
+    t1 = time.perf_counter()
+    ckpt = ROOT / "build" / "sharded_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = train.parse_args([
+        "--arch", TRAIN_ARCH, "--batch", str(tf["batch"]), "--seq",
+        str(tf["seq"]), "--steps", str(tf["steps"]), "--log-every", "1",
+        "--ckpt-dir", str(ckpt), "--ckpt-every", str(st["ckpt_every"])])
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.compute_dtype == torch.bfloat16 and cfg.remat == "full",
+          f"{TRAIN_ARCH}'s config: {cfg.compute_dtype}, remat {cfg.remat}")
+    model = Model(cfg, ctx).init(torch.Generator(device=dev).manual_seed(
+        args.seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records = train.run(args, model=model)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in records]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, full_losses)]
+    check(len(losses) == len(full_losses) == tf["steps"] and
+          max(gaps) <= st["full_tol"], f"sharded driver losses {losses} vs "
+          f"the unsharded {full_losses}: largest relative gap {max(gaps)}")
+    step_s = statistics.median(r["seconds"]
+                               for r in records[tf["warm_steps"]:])
+    tokens = tf["batch"] * tf["seq"]
+    flops = train_flops_per_token(cfg, tf["seq"]) * tokens
+    # one step's launches, idle share, host waits and collectives
+    tcfg = St.TrainConfig(opt=AdamWConfig(lr=args.lr),
+                          total_steps=args.steps,
+                          warmup_steps=max(args.steps // 20, 5))
+    step = St.make_train_step(model, tcfg)
+    opt = adamw_init(model.param_tree())
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=tf["seq"],
+                           global_batch=tf["batch"], seed=args.seed)
+    batch0 = on(data.batch(0))
+    float(step(opt, batch0)[0])
+    torch.cuda.synchronize()
+    prof = profile_cycles(
+        torch, lambda: [float(step(opt, batch0)[0])
+                        for _ in range(st["profile_steps"])],
+        st["profile_steps"])
+    torch.cuda.synchronize()
+    with log_ops({}) as log:
+        step(opt, batch0)
+    waited = [f"{op.op} at {op.synced}" for op in log if op.synced]
+    torch.cuda.synchronize()
+    with CommDebugMode() as comm:
+        step(opt, batch0)
+    torch.cuda.synchronize()
+    collectives = {str(k).split(".")[-1]: v for k, v in
+                   comm.get_comm_counts().items()}
+    launched = (fops.flash_attention.launches - before[0],
+                sops.ssd_scan.launches - before[1])
+    emit("sharded_train_full", arch=TRAIN_ARCH,
+         via="launch.train.run(args, model=Model(cfg, ctx))",
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         d_model=cfg.d_model, n_layers=cfg.n_layers, batch=tf["batch"],
+         seq=tf["seq"], steps=tf["steps"], compute_dtype="bfloat16",
+         remat=cfg.remat, losses=losses, unsharded_losses=full_losses,
+         loss_rel_gaps=gaps, largest_loss_rel_gap=max(gaps),
+         tol=st["full_tol"], grad_norms=[r["grad_norm"] for r in records],
+         step_seconds=[r["seconds"] for r in records],
+         median_step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
+         model_flops_per_step=flops, mfu=flops / step_s
+         / PEAK_FLOPS["bfloat16"], peak_memory_gb=peak / 1e9,
+         device_launches_per_step=prof["device_launches_per_cycle"],
+         device_idle_share=prof["device_idle_share"],
+         device_busy_s_per_step=(prof["device_busy_s"] or 0)
+         / st["profile_steps"],
+         top_device_us_per_step=prof["top_device_us"],
+         host_waits_per_step=len(waited), host_waits=waited,
+         collectives_per_step=collectives,
+         kernel_launches={"flash_attention": launched[0],
+                          "ssd_scan": launched[1]},
+         ckpt_every=st["ckpt_every"], nvidia_smi=smi,
+         seconds=round(time.perf_counter() - t1, 3))
+    check(not waited, f"a sharded train step made the host wait for the "
+          f"card: {waited}")
+    del model, step, opt
+    torch.cuda.empty_cache()
+
+    # ---- (d) the step-5 checkpoint, restored unsharded, takes step 6 -------
+    t1 = time.perf_counter()
+    k = st["ckpt_every"]
+    plain = train.build_model(args)
+    opt = adamw_init(plain.param_tree())
+    state = restore_checkpoint(str(ckpt), k, {"params": plain.param_tree(),
+                                              "opt": opt}, device=dev)
+    with torch.no_grad():
+        for p, q in zip(Tr.leaves(plain.param_tree()),
+                        Tr.leaves(state["params"])):
+            p.copy_(q)
+    plain.drop_compute_copy()
+    opt = state["opt"]
+    del state
+    loss, gnorm = St.make_train_step(plain, tcfg)(opt, on(data.batch(k)))
+    resumed = (float(loss), float(gnorm))
+    want = (records[k]["loss"], records[k]["grad_norm"])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(resumed == want, f"step {k + 1} from the checkpoint, unsharded: "
+          f"(loss, grad norm) {resumed} != the sharded run's {want}")
+    emit("sharded_train_checkpoint", saved_after_step=k, restored="unsharded",
+         step=k + 1, loss=resumed[0], grad_norm=resumed[1], bitwise=True,
+         seconds=round(time.perf_counter() - t1, 3))
+    del plain, opt
+    torch.cuda.empty_cache()
+
+    # ---- (c) one MoE layer at full width, f32: both bodies' gradients ------
+    t1 = time.perf_counter()
+    mcfg = dataclasses.replace(get_config(st["moe_arch"]), n_layers=1,
+                               compute_dtype=f32, capacity_factor=st["moe_cf"])
+    g = torch.Generator(device=dev).manual_seed(22)
+    params = L.init_moe(g, mcfg)
+    b, t = tf["batch"], tf["seq"]
+    check(b * t > 2048, "make_moe_apply takes moe_ep_local above 2048 tokens")
+    x = torch.randn((b, t, mcfg.d_model), generator=g, device=dev)
+    w = torch.randn((b, t, mcfg.d_model), generator=g, device=dev)
+    _, shardings = St.param_shardings(Model(mcfg, ctx), ctx)
+    moe_sh = shardings["layers"][0]["moe"]
+    names = ("router", "wi", "wg", "wo")
+
+    def grads(apply, leaves):
+        xg = x.detach().requires_grad_()
+        y, aux = apply(dict(zip(names, leaves)), xg)
+        out = torch.autograd.grad((y * w).sum() + aux, [xg] + list(leaves))
+        return [o.full_tensor() if isinstance(o, DTensor) else o
+                for o in out]
+
+    want = grads(lambda p, xg: L.moe_ragged(p, xg, mcfg, route="loop"),
+                 [params[n].requires_grad_() for n in names])
+    dts = [DTensor.from_local(params[n].detach(), mesh,
+                              moe_sh[n].placements, run_check=False)
+           .requires_grad_() for n in names]
+    moe_rows = {}
+    for body, apply in (
+            ("moe_ep_local", make_moe_apply(mcfg, ctx, batch=b)),
+            ("moe_ep_stationary", lambda p, xg: L.moe_ep_stationary(
+                p, xg, mcfg, ctx, batch=b))):
+        got = grads(apply, dts)
+        errs = {n: rel_err(torch, a, c) for n, a, c in
+                zip(("x",) + names, got, want)}
+        moe_rows[body] = errs
+        del got
+        check(max(errs.values()) <= st["moe_tol"], f"{body} gradients vs "
+              f"the dropless loop route: {errs}")
+    emit("sharded_train_moe", arch=mcfg.name, d_model=mcfg.d_model,
+         experts=mcfg.n_experts, top_k=mcfg.top_k, d_ff=mcfg.d_ff,
+         capacity_factor=mcfg.capacity_factor,
+         capacity=L.moe_capacity(b * t, mcfg), tokens=b * t,
+         expert_params=sum(params[n].numel() for n in names[1:]),
+         compute_dtype="float32", tol=st["moe_tol"],
+         grad_rel_err=moe_rows, seconds=round(time.perf_counter() - t1, 3))
+    del params, dts, want, x, w
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    launched = (fops.flash_attention.launches - before[0],
+                sops.ssd_scan.launches - before[1])
+    check(launched == (0, 0), f"the sharded training path launched kernels: "
+          f"flash {launched[0]}, SSD {launched[1]}")
+    emit("sharded_train", seconds=round(time.perf_counter() - t0, 3))
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4911,12 +5197,16 @@ def main() -> int:
     analysis_launches = analysis_phase(torch, dev, smi, netstep)
 
     lm_rows = lm_phases(torch, dev, smi, fops, sops, serve)
-    train_phase(torch, dev, smi, fops, sops)
+    full_losses = train_phase(torch, dev, smi, fops, sops)
     fam_launches = families_phase(torch, dev, smi, fops, sops, serve)
     for row, i in zip(lm_rows, (0, 1)):
         row["launches_families"] = {a: c[i] for a, c in fam_launches.items()}
     lm_rows[0]["launches_sharded"] = {
         SHARDED["arch"]: sharded_phase(torch, dev, smi, fops, serve)}
+    train_launches = sharded_train_phase(torch, dev, smi, fops, sops,
+                                         full_losses)
+    for row, n in zip(lm_rows, train_launches):
+        row["launches_sharded_train"] = {TRAIN_ARCH: n}
 
     print(json.dumps({"kernels": [dict(
         name="netstep", route="cuda",

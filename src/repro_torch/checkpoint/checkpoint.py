@@ -19,7 +19,8 @@ checkpoint of the same plain nested dict reads in either package.
     possibly on a mesh other than the one that saved), each rank keeps
     its block of each leaf as a DTensor, so restarting on another mesh
     shape is a no-op for the caller.  A DTensor leaf is saved whole:
-    every rank gathers it (a collective), and one process writes;
+    every rank gathers it (a collective), and one process writes
+    (`AsyncCheckpointer`: rank 0 of the process group);
   * retention: keep the most recent `keep` checkpoints.
 """
 from __future__ import annotations
@@ -147,9 +148,17 @@ def restore_checkpoint(ckpt_dir: str, step: int, target_tree, device=None,
     return T.unflatten(target_tree, out)
 
 
+def is_writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of an initialised
+    process group, or a process without one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class AsyncCheckpointer:
-    """Snapshot the state to host memory synchronously, write it on a
-    background thread."""
+    """Snapshot the state to host memory synchronously (every rank: a
+    DTensor leaf is gathered), write it on a background thread (rank 0
+    only)."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
@@ -160,6 +169,8 @@ class AsyncCheckpointer:
     def save(self, step: int, tree):
         self.wait()
         host_tree = T.tree_map(_to_numpy, tree)
+        if not is_writer():
+            return
 
         def work():
             try:

@@ -19,7 +19,8 @@ from ..device import resolve_device
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The 16 x 16 (or 2 x 16 x 16) mesh over an initialised world of 256
-    (512) ranks; any other world raises."""
+    (512) ranks; any other world raises.  The dry-run builds it with
+    `device="cpu"` over a fake group of that size (`launch.dryrun`)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     need = 512 if multi_pod else 256

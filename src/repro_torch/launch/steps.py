@@ -1,11 +1,13 @@
 """Step builders + input/parameter/cache specs for training and serving.
 
-`make_train_step` is the JAX package's step (`repro/launch/steps.py`)
-on one device: the float32 masters are cast to the compute dtype once per
-step, the loss is differentiated with respect to those copies (the
-gradients are the compute-dtype copies' gradients, accumulated in
-float32 across microbatches), and AdamW applies them to the masters in
-place.
+`make_train_step` is the JAX package's step (`repro/launch/steps.py`),
+on one device or on a mesh: the float32 masters are cast to the compute
+dtype once per step, the loss is differentiated with respect to those
+copies (the gradients are the compute-dtype copies' gradients,
+accumulated in float32 across microbatches), and AdamW applies them to
+the masters in place.  On a mesh (`Model(cfg, ctx)`) the masters are
+DTensors, their casts and gradients are laid out as they are, and AdamW
+updates each rank's blocks with the norm of the whole gradient.
 
 The spec helpers work on shapes alone (meta tensors), so they give the
 layout of a production mesh without allocating anything, and with
@@ -118,14 +120,17 @@ class TrainConfig:
 def make_train_step(model: Model, tcfg: TrainConfig):
     """(opt_state, batch) -> (loss, grad_norm), both float32 tensors on the
     model's device; the model's parameters and `opt_state` are updated in
-    place.
+    place.  The same for a sharded model: `opt_state` from `adamw_init`
+    of its DTensor parameters, `batch` global (the same on every rank).
 
     With microbatches > 1, the batch is split along dim 0 and gradients
     are accumulated in float32 over the parts, then divided by their
     count; the loss is the parts' mean."""
     def grads_of(leaves, tree, batch):
         loss = model.loss_fn(tree, batch)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        # a DTensor's gradient arrives in its layout: keep the local block
+        return loss.detach(), [SH.local_block(g) for g in
+                               torch.autograd.grad(loss, leaves)]
 
     def train_step(opt_state, batch):
         k = tcfg.microbatches

@@ -16,6 +16,12 @@ flash and SSD kernels off: they have no backward), with parameters from
 `Model.init` and a `torch.Generator` seeded by `--seed` on the run's
 device.
 
+`run(args, model=Model(cfg, ctx))` trains a sharded model on its mesh
+with the same loop: every rank feeds the same global batch, a
+checkpoint holds whole leaves (gathered by every rank, written by rank
+0, which alone keeps the heartbeat), and a resume lays them out on the
+model's mesh, which may differ from the one that saved.
+
 A checkpoint named step N holds the state after N updates, so a resumed
 run takes the same steps as one that was never stopped.  (The
 reference's loop saves the state after update N + 1 under step N, and a
@@ -32,7 +38,8 @@ import numpy as np
 import torch
 
 from .. import tree as T
-from ..checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+from ..checkpoint import (AsyncCheckpointer, is_writer, latest_step,
+                          restore_checkpoint)
 from ..configs import get_config
 from ..data import SyntheticLMData
 from ..device import resolve_device
@@ -111,9 +118,14 @@ def run(args, model: Model | None = None) -> list:
         ck = AsyncCheckpointer(args.ckpt_dir)
         last = latest_step(args.ckpt_dir)
         if last is not None:
-            state = restore_checkpoint(
-                args.ckpt_dir, last,
-                {"params": model.param_tree(), "opt": opt_state}, device=dev)
+            target = {"params": model.param_tree(), "opt": opt_state}
+            placements = None
+            if model.ctx is not None:
+                _, shardings = St.param_shardings(model, model.ctx)
+                placements = {"params": shardings, "opt": {
+                    "step": None, "m": shardings, "v": shardings}}
+            state = restore_checkpoint(args.ckpt_dir, last, target,
+                                       device=dev, placements=placements)
             with torch.no_grad():
                 for p, q in zip(T.leaves(model.param_tree()),
                                 T.leaves(state["params"])):
@@ -127,7 +139,8 @@ def run(args, model: Model | None = None) -> list:
                            global_batch=args.batch, seed=args.seed)
     wd = StepWatchdog()
     hb = Heartbeat(os.path.join(args.ckpt_dir, "heartbeat.json"),
-                   interval_s=30).start() if args.ckpt_dir else None
+                   interval_s=30).start() \
+        if args.ckpt_dir and is_writer() else None
 
     records = []
     try:

@@ -596,6 +596,12 @@ def moe_ep_local(params, x, cfg, mesh, axis_name, e_par, f_par,
     and the d_ff partials.  The aux loss's factors are averaged over
     `stats_axes` (the mesh axes the batch is split over), so it is the
     whole batch's, as the unsharded model's.  Returns (y [b, t, D], aux).
+
+    Differentiable (`sharding.full`'s rule): the sum over the axis passes
+    its gradient through, and the tokens and gates entering the local
+    experts are `fan_out`, so x's gradient is whole on every rank.  The
+    caller takes the router and the expert blocks with their gradients
+    summed over `stats_axes` (`make_moe_apply`).
     """
     b, t, d = x.shape
     e_loc = params["wi"].shape[0]
@@ -608,8 +614,12 @@ def moe_ep_local(params, x, cfg, mesh, axis_name, e_par, f_par,
     aux = cfg.n_experts * torch.sum(me * ce)
     idx = mesh.get_local_rank(axis_name)
     my_e0 = (idx // f_par) * e_loc
-    outs = _ep_experts(params, x.reshape(b * t, d),
-                       top_e.reshape(b * t, -1), top_p.reshape(b * t, -1),
+    # the tokens and gates, the same on every rank of the axis, enter its
+    # ranks' own experts: under autograd their gradients are summed there
+    outs = _ep_experts(params, SH.fan_out(x.reshape(b * t, d), mesh,
+                                          axis_name),
+                       top_e.reshape(b * t, -1),
+                       SH.fan_out(top_p.reshape(b * t, -1), mesh, axis_name),
                        cfg, my_e0, cap, x.dtype)
     outs = SH.all_reduce(outs, mesh, axis_name)
     return outs.reshape(b, t, d).to(x.dtype), aux
@@ -626,23 +636,35 @@ def moe_ep_stationary(params, x, cfg, ctx, batch=None):
     lie on "data") reassemble this rank's batch.  params: DTensors, or
     full tensors that every rank holds; x [b, t, D] this rank's batch
     block of a global batch of `batch` rows (default b).  Returns (y [b,
-    t, D], aux)."""
+    t, D], aux).
+
+    Differentiable (`sharding.full`'s rule): the gathered tokens are the
+    same on every rank of "data", so each keeps its block of their
+    gradient; the tokens and gates entering the (expert, d_ff slice) of
+    each rank are `fan_out` over both axes; the router and the expert
+    blocks' gradients are summed over the batch axes the tokens were not
+    gathered over (the "pod" axis of a multi-pod mesh)."""
     mesh, maxis, daxis = ctx.mesh, ctx.model_axis, "data"
     bl, t, d = x.shape
     bspec = SH.batch_spec(ctx, bl if batch is None else batch, 3)
     batch_on_data = daxis in SH.entry_axes(bspec[0])
-    xg = SH.gather_dim(x, mesh, daxis, 0) if batch_on_data else x
+    split = tuple(a for a in SH.entry_axes(bspec[0]) if a != daxis)
+    xg = SH.gather_dim(x, mesh, daxis, 0, same=True) if batch_on_data \
+        else x
     bg = xg.shape[0]
     cap = moe_capacity(bg * t, cfg)
-    lp = {"router": SH.full(params["router"])}
+    lp = {"router": SH.full(params["router"], split)}
     for nm, spec in (("wi", (maxis, None, daxis)),
                      ("wg", (maxis, None, daxis)),
                      ("wo", (maxis, daxis, None))):
-        lp[nm] = SH.to_local(params[nm], mesh, SH.Spec(spec))
+        lp[nm] = SH.to_local(params[nm], mesh, SH.Spec(spec), split)
     top_p, top_e, aux = _router(lp, xg, cfg)
     my_e0 = mesh.get_local_rank(maxis) * lp["wi"].shape[0]
-    outs = _ep_experts(lp, xg.reshape(bg * t, d),
-                       top_e.reshape(bg * t, -1), top_p.reshape(bg * t, -1),
+    outs = _ep_experts(lp, SH.fan_out(xg.reshape(bg * t, d), mesh,
+                                      (maxis, daxis)),
+                       top_e.reshape(bg * t, -1),
+                       SH.fan_out(top_p.reshape(bg * t, -1), mesh,
+                                  (maxis, daxis)),
                        cfg, my_e0, cap, x.dtype)
     outs = SH.all_reduce(outs, mesh, maxis)
     if batch_on_data:

@@ -30,7 +30,11 @@ block under sequence parallelism (set when the q heads do not tile the
 model axis, as in the reference).  Entry points take and return global
 tensors, the same on every rank; caches are DTensors laid out by
 `launch.steps.cache_specs`.  The flash and SSD kernels run on each
-rank's blocks, through the same wrappers as unsharded.
+rank's blocks, through the same wrappers as unsharded.  `loss_fn` is
+differentiable on a mesh too: the layers run as unsharded training runs
+them (checkpointed per `cfg.remat`), each rank's parameters are gathered
+inside its checkpoints, and the gradients arrive in the parameters'
+layout (`sharding.full`'s rule says where they are summed).
 """
 from __future__ import annotations
 
@@ -218,20 +222,20 @@ def make_moe_apply(cfg: ModelConfig, ctx=None, *, batch=None, seq=None):
 
         def apply(params, x):
             if seq is not None:
-                x = seq.gather(x)
+                x = seq.gather(x, same=True)
             bl, t, _ = x.shape
             b = bl if batch is None else batch
             if b * t <= 2048:
                 # serving / few tokens: weight-stationary expert parallelism
                 y, aux = L.moe_ep_stationary(params, x, cfg, ctx, batch=b)
             else:
-                lp = {"router": SH.full(params["router"])}
+                stats = SH.entry_axes(SH.batch_spec(ctx, b, 3)[0])
+                lp = {"router": SH.full(params["router"], stats)}
                 for nm in ("wi", "wg", "wo"):
                     lp[nm] = SH.to_local(params[nm], mesh,
-                                         SH.Spec((maxis, None, None)))
-                y, aux = L.moe_ep_local(
-                    lp, x, cfg, mesh, maxis, e_par=m, f_par=1,
-                    stats_axes=SH.entry_axes(SH.batch_spec(ctx, b, 3)[0]))
+                                         SH.Spec((maxis, None, None)), stats)
+                y, aux = L.moe_ep_local(lp, x, cfg, mesh, maxis, e_par=m,
+                                        f_par=1, stats_axes=stats)
             return (y if seq is None else seq.local(y)), aux
         return apply
     if s == 1:
@@ -401,16 +405,21 @@ class Model(nn.Module):
         """Lay each parameter out as `shardings` (a tree shaped like
         `param_tree()` of `sharding.Sharding`) says: a whole tensor is cut
         to this rank's block (no collective), a DTensor redistributed."""
-        want = dict(T.leaves_with_paths(shardings, is_leaf=SH.is_sharding))
-        for path, _ in T.leaves_with_paths(self.param_tree()):
+        want = T.leaves(shardings, is_leaf=SH.is_sharding)
+        return self.load_param_tree(T.unflatten(self.param_tree(), [
+            SH.distribute(p.detach(), sh.mesh, sh.spec)
+            for p, sh in zip(T.leaves(self.param_tree()), want)]))
+
+    @torch.no_grad()
+    def load_param_tree(self, tree) -> "Model":
+        """Make the leaves of `tree` (shaped like `param_tree()`: tensors
+        or DTensors, taken as they are) the model's parameters."""
+        for (path, old), new in zip(T.leaves_with_paths(self.param_tree()),
+                                    T.leaves(tree)):
             owner = self
             for key in path[:-1]:
                 owner = getattr(owner, key) if owner is self else owner[key]
-            old = getattr(owner, path[-1]) if owner is self \
-                else owner[path[-1]]
-            sh = want[path]
-            new = nn.Parameter(SH.distribute(old.detach(), sh.mesh, sh.spec),
-                               requires_grad=old.requires_grad)
+            new = nn.Parameter(new, requires_grad=old.requires_grad)
             if owner is self:
                 setattr(self, path[-1], new)
             else:
@@ -475,14 +484,28 @@ class Model(nn.Module):
         return self.embed.device
 
     # ---- the sharded layout (ctx) -----------------------------------------
-    def _at_use(self, lp: dict) -> dict:
+    def _at_use(self, lp: dict, part=()) -> dict:
         """A layer's parameters as its functions take them: with a ctx,
-        each leaf gathered whole (FSDP-style) but the MoE experts, which
-        the expert-parallel paths take as blocks."""
+        each leaf gathered whole (FSDP-style), its gradient summed over
+        the mesh axes `part` (`_grad_axes`); the MoE group stays as it is
+        (the expert-parallel paths take the experts as blocks and gather
+        the router themselves)."""
         if self.ctx is None:
             return lp
-        return {g: {n: t if g == "moe" and n != "router" else SH.full(t)
-                    for n, t in grp.items()} for g, grp in lp.items()}
+        return {g: grp if g == "moe" else
+                {n: SH.full(t, part) for n, t in grp.items()}
+                for g, grp in lp.items()}
+
+    def _grad_axes(self, batch: int, seq=None) -> tuple:
+        """The mesh axes on which the ranks see different tokens of a
+        global batch of `batch` rows: the batch axes `batch_spec` splits
+        it over, and the model axis under sequence parallelism.  The
+        gradient of a dense parameter is summed over these (and the
+        loss's partial sums are)."""
+        if self.ctx is None:
+            return ()
+        axes = SH.entry_axes(SH.batch_spec(self.ctx, batch, 2)[0])
+        return axes + ((self.ctx.model_axis,) if seq is not None else ())
 
     def _seq(self, t: int):
         """The `SeqShard` of a sequence of `t` under sequence parallelism
@@ -558,7 +581,7 @@ class Model(nn.Module):
             out.append(t)
         return T.unflatten(entry, out)
 
-    def _encode(self, p, frames):
+    def _encode(self, p, frames, part=()):
         """The encoder over frame embeddings [B, Te, D]: non-causal
         attention with rope, never the flash kernel, then enc_norm.  Not
         checkpointed in training, as the reference scans it without
@@ -572,13 +595,13 @@ class Model(nn.Module):
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         for lp in p["enc_layers"]:
-            lp = self._at_use(lp)
+            lp = self._at_use(lp, part)
             h = L.rms_norm(lp["ln1"], x)
             out, _ = L.attention(lp["attn"], h, cfg, positions=positions,
                                  causal=False)
             x = x + out
             x = x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x))
-        return L.rms_norm({"w": SH.full(p["enc_norm"]["w"])}, x)
+        return L.rms_norm({"w": SH.full(p["enc_norm"]["w"], part)}, x)
 
     def _run_layers(self, p, x, *, positions, caches, cache_pos,
                     enc_out=None, build=False, batch=None, seq=None):
@@ -615,24 +638,30 @@ class Model(nn.Module):
                 aux = a if aux is None else aux + a
         return x, new_caches, aux
 
-    def _train_layers(self, p, x, positions, enc_out=None):
+    def _train_layers(self, p, x, positions, enc_out=None, *, batch=None,
+                      seq=None, part=()):
         """The layers with autograd, each one checkpointed as `cfg.remat`
         says ("full": recomputed whole in the backward pass, "dots": the
         matmul outputs kept, "none": every activation kept).  Returns (x,
         summed aux or None); aux and the encoder output pass through the
-        checkpoints like x."""
+        checkpoints like x.  With a ctx, x is this rank's block, `batch`
+        the global batch, `seq` the sequence split and `part` the axes of
+        `_grad_axes`; a layer's parameters are gathered inside its
+        checkpoint, so "full" gathers them again in the backward pass."""
         remat = self.cfg.remat
         if remat not in ("full", "dots", "none"):
             raise ValueError(f"remat must be full, dots or none, not "
                              f"{remat!r}")
-        moe_apply = make_moe_apply(self.cfg) if self.cfg.n_experts else None
+        moe_apply = (make_moe_apply(self.cfg, self.ctx, batch=batch, seq=seq)
+                     if self.cfg.n_experts else None)
         aux = None
         for spec, lp in zip(self.specs, p["layers"]):
             def layer(x, enc_out, spec=spec, lp=lp):
-                x, _, a = apply_layer(spec, lp, x, self.cfg,
-                                      positions=positions, cache=None,
-                                      cache_pos=None, enc_out=enc_out,
-                                      moe_apply=moe_apply)
+                x, _, a = apply_layer(spec, self._at_use(lp, part), x,
+                                      self.cfg, positions=positions,
+                                      cache=None, cache_pos=None,
+                                      enc_out=enc_out, moe_apply=moe_apply,
+                                      seq=seq)
                 return x if a is None else (x, a)
             if remat == "none":
                 out = layer(x, enc_out)
@@ -647,24 +676,24 @@ class Model(nn.Module):
                 x = out
         return x, aux
 
-    def _embed(self, p, tokens):
-        return SH.full(p["embed"])[tokens].to(self.cfg.compute_dtype)
+    def _embed(self, p, tokens, part=()):
+        return SH.full(p["embed"], part)[tokens].to(self.cfg.compute_dtype)
 
-    def _start(self, p, tokens, frames, seq=None):
+    def _start(self, p, tokens, frames, seq=None, part=()):
         """(embedded tokens, positions, encoder output or None); with a
         ctx, of this rank's block of `tokens`."""
         b, t = tokens.shape
         positions = torch.arange(t, device=self.device)[None].expand(b, t)
         tokens, positions = self._bshard(tokens, seq), \
             self._bshard(positions, seq)
-        x = self._embed(p, tokens)
-        enc_out = self._encode(p, frames) if self.cross else None
+        x = self._embed(p, tokens, part)
+        enc_out = self._encode(p, frames, part) if self.cross else None
         return x, positions, enc_out
 
-    def _head(self, p, x):
+    def _head(self, p, x, part=()):
         """final_norm, then the logits against the embedding."""
-        x = L.rms_norm({"w": SH.full(p["final_norm"]["w"])}, x)
-        return x @ SH.full(p["embed"]).T
+        x = L.rms_norm({"w": SH.full(p["final_norm"]["w"], part)}, x)
+        return x @ SH.full(p["embed"], part).T
 
     # ---- entry points -----------------------------------------------------
     @torch.no_grad()
@@ -694,41 +723,30 @@ class Model(nn.Module):
         `repro.models.Model.loss_fn`; differentiable in `params`, a tree
         as `param_tree` gives (float32 leaves are cast to the compute
         dtype; leaves already in it are used as they are).  log_softmax
-        in float32.  With a ctx it is forward-only (the sharded train step
-        is not ported): call it under `torch.no_grad()`; each rank sums
-        its block and the sums are all-reduced."""
+        in float32.  With a ctx, `params` are DTensors laid out as
+        `param_tree()`'s, the batch is global (the same on every rank),
+        each rank runs its block (and its sequence block under sequence
+        parallelism) through the layers and sums its tokens' terms, and
+        the sums are all-reduced; the gradients are those of the global
+        loss in the parameters' layout (`sharding.full`'s rule)."""
         cd = self.cfg.compute_dtype
         p = T.tree_map(lambda t: _to_compute(t, cd), params)
         tokens = batch["tokens"].long()
         labels = batch["labels"].long()
-        if self.ctx is None:
-            x, positions, enc_out = self._start(p, tokens,
-                                                batch.get("frames"))
-            x, aux = self._train_layers(p, x, positions, enc_out)
-        else:
-            if torch.is_grad_enabled():
-                raise NotImplementedError(
-                    "the sharded loss_fn is forward-only: call it under "
-                    "torch.no_grad()")
-            seq = self._seq(tokens.shape[1])
-            x, positions, enc_out = self._start(p, tokens,
-                                                batch.get("frames"), seq)
-            x, _, aux = self._run_layers(p, x, positions=positions,
-                                         caches=None, cache_pos=None,
-                                         enc_out=enc_out,
-                                         batch=tokens.shape[0], seq=seq)
-            labels = self._bshard(labels, seq)
-        logp = torch.log_softmax(self._head(p, x).float(), dim=-1)
+        seq = self._seq(tokens.shape[1])
+        part = self._grad_axes(tokens.shape[0], seq)
+        x, positions, enc_out = self._start(p, tokens, batch.get("frames"),
+                                            seq, part)
+        x, aux = self._train_layers(p, x, positions, enc_out,
+                                    batch=tokens.shape[0], seq=seq,
+                                    part=part)
+        labels = self._bshard(labels, seq)
+        logp = torch.log_softmax(self._head(p, x, part).float(), dim=-1)
         ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
         mask = (labels >= 0).float()
         sums = torch.stack([(ll * mask).sum(), mask.sum()])
-        if self.ctx is not None:
-            axes = SH.entry_axes(SH.batch_spec(self.ctx, tokens.shape[0],
-                                                2)[0])
-            if seq is not None:
-                axes = axes + (self.ctx.model_axis,)
-            if axes:
-                SH.all_reduce(sums, self.ctx.mesh, axes)
+        if part:
+            sums = SH.all_reduce(sums, self.ctx.mesh, part)
         loss = -sums[0] / torch.clamp(sums[1], min=1.0)
         return loss if aux is None else loss + 0.01 * aux
 

@@ -20,8 +20,12 @@ JAX package's `models/sharding.py`, with two differences:
 `Sharding` pairs a mesh with a spec (the counterpart of jax's
 `NamedSharding`) and gives its DTensor placements.  `local_shard`,
 `distribute` and `to_local` move a tensor between its full form and a
-rank's block without a collective where none is needed; `gather_dim`
-and `all_reduce` are the explicit collectives of the sharded layers.
+rank's block without a collective where none is needed; `gather_dim`,
+`reduce_scatter_dim`, `all_reduce` and `fan_out` are the explicit
+collectives of the sharded layers.  Each has a backward, under one rule
+(`full`'s docstring): a value the same on every rank of an axis carries
+the whole gradient there, so the sharded train step differentiates the
+rank's own computation and sums only where ranks saw different data.
 
 Default layout (single pod 16x16, multi-pod 2x16x16):
     batch   -> ("pod", "data")     tensor axes -> "model"
@@ -61,7 +65,7 @@ def mesh_shape(mesh) -> dict:
     """{axis name: size} of a `DeviceMesh` or of a name -> size mapping."""
     if isinstance(mesh, Mapping):
         return {k: int(v) for k, v in mesh.items()}
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,6 +237,16 @@ def placements(mesh, spec) -> list:
     return out
 
 
+def _block_index(mesh, axes) -> tuple:
+    """(this rank's block index, block count) along the mesh axes `axes`
+    (major first)."""
+    sizes = mesh_shape(mesh)
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
+    return idx, n
+
+
 def local_shard(full: torch.Tensor, mesh, spec) -> torch.Tensor:
     """This rank's block of `full` laid out by `spec` (a slice, no
     collective); a block smaller than `full` is copied, so that the full
@@ -242,10 +256,7 @@ def local_shard(full: torch.Tensor, mesh, spec) -> torch.Tensor:
         axes = entry_axes(entry)
         if not axes:
             continue
-        n, idx = 1, 0
-        sizes = mesh_shape(mesh)
-        for a in axes:                              # major first
-            idx, n = idx * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
+        idx, n = _block_index(mesh, axes)
         if full.shape[dim] % n:
             raise ValueError(f"dimension {dim} of {tuple(full.shape)} does "
                              f"not split {n} ways")
@@ -265,30 +276,70 @@ def distribute(t: torch.Tensor, mesh, spec):
                               placements(mesh, spec), run_check=False)
 
 
-def to_local(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+def to_local(t: torch.Tensor, mesh, spec, partial=()) -> torch.Tensor:
     """This rank's block of `t` laid out by `spec`: a DTensor is
     redistributed (collectives only where its layout differs), a plain
-    tensor is taken as the full tensor, the same on every rank."""
-    from torch.distributed.tensor import DTensor
+    tensor is taken as the full tensor, the same on every rank.  Under
+    autograd, the block's gradient is summed over the mesh axes `partial`
+    on which the block is whole (those whose ranks used it on different
+    data) and taken as it is elsewhere, then laid out as `t`.  A DTensor
+    is redistributed one mesh axis at a time, the minor axis first (as
+    `gather_dim` gathers), so a leaf split over "data" and "model" is
+    gathered over "model", then whole over "data"."""
+    from torch.distributed.tensor import DTensor, Partial
     if isinstance(t, DTensor):
-        return t.redistribute(mesh, placements(mesh, spec)).to_local()
+        pl = placements(mesh, spec)
+        cur = list(t.placements)
+        for i in reversed(range(1, len(pl))):    # minor mesh axis first
+            if cur[i] != pl[i]:
+                cur[i] = pl[i]
+                t = t.redistribute(mesh, cur)
+        # the last step always redistributes: its backward lays a
+        # summed (Partial) gradient out as t is, where t already lay so
+        t = t.redistribute(mesh, pl)
+        # the gradient: summed over `partial` where the block is whole
+        return t.to_local(grad_placements=[
+            Partial() if n in partial and p.is_replicate() else p
+            for n, p in zip(mesh.mesh_dim_names, pl)])
     return local_shard(t, mesh, spec)
 
 
-def full(t: torch.Tensor) -> torch.Tensor:
-    """The full tensor of a DTensor (an all-gather where it is split); a
-    plain tensor as it is."""
+def local_block(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (without autograd, the tensor itself, so
+    in-place updates reach the DTensor); any other tensor as it is."""
     from torch.distributed.tensor import DTensor
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
-def gather_dim(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
-    """All-gather `t` along `dim` over the mesh axes `axes` (one name or
-    a tuple, major first): the blocks of the ranks in rank order along
-    those axes.  Over an axis of size 1 it is the identity and issues
-    nothing."""
+def full(t: torch.Tensor, partial=()) -> torch.Tensor:
+    """The full tensor of a DTensor (an all-gather where it is split); a
+    plain tensor as it is.
+
+    The gradient follows the rule of every collective here: a value the
+    same on every rank of a mesh axis carries, on each rank, the whole
+    gradient of the ranks' common computation; a value that differs
+    between the ranks carries its own part.  So the full tensor's
+    gradient is summed over the mesh axes `partial`, those on which the
+    ranks used it on different data (the batch axes; the model axis
+    under sequence parallelism), and taken as it is over the others, on
+    which the ranks computed the same thing (summing there would multiply
+    it by the axis size); then it is laid out as `t`: a reduce-scatter
+    over a partial axis `t` is split on, an all-reduce over one it is
+    whole on, a slice over another."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    return to_local(t, mesh, Spec((None,) * t.ndim), partial)
+
+
+def _grad_on(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _all_gather(t, mesh, axes, dim):
     import torch.distributed as dist
-    for a in reversed(entry_axes(axes)):           # minor axis first
+    for a in reversed(axes):                       # minor axis first
         n = mesh_shape(mesh)[a]
         if n == 1:
             continue
@@ -299,48 +350,175 @@ def gather_dim(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return t
 
 
+def _reduce_scatter(t, mesh, axes, dim):
+    import torch.distributed as dist
+    for a in axes:                                 # major axis first
+        n = mesh_shape(mesh)[a]
+        if n == 1:
+            continue
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=mesh.get_group(a))
+        t = out.movedim(0, dim)
+    return t
+
+
+def _block(t, mesh, axes, dim):
+    idx, n = _block_index(mesh, axes)
+    step = t.shape[dim] // n
+    return t.narrow(dim, idx * step, step)
+
+
+def _sum_over(t, mesh, axes):
+    import torch.distributed as dist
+    t = t.clone()
+    for a in axes:
+        if mesh_shape(mesh)[a] > 1:
+            dist.all_reduce(t, group=mesh.get_group(a))
+    return t
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim, same):
+        ctx.args = (mesh, axes, dim, same)
+        return _all_gather(t, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, same = ctx.args
+        g = _block(g, mesh, axes, dim) if same else \
+            _reduce_scatter(g, mesh, axes, dim)
+        return g.contiguous(), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _reduce_scatter(t, mesh, (axis,), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return _all_gather(g, mesh, (axis,), dim), None, None, None
+
+
+def _all_reduce_(t, mesh, axes, op: str = "sum"):
+    """In-place all-reduce over each of `axes`, issued even over an axis
+    of size 1."""
+    import torch.distributed as dist
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for a in axes:
+        dist.all_reduce(t, op=red, group=mesh.get_group(a))
+    return t
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return _all_reduce_(t.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _FanOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.args = (mesh, axes)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, *ctx.args), None, None
+
+
+class _Local(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, (axis,), dim)
+        return _block(t, mesh, (axis,), dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+def gather_dim(t: torch.Tensor, mesh, axes, dim: int,
+               same: bool = False) -> torch.Tensor:
+    """All-gather `t` along `dim` over the mesh axes `axes` (one name or
+    a tuple, major first): the blocks of the ranks in rank order along
+    those axes.  Over an axis of size 1 it is the identity and issues
+    nothing.  Backward (the rule of `full`): with `same`, the ranks of
+    `axes` go on to compute the same thing from the gathered tensor, so
+    each keeps its block of the gradient; else each computed its own part
+    (attention's keys and values under sequence parallelism), and the
+    gradients are reduce-scattered."""
+    axes = tuple(a for a in entry_axes(axes) if mesh_shape(mesh)[a] > 1)
+    if axes and _grad_on(t):
+        return _Gather.apply(t, mesh, axes, dim, same)
+    return _all_gather(t, mesh, axes, dim)
+
+
 def reduce_scatter_dim(t: torch.Tensor, mesh, axis: str,
                        dim: int) -> torch.Tensor:
     """Sum `t` over the mesh axis `axis` and keep this rank's block along
     `dim` (jax's tiled `psum_scatter`).  Over an axis of size 1 it is the
-    identity and issues nothing."""
-    import torch.distributed as dist
-    n = mesh_shape(mesh)[axis]
-    if n == 1:
-        return t
-    src = t.movedim(dim, 0).contiguous()
-    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    dist.reduce_scatter_tensor(out, src, group=mesh.get_group(axis))
-    return out.movedim(0, dim)
+    identity and issues nothing.  Backward: the blocks' gradients are
+    all-gathered."""
+    if mesh_shape(mesh)[axis] > 1 and _grad_on(t):
+        return _ReduceScatter.apply(t, mesh, axis, dim)
+    return _reduce_scatter(t, mesh, (axis,), dim)
 
 
-def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
-    """In-place all-reduce of `t` over each of `axes` ("sum" or "max"),
-    issued even over an axis of size 1, as the `psum` / `pmax` of the
-    reference's `shard_map` bodies.  Returns `t`."""
-    import torch.distributed as dist
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    for a in entry_axes(axes):
-        dist.all_reduce(t, op=red, group=mesh.get_group(a))
+def all_reduce(t, mesh, axes, op: str = "sum"):
+    """All-reduce of `t` over each of `axes` ("sum" or "max"), issued even
+    over an axis of size 1, as the `psum` / `pmax` of the reference's
+    `shard_map` bodies.  Without autograd it is in place and returns `t`;
+    under autograd ("sum" only) it returns a new tensor, and its
+    backward passes the gradient through: the sum is the same on every
+    rank of `axes` and each uses it alike (the rule of `full`), so each
+    rank's part enters it with the whole gradient."""
+    axes = entry_axes(axes)
+    if _grad_on(t):
+        if op != "sum":
+            raise NotImplementedError(f"all_reduce({op!r}) has no backward")
+        return _AllReduce.apply(t, mesh, axes)
+    return _all_reduce_(t, mesh, axes, op)
+
+
+def fan_out(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """`t`, the same on every rank of the mesh axes `axes`, entering work
+    split over them (each rank its experts, or its slice of d_ff): the
+    identity, whose backward sums the ranks' partial gradients (an
+    all-reduce over the axes of more than one rank), so that `t` carries
+    the whole gradient on each (Megatron's "f")."""
+    axes = entry_axes(axes)
+    if _grad_on(t) and any(mesh_shape(mesh)[a] > 1 for a in axes):
+        return _FanOut.apply(t, mesh, axes)
     return t
 
 
 @dataclasses.dataclass(frozen=True)
 class SeqShard:
     """Activations whose sequence (dimension 1) is split over the mesh
-    axis `axis` (sequence parallelism): `gather` all-gathers a dimension,
-    `local` cuts this rank's block of it."""
+    axis `axis` (sequence parallelism): `gather` all-gathers a dimension
+    (`same` as `gather_dim`'s), `local` cuts this rank's block of it;
+    under autograd `local`'s backward all-gathers the blocks' gradients
+    (the tensor it cuts is the same on every rank)."""
     mesh: Any
     axis: str
 
-    def gather(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        return gather_dim(t, self.mesh, self.axis, dim)
+    def gather(self, t: torch.Tensor, dim: int = 1,
+               same: bool = False) -> torch.Tensor:
+        return gather_dim(t, self.mesh, self.axis, dim, same)
 
     def local(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        n = mesh_shape(self.mesh)[self.axis]
-        step = t.shape[dim] // n
-        return t.narrow(dim, self.mesh.get_local_rank(self.axis) * step,
-                        step)
+        if mesh_shape(self.mesh)[self.axis] > 1 and _grad_on(t):
+            return _Local.apply(t, self.mesh, self.axis, dim)
+        return _block(t, self.mesh, (self.axis,), dim)
 
 
 # =====================================================================

@@ -11,14 +11,23 @@ Python loop would issue a dozen launches per leaf.  `adamw_update`
 changes the parameters, `m`, `v` and the step count in place, and never
 reads a value back to the host.  Not `torch.optim.AdamW`: its clipping
 and its step count are not the reference's.
+
+On a mesh the parameters are DTensors (`Model(cfg, ctx)`): `adamw_init`
+lays `m` and `v` out as the parameters, and the update runs on each
+rank's local blocks.  The global norm sums each block's float64 squares
+over the whole mesh, each divided by the number of ranks that hold the
+same block (the product of the axes the leaf is not split on), so a
+replicated element counts once.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from .. import tree as T
+from ..models import sharding as SH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,21 +41,59 @@ class AdamWConfig:
 
 
 def adamw_init(params) -> dict:
-    z = T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    """{step, m, v}: m and v float32 zeros laid out as `params` (DTensors
+    for DTensor parameters)."""
+    z = T.tree_map(lambda p: torch.zeros_like(p.detach(),
+                                              dtype=torch.float32), params)
     step = torch.zeros((), dtype=torch.int32,
-                       device=T.leaves(params)[0].device)
+                       device=SH.local_block(T.leaves(params)[0]).device)
     return {"step": step, "m": z, "v": T.tree_map(torch.clone, z)}
 
 
-def _clip(grads: list, max_norm: float):
+def _spread(params: list):
+    """(mesh, [1 / the ranks holding each leaf's block]) when the leaves
+    are DTensors, else None."""
+    from torch.distributed.tensor import DTensor
+    dts = [p for p in params if isinstance(p, DTensor)]
+    if not dts:
+        return None
+    mesh = dts[0].device_mesh
+    world = mesh.size()
+    weights = []
+    for p in params:
+        split = 1
+        if isinstance(p, DTensor):
+            for n, pl in zip(mesh.shape, p.placements):
+                split *= int(n) if pl.is_shard() else 1
+        weights.append(split / world)
+    return mesh, weights
+
+
+def _clip(grads: list, max_norm: float, spread=None):
     """(float32 copies of `grads` scaled to global norm <= max_norm, the
     norm before clipping, float32); `grads` are left as they are.  Each
     leaf's norm accumulates in float64: the CPU's float32 norm drifts by
-    4e-4 over 1e7 elements (a vocab-sized embedding has 3e8)."""
+    4e-4 over 1e7 elements (a vocab-sized embedding has 3e8).  With
+    `spread` (`_spread`), `grads` are local blocks and their weighted
+    squares are summed over every axis of the mesh."""
     g32 = [g.float() for g in grads]
     g32 = [c.clone() if c is g else c for c, g in zip(g32, grads)]
-    gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        g32, 2, dtype=torch.float64))).float()
+    norms = torch._foreach_norm(g32, 2, dtype=torch.float64)
+    if spread is None:
+        gn = torch.linalg.vector_norm(torch.stack(norms)).float()
+    else:
+        # the unsharded norm's formula per group of leaves held by as many
+        # ranks, weighted by a Python number (no host-to-card copy), then
+        # squared for the sum over the mesh: sqrt(x * x) == x in IEEE
+        # arithmetic, so one rank holding every leaf whole gets the
+        # unsharded norm bit for bit
+        mesh, weights = spread
+        parts = [torch.linalg.vector_norm(torch.stack(
+            [n for n, w in zip(norms, weights) if w == wg])) * math.sqrt(wg)
+            for wg in sorted(set(weights))]
+        part = torch.linalg.vector_norm(torch.stack(parts))
+        gn = SH.all_reduce(part * part, mesh,
+                           mesh.mesh_dim_names).sqrt().float()
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     torch._foreach_mul_(g32, scale)
     return g32, gn
@@ -64,10 +111,15 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: dict,
     """One AdamW step on `params` (a tree; its leaves change in place) from
     `grads` (the same tree shape, any float dtype).  Returns (params,
     state, global grad norm before clipping) -- the same objects, updated,
-    as the reference returns its new ones."""
-    p_flat = T.leaves(params)
-    g32, gnorm = _clip(T.leaves(grads), cfg.clip_norm)
-    m, v = T.leaves(state["m"]), T.leaves(state["v"])
+    as the reference returns its new ones.  DTensor parameters (and `m`,
+    `v`, `grads` as DTensors or as local blocks) are updated on their
+    local blocks, with the norm of the whole gradient."""
+    p_dt = T.leaves(params)
+    p_flat = [SH.local_block(p) for p in p_dt]
+    g32, gnorm = _clip([SH.local_block(g) for g in T.leaves(grads)], cfg.clip_norm,
+                       _spread(p_dt))
+    m = [SH.local_block(x) for x in T.leaves(state["m"])]
+    v = [SH.local_block(x) for x in T.leaves(state["v"])]
     state["step"] += 1
     step = state["step"].float()
     b1c = 1 - cfg.b1 ** step

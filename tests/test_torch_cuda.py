@@ -786,3 +786,80 @@ def test_sharded_prefill_launches_flash_on_local_shard(cuda, fresh_world):
     torch.cuda.synchronize()
     assert fops.flash_attention.launches - before == 2
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_sharded_train_step_on_card_equals_unsharded(cuda, fresh_world,
+                                                     microbatches):
+    """chip_smoke's `sharded_train` (a) at the smoke config: three train
+    steps of qwen3-1.7b's `Model(cfg, ctx)` on the card's 1 x 1 NCCL mesh
+    against the unsharded step from the same parameters (f32): losses,
+    grad norms, parameters, m and v within 1e-5."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree as Tr
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import mesh as M, steps as St
+    from repro_torch.optim import adamw_init
+    ctx = St.build_ctx(M.make_host_mesh())
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              compute_dtype=torch.float32)
+    models = [Model(cfg).init(torch.Generator(device=cuda).manual_seed(0)),
+              Model(cfg, ctx).init(torch.Generator(device=cuda).manual_seed(0))]
+    tcfg = St.TrainConfig(microbatches=microbatches, total_steps=50,
+                          warmup_steps=2)
+    runs = [(St.make_train_step(m, tcfg), adamw_init(m.param_tree()))
+            for m in models]
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                           seed=0)
+    for i in range(3):
+        batch = {k: torch.from_numpy(v).to(cuda)
+                 for k, v in data.batch(i).items()}
+        (lp, gp), (ls, gs) = [step(opt, batch) for step, opt in runs]
+        assert float(ls) == pytest.approx(float(lp), rel=1e-5, abs=1e-5)
+        assert float(gs) == pytest.approx(float(gp), rel=1e-5, abs=1e-5)
+    for tree in (lambda k: models[k].param_tree(),
+                 lambda k: runs[k][1]["m"], lambda k: runs[k][1]["v"]):
+        for a, b in zip(Tr.leaves(tree(1)), Tr.leaves(tree(0))):
+            assert isinstance(a, DTensor)
+            torch.testing.assert_close(a.full_tensor(), b.detach(),
+                                       atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("body", ["local", "stationary"])
+def test_moe_ep_grads_on_card_equal_dropless(cuda, fresh_world, body):
+    """The expert-parallel bodies' gradients (input, router, experts) on
+    the card's 1 x 1 NCCL mesh at qwen3-moe's smoke width, f32, capacity
+    factor n_experts / top_k (nothing dropped), against the dropless loop
+    route within 1e-4."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import mesh as M, steps as St
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import make_moe_apply
+    mesh = M.make_host_mesh()
+    ctx = St.build_ctx(mesh)
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b", smoke=True),
+                              compute_dtype=torch.float32, capacity_factor=4.0)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    params = L.init_moe(g, cfg)
+    x = torch.randn((4, 520, cfg.d_model), generator=g, device=cuda)
+    w = torch.randn(x.shape, generator=g, device=cuda)
+    names = ("router", "wi", "wg", "wo")
+    _, shardings = St.param_shardings(Model(cfg, ctx), ctx)
+    sh = next(lp["moe"] for lp in shardings["layers"] if "moe" in lp)
+
+    def grads(apply, leaves):
+        xg = x.detach().requires_grad_()
+        y, aux = apply(dict(zip(names, leaves)), xg)
+        out = torch.autograd.grad((y * w).sum() + aux, [xg] + list(leaves))
+        return [o.full_tensor() if isinstance(o, DTensor) else o
+                for o in out]
+
+    want = grads(lambda p, xg: L.moe_ragged(p, xg, cfg, route="loop"),
+                 [params[n].requires_grad_() for n in names])
+    dts = [DTensor.from_local(params[n].detach(), mesh, sh[n].placements,
+                              run_check=False).requires_grad_()
+           for n in names]
+    apply = (make_moe_apply(cfg, ctx, batch=4) if body == "local" else
+             lambda p, xg: L.moe_ep_stationary(p, xg, cfg, ctx, batch=4))
+    for got, ref in zip(grads(apply, dts), want):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)

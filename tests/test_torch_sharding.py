@@ -317,7 +317,8 @@ def test_host_mesh_and_production_mesh(host_mesh):
 
 def test_sharded_model_on_one_rank(host_mesh):
     """`Model(cfg, ctx)` on the 1 x 1 mesh: DTensor parameters and caches,
-    and the same prefill, decode and loss as the unsharded model."""
+    and the same prefill, decode, loss and loss gradients as the
+    unsharded model."""
     from torch.distributed.tensor import DTensor
     ctx = St.build_ctx(host_mesh)
     for arch in ("qwen3_moe_235b_a22b", "jamba_v0_1_52b",
@@ -349,5 +350,15 @@ def test_sharded_model_on_one_rank(host_mesh):
         with torch.no_grad():
             assert abs(float(mu.loss_fn(mu.param_tree(), batch) -
                              ms.loss_fn(ms.param_tree(), batch))) < 1e-5
-        with pytest.raises(NotImplementedError, match="forward-only"):
-            ms.loss_fn(ms.param_tree(), batch)
+        # under grad: the same loss and the same gradients, in the
+        # parameters' layout (the sharded train step's)
+        out = []
+        for m in (mu, ms):
+            leaves = [p.detach().requires_grad_()
+                      for p in T.leaves(m.param_tree())]
+            loss = m.loss_fn(T.unflatten(m.param_tree(), leaves), batch)
+            out.append((loss, torch.autograd.grad(loss, leaves)))
+        assert abs(float(out[0][0] - out[1][0])) < 1e-5
+        for gu, gs in zip(out[0][1], out[1][1]):
+            assert isinstance(gs, DTensor)
+            assert float((gu - gs.full_tensor()).abs().max()) < 1e-5
