@@ -297,6 +297,24 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        the input's and every expert weight's gradients
                        through `moe_ep_local` and `moe_ep_stationary`
                        within 1e-4 (relative) of the dropless loop route
+  examples             the nine scripts of examples_torch/, each through
+                       its main(argv) in this process with no --device
+                       (the card): the six simulator examples at the
+                       reference examples' sizes write files whose SHA-256
+                       and print result lines equal to REFERENCE_EXAMPLES
+                       (the unedited reference scripts on a CPU), every
+                       one through the netstep kernel; serve_lm at
+                       qwen3-1.7b's full width and depth, batch 4, prompt
+                       1024, 32 new tokens, names cuda, launches flash 28
+                       times and gives the greedy tokens of
+                       launch.serve.main with the same argv; train_lm at
+                       full width, 4 x 1024, 20 steps: finite losses,
+                       the last below the first; topology_collectives on the
+                       record of `python -m repro_torch.launch.dryrun`
+                       (qwen3-1.7b train_4k, one microbatch) prices all
+                       four topologies, folded_hexa_torus below mesh.
+                       Seconds per script, prefill ms, decode ms per
+                       token and ms per step as the scripts print them
 
 then the kernel summary line and, last, the `{"ok": true, ...}` line.
 A failed check raises and exits non-zero before the last line; without
@@ -2051,6 +2069,241 @@ REFERENCE_FAMILIES = {
          'grad_norm': 3.4270384311676025},
 }
 
+# The nine scripts of examples_torch/, each called in-process through its
+# main(argv) with no --device (the card by default).  The six simulator
+# examples run at the reference examples' own sizes: {script: the files
+# it writes under --out}.  Their files' SHA-256 and their printed result
+# lines (`example_lines`) equal REFERENCE_EXAMPLES, the reference scripts'
+# (`tools/smoke_reference.py examples`: examples/, unedited, on a CPU).
+SIM_EXAMPLES = {
+    "quickstart": ("quickstart.csv",),
+    "workload_quickstart": ("workload_quickstart.csv",),
+    "fault_quickstart": ("fault_quickstart.csv",),
+    "obs_quickstart": ("obs_quickstart_links.csv",
+                       "obs_quickstart_windows.csv"),
+    "adaptive_quickstart": (),
+    "synth_quickstart": ("synth_state_demo.json",)}
+# serve_lm and train_lm at full width and depth, bf16; topology_collectives
+# on the record of `python -m repro_torch.launch.dryrun` with these flags
+EXAMPLE_SERVE = ["--arch", "qwen3-1.7b", "--batch", str(SERVE["batch"]),
+                 "--prompt-len", str(SERVE["prompt"]), "--gen",
+                 str(SERVE["gen"])]
+# 20 steps: the driver warms the rate up over its first 5 (at 5 steps the
+# losses moved by noise alone on the card: 12.3466 ... 12.3475)
+EXAMPLE_TRAIN_STEPS = 20
+EXAMPLE_TRAIN = ["--arch", TRAIN_ARCH, "--batch", "4", "--seq", "1024",
+                 "--steps", str(EXAMPLE_TRAIN_STEPS), "--log-every", "1"]
+EXAMPLE_DRYRUN = ["--arch", "qwen3-1.7b", "--shape", "train_4k",
+                  "--microbatches", "1"]
+ICI_PRICED = ("mesh", "hexamesh", "folded_torus", "folded_hexa_torus")
+REFERENCE_EXAMPLES = {'files': {'quickstart.csv': 'eefde8dd723d4dcc4befe0bca1b105045605c2655654f7156757c46852b2349a',
+           'workload_quickstart.csv': 'a0b7eb44222ea7d218265ea1e735859946d79ef2767164bfa0339916d4aeb2b0',
+           'fault_quickstart.csv': '325008db6ce7670a7dba419d908c950f34948b93fd4a7b8b066b3ae2b17a18a6',
+           'obs_quickstart_links.csv': '6aa766bbeeb413fb2d20359d038af5831ea8aaaeec23dc0a8de40a9919432bda',
+           'obs_quickstart_windows.csv': 'f988010837155969e3464a4b83731748afb0daa58357101e13a3c3ce0bd8dff1',
+           'synth_state_demo.json': 'f307338d6d3c5ed7cf9a95b4f0924d15e7afd82a404d4042253ce1e6e8b5e094'},
+ 'lines': {'quickstart': ['=== the core layer: one topology, routed and '
+                          'checked ===',
+                          'folded_hexa_torus    diam= 6 radix=6 maxlink= '
+                          '19.6mm analytic T_r=0.508',
+                          '',
+                          '=== the experiment API: a grid through one front '
+                          'door ===',
+                          'mesh                 T_r=0.108 flits/node/cyc  '
+                          'T_a=   0.33 Tb/s  lat= 42.7ns',
+                          'hexamesh             T_r=0.414 flits/node/cyc  '
+                          'T_a=   0.83 Tb/s  lat= 34.6ns',
+                          'folded_torus         T_r=0.147 flits/node/cyc  '
+                          'T_a=   0.44 Tb/s  lat= 36.6ns',
+                          'folded_hexa_torus    T_r=0.508 flits/node/cyc  '
+                          'T_a=   0.96 Tb/s  lat= 26.1ns',
+                          '',
+                          '=== cycle-accurate check (16 chiplets, simulated) '
+                          '===',
+                          'simulated saturation 0.786 (analytic bound 1.000), '
+                          'latency@sat 29.5 cycles'],
+           'workload_quickstart': ['=== workloads x topologies, one '
+                                   'declarative experiment ===',
+                                   'mesh               '
+                                   'collective:qwen3-1.7b    sat=0.752 lat= '
+                                   '21.8cy  per-phase [fsdp_gather=0.334, '
+                                   'fwd_tp=0.815, bwd_tp=0.865, '
+                                   'grad_reduce=0.514]',
+                                   'mesh               '
+                                   'trace:fluidanimate       sat=0.229 lat= '
+                                   '52.2cy  per-phase [region0=0.231, '
+                                   'region1=0.233, region2=0.233, '
+                                   'region3=0.224, region4=0.221]',
+                                   'mesh               '
+                                   'alt:tornado-uniform      sat=0.433 lat= '
+                                   '64.7cy  per-phase [tornado=0.430, '
+                                   'uniform=0.435, tornado=0.412, '
+                                   'uniform=0.453]',
+                                   'folded_hexa_torus  '
+                                   'collective:qwen3-1.7b    sat=0.752 lat= '
+                                   '21.8cy  per-phase [fsdp_gather=0.304, '
+                                   'fwd_tp=0.814, bwd_tp=0.865, '
+                                   'grad_reduce=0.544]',
+                                   'folded_hexa_torus  '
+                                   'trace:fluidanimate       sat=0.249 lat= '
+                                   '27.7cy  per-phase [region0=0.250, '
+                                   'region1=0.250, region2=0.247, '
+                                   'region3=0.250, region4=0.251]',
+                                   'folded_hexa_torus  '
+                                   'alt:tornado-uniform      sat=0.669 lat= '
+                                   '34.3cy  per-phase [tornado=0.578, '
+                                   'uniform=0.755, tornado=0.568, '
+                                   'uniform=0.776]',
+                                   '',
+                                   '=== anatomy of the collective schedule on '
+                                   'FHT-16 ===',
+                                   '  fsdp_gather   106cy intensity=0.287 '
+                                   'peak-row=2.54e+08 bytes',
+                                   '  fwd_tp        394cy intensity=1.000 '
+                                   'peak-row=3.29e+09 bytes',
+                                   '  bwd_tp        394cy intensity=1.000 '
+                                   'peak-row=3.29e+09 bytes',
+                                   '  grad_reduce   106cy intensity=0.287 '
+                                   'peak-row=2.54e+08 bytes'],
+           'fault_quickstart': ['=== uniform-traffic degradation, N=36 '
+                                'organic ===',
+                                '  mesh               k=0 '
+                                'faults=none             sat=0.161 abs=0.50 '
+                                'Tb/s',
+                                '  mesh               k=1 '
+                                'faults=rand:k1:s0       sat=0.147 abs=0.46 '
+                                'Tb/s',
+                                '  mesh               k=2 '
+                                'faults=rand:k2:s0       sat=0.131 abs=0.41 '
+                                'Tb/s',
+                                '  mesh               k=4 '
+                                'faults=rand:k4:s0       sat=0.153 abs=0.47 '
+                                'Tb/s',
+                                '  folded_hexa_torus  k=0 '
+                                'faults=none             sat=0.509 abs=0.96 '
+                                'Tb/s',
+                                '  folded_hexa_torus  k=1 '
+                                'faults=rand:k1:s0       sat=0.589 abs=1.12 '
+                                'Tb/s',
+                                '  folded_hexa_torus  k=2 '
+                                'faults=rand:k2:s0       sat=0.456 abs=0.86 '
+                                'Tb/s',
+                                '  folded_hexa_torus  k=4 '
+                                'faults=rand:k4:s0       sat=0.505 abs=0.96 '
+                                'Tb/s',
+                                '',
+                                '=== mixed tenant (train collectives + 30% '
+                                'serving) through the same masks ===',
+                                '  k=0 sat=0.572 lat=42.3cy (4 phases)',
+                                '  k=2 sat=0.486 lat=44.5cy (4 phases)',
+                                '',
+                                '=== partitioned packages are outages, not '
+                                'data points ===',
+                                '  rejected: mesh[L0-1,0-4]: fault set '
+                                'disconnects the surviving chiplets into 2 '
+                                'islands of sizes [15, 1]; a partitioned '
+                                'package cannot serve traffic — choose a '
+                                'survivable fault set (see '
+                                'faults.sample_faults(..., '
+                                'require_connected=True))'],
+           'obs_quickstart': ['=== 1. per-link load at saturation (the '
+                              "paper's mechanism) ===",
+                              '  mesh               links= 48 p50=0.254 '
+                              'p95=0.693 max=0.830 gini=0.368',
+                              '  folded_hexa_torus  links= 88 p50=0.217 '
+                              'p95=0.514 max=0.710 gini=0.284',
+                              '  -> folding flattens the load: FHT gini 0.284 '
+                              'vs mesh 0.368',
+                              '',
+                              '=== 2. conservation: flight counters == '
+                              'aggregate counters ===',
+                              '  mesh               sum(inj)==accepted, '
+                              'sum(eject)==delivered, sum(hist)==delivered  '
+                              '[exact]',
+                              '  folded_hexa_torus  sum(inj)==accepted, '
+                              'sum(eject)==delivered, sum(hist)==delivered  '
+                              '[exact]',
+                              '',
+                              '=== 3. where the wall-clock went ===',
+                              '  sweep runs=2',
+                              '  open results/obs_quickstart.trace.json in '
+                              'ui.perfetto.dev for the span tree',
+                              '',
+                              '=== 4. windowed time-heatmap: a hotspot '
+                              'drifting across FHT36 ===',
+                              '  per-window channel-load imbalance (gini) and '
+                              'the escape/adaptive occupancy split:',
+                              '  window 0 [t=   0.. 100) util_p95=0.286 '
+                              'gini=0.628 occ_esc=0.876 occ_adapt=2.293',
+                              '  window 1 [t= 100.. 200) util_p95=0.280 '
+                              'gini=0.594 occ_esc=0.838 occ_adapt=2.201',
+                              '  window 2 [t= 200.. 300) util_p95=0.320 '
+                              'gini=0.581 occ_esc=0.681 occ_adapt=2.045',
+                              '  window 3 [t= 300.. 400) util_p95=0.260 '
+                              'gini=0.602 occ_esc=0.709 occ_adapt=1.953',
+                              '  window 4 [t= 400.. 500) util_p95=0.277 '
+                              'gini=0.617 occ_esc=0.738 occ_adapt=2.111',
+                              '  window 5 [t= 500.. 600) util_p95=0.303 '
+                              'gini=0.618 occ_esc=0.716 occ_adapt=2.265',
+                              "  -> each window's hot channels move with the "
+                              'hotspot; the aggregate heatmap above averages '
+                              'this away'],
+           'adaptive_quickstart': ['=== 1. productive ports + escape '
+                                   'certification (RT005) ===',
+                                   '  mask [N_dst, N, P] = (36, 36, 4), 1782 '
+                                   'productive entries',
+                                   '  certificate: ok=True escape_safe=True '
+                                   'adaptive_choices=1782',
+                                   '',
+                                   '=== 2. static vs adaptive under a '
+                                   'drifting hotspot ===',
+                                   '  mesh36, hotspot_drift: static 0.089 '
+                                   'adaptive 0.113  gain +27.5%',
+                                   '',
+                                   '=== 3. the same thing declaratively, via '
+                                   'Scenario(routing) ===',
+                                   '  folded_hexa_torus  routing=static   '
+                                   'sim_saturation=0.121',
+                                   '  folded_hexa_torus  routing=adaptive '
+                                   'sim_saturation=0.134',
+                                   "  -> FHT's static channel load is already "
+                                   'flat, so its adaptive margin is small'],
+           'synth_quickstart': ['=== custom topologies are first-class ===',
+                                '  ring16             analytic T_r=0.263 '
+                                'radix=2',
+                                '  double_ring        analytic T_r=0.600 '
+                                'radix=4',
+                                '  folded_hexa_torus  analytic T_r=1.000 '
+                                'radix=6',
+                                '',
+                                '=== the design space + feasibility filter '
+                                '===',
+                                '  36 fold-mask variants, 12 '
+                                'substrate-feasible',
+                                '  random geometric: rg_grid_00000007 radix=6 '
+                                'links=44 feasible=True',
+                                '',
+                                '=== a small seeded search (save + resume) '
+                                '===',
+                                '  35 feasible candidates, 12 cycle-simulated '
+                                '(prefilter 2.9x)',
+                                '  front: hexamesh                  1465.1 '
+                                'Gb/s   17.5 ns     42541 wire-mm',
+                                '  front: folded_hexa_torus         1523.6 '
+                                'Gb/s   13.9 ns     82402 wire-mm',
+                                '  front: octamesh                  1151.1 '
+                                'Gb/s   15.2 ns     44584 wire-mm',
+                                '  front: fm_brick_fpp              1497.9 '
+                                'Gb/s   16.0 ns     56930 wire-mm',
+                                '  front: fm_brick_fpp~070e         1422.6 '
+                                'Gb/s   16.1 ns     55590 wire-mm',
+                                '  front: fm_brick_ffp              1502.4 '
+                                'Gb/s   14.9 ns     68996 wire-mm',
+                                '  front: folded_hexa_torus~aa86    1521.6 '
+                                'Gb/s   14.1 ns     78663 wire-mm',
+                                '  folded_hexa_torus within 5% of front: '
+                                'True']}}
+
 
 def family_inputs(cfg, fs=FAMILIES_SMOKE):
     """numpy (prompts [B, T] int64, frames [B, T, D] float32 for an
@@ -2188,6 +2441,33 @@ def digest(*arrays, dtype="int32") -> str:
     for a in arrays:
         h.update(np.ascontiguousarray(a, dtype).tobytes())
     return h.hexdigest()
+
+
+def file_digest(path) -> str:
+    """SHA-256 of a file's bytes."""
+    import hashlib
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def example_lines(stdout: str, out: str | None = None) -> list:
+    """The result lines an example prints, as the reference's and the
+    port's are compared: the `[io] wrote` / `[obs] wrote` lines go (they
+    name the files, which are compared by digest); in the port's lines
+    (`out`: its --out directory) that directory reads `results/`, where
+    the reference writes; the reference's pointer to
+    `results/adaptive_gain.csv`, which only its unported benchmarks write,
+    is cut; and so are the compile and runner-cache counts of obs's sweep
+    line (the port compiles nothing and has no compiled-runner cache)."""
+    lines = []
+    for line in stdout.splitlines():
+        if line.startswith(("[io] wrote ", "[obs] wrote ")):
+            continue
+        if out is not None:
+            line = line.replace(str(Path(out)) + "/", "results/")
+        line = re.sub(r"; see results/adaptive_gain\.csv$", "", line)
+        line = re.sub(r"^(  sweep runs=\d+) compiles=.*$", r"\1", line)
+        lines.append(line)
+    return lines
 
 
 def adaptive_table(frame) -> dict:
@@ -4898,6 +5178,180 @@ def sharded_train_phase(torch, dev, smi, fops, sops, full_losses) -> tuple:
     return launched
 
 
+def load_example(name: str):
+    """examples_torch/<name>.py as a module (its `main` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def first_difference(got: list, want: list) -> str:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            return f"line {i}: {g!r} != {w!r}"
+    return f"{len(got)} lines for {len(want)}"
+
+
+def examples_phase(torch, smi, netstep, fops, sops) -> dict:
+    """`examples`: the nine scripts of examples_torch/, each through its
+    `main(argv)` in this process with no --device (the card) and --out in
+    a temporary directory.  Returns the launches of netstep (the six
+    simulator examples) and of flash attention (serve_lm)."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import statistics
+    import tempfile
+    from repro_torch.core import topology as T
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def run(name, argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ret = load_example(name).main(argv)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return ret, buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as d:
+        # the dry-run record for topology_collectives (fake tensors on the
+        # host), made while the simulator examples run; the LM examples
+        # wait for it, so that nothing else holds the host while they are
+        # timed
+        dry = Path(d) / "dryrun"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="2")
+        t_dry = time.perf_counter()
+        dryrun = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             *EXAMPLE_DRYRUN, "--out", str(dry)], cwd=d, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            # ---- the six simulator examples at the reference's sizes -----
+            out = Path(d) / "out"
+            sim_launches = {}
+            netstep.launches = 0
+            for script, files in SIM_EXAMPLES.items():
+                before = netstep.launches
+                _, text = run(script, ["--out", str(out)])
+                sim_launches[script] = netstep.launches - before
+                lines = example_lines(text, str(out))
+                want = REFERENCE_EXAMPLES["lines"][script]
+                check(lines == want, f"{script} printed lines differ from "
+                      f"the reference's: {first_difference(lines, want)}")
+                for name in files:
+                    got = file_digest(out / name)
+                    check(got == REFERENCE_EXAMPLES["files"][name],
+                          f"{script}: {name} has SHA-256 {got}, the "
+                          f"reference's {REFERENCE_EXAMPLES['files'][name]}")
+                check(sim_launches[script] > 0,
+                      f"{script} launched no netstep kernel")
+            netstep_launches = netstep.launches
+            # synth's registered generator is process-wide state (obs
+            # switches its span tracing off itself)
+            T.unregister_topology("double_ring")
+            t_wait = time.perf_counter()
+            log, _ = dryrun.communicate(timeout=900)
+            dry_s = time.perf_counter() - t_dry
+            dry_wait_s = time.perf_counter() - t_wait
+            check(dryrun.returncode == 0,
+                  f"the dry-run failed: {log[-2000:]}")
+
+            # ---- serve_lm at full width: the card, 28 flash launches -----
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fops.flash_attention.launches = 0
+            sops.ssd_scan.launches = 0
+            toks, text = run("serve_lm", EXAMPLE_SERVE)
+            serve_peak = torch.cuda.max_memory_allocated()
+            flash = fops.flash_attention.launches
+            per_prefill = SERVE_LAUNCHES["qwen3-1.7b"][1]
+            check(flash == per_prefill and sops.ssd_scan.launches == 0,
+                  f"serve_lm launched flash {flash} times (SSD "
+                  f"{sops.ssd_scan.launches}), not {per_prefill} per prefill")
+            serve_lines = text.splitlines()
+            model_line = serve_lines[0]
+            check(re.match(r"\[serve\] \S+ on cuda(:\d+)?: prefill ",
+                           model_line), f"serve_lm's model line {model_line!r}")
+            prefill_ms = float(re.search(r"prefill \d+x\d+: (\d+)ms",
+                                         model_line)[1])
+            decode_ms = float(re.search(r"seqs in (\d+)ms",
+                                        serve_lines[1])[1])
+            check(tuple(toks.shape) == (SERVE["batch"], SERVE["gen"] + 1),
+                  f"serve_lm tokens {tuple(toks.shape)}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            with contextlib.redirect_stdout(io.StringIO()):
+                want = serve.main(EXAMPLE_SERVE)
+            check(torch.equal(toks, want), "serve_lm's greedy tokens differ "
+                  "from launch.serve.main's with the same argv")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # ---- train_lm at full width: the card, the loss falls ---------
+            torch.cuda.reset_peak_memory_stats()
+            fops.flash_attention.launches = 0
+            losses, text = run("train_lm", EXAMPLE_TRAIN)
+            train_peak = torch.cuda.max_memory_allocated()
+            check(re.search(r"^\[train\] arch=\S+ .* device=cuda", text,
+                            re.M), f"train_lm's first line: "
+                  f"{text.splitlines()[:1]}")
+            check(len(losses) == EXAMPLE_TRAIN_STEPS
+                  and all(math.isfinite(x) for x in losses)
+                  and losses[-1] < losses[0], f"train_lm losses {losses}")
+            check(fops.flash_attention.launches == 0,
+                  "train_lm launched flash attention")
+            step_ms = [float(x) for x in re.findall(
+                r"^\[train\] step=\s*\d+ .* dt=(\d+)ms", text, re.M)]
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # ---- topology_collectives on the dry-run's record -------------
+            records = sorted(str(p) for p in dry.glob("*train_4k__pod1.json"))
+            check(len(records) == 1, f"dry-run records {records}")
+            prices, text = run("topology_collectives", records)
+        finally:
+            if dryrun.poll() is None:
+                dryrun.kill()
+                dryrun.wait(5)
+    priced = prices.get("qwen3_1_7b__train_4k__pod1", {})
+    check(tuple(priced) == ICI_PRICED
+          and all(math.isfinite(v) and v > 0 for v in priced.values()),
+          f"topology_collectives priced {prices}")
+    check(priced["folded_hexa_torus"] < priced["mesh"],
+          f"folded_hexa_torus costs {priced['folded_hexa_torus']} s, mesh "
+          f"{priced['mesh']} s")
+    emit("examples", scripts=list(seconds), seconds_by_script=seconds,
+         sim_equal_reference=True, sim_files=sorted(
+             REFERENCE_EXAMPLES["files"]),
+         netstep_launches=netstep_launches,
+         netstep_launches_by_script=sim_launches,
+         serve=dict(argv=EXAMPLE_SERVE, model_line=model_line,
+                    flash_launches=flash, prefill_ms=prefill_ms,
+                    decode_ms_per_token=decode_ms / SERVE["gen"],
+                    tokens_equal_serve_main=True,
+                    sample=toks[0, :8].tolist(),
+                    peak_memory_gb=serve_peak / 1e9),
+         train=dict(argv=EXAMPLE_TRAIN, losses=losses, step_ms=step_ms,
+                    median_step_ms_after_first=statistics.median(
+                        step_ms[1:]), peak_memory_gb=train_peak / 1e9),
+         topology_collectives=dict(dryrun_argv=EXAMPLE_DRYRUN,
+                                   dryrun_seconds=dry_s,
+                                   dryrun_wait_seconds=dry_wait_s,
+                                   step_collective_s=priced),
+         nvidia_smi=smi, seconds=round(time.perf_counter() - t_phase, 3))
+    return dict(netstep=netstep_launches, flash_attention=flash)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5207,6 +5661,8 @@ def main() -> int:
                                          full_losses)
     for row, n in zip(lm_rows, train_launches):
         row["launches_sharded_train"] = {TRAIN_ARCH: n}
+    example_launches = examples_phase(torch, smi, netstep, fops, sops)
+    lm_rows[0]["launches_examples"] = example_launches["flash_attention"]
 
     print(json.dumps({"kernels": [dict(
         name="netstep", route="cuda",
@@ -5216,6 +5672,7 @@ def main() -> int:
         launches_collectives=coll_launches,
         launches_adaptive_telemetry=adaptive_launches,
         launches_synth=synth_launches, launches_analysis=analysis_launches,
+        launches_examples=example_launches["netstep"],
         max_abs_err=max_err,
         ms=first(main_row["device_ms"], main_row["events_ms"]),
         events_ms=main_row["events_ms"],

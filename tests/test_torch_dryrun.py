@@ -23,7 +23,12 @@ qwen3-moe-235b-a22b `decode_32k` on 16 x 16, and the latter on 2 x 16 x
 * readers: `benchmarks.roofline.analyze` reads the directory as `ok`
   rows, the train row's useful-FLOPs ratio in the range derived below,
   and `examples/topology_collectives.py`'s pricing loop with the port's
-  `build_ici_model` gives finite times.
+  `build_ici_model` gives finite times;
+* `examples_torch/topology_collectives.py` on the train record prints
+  the pricing lines the reference's `examples/topology_collectives.py`
+  prints for it (both scripts run at once, each in its own process),
+  with FoldedHexaTorus cheaper than Mesh; without a record under
+  `build/dryrun/` it points to the port's dry-run and exits 0.
 """
 import ast
 import json
@@ -249,3 +254,53 @@ def test_readers_take_the_records(records):
             s = sum(m.collective_time_s(kind.replace("-", "_"), v["bytes"])
                     for kind, v in rec["collectives"].items())
             assert np.isfinite(s) and s > 0, (rec["tag"], topo)
+
+
+def _topology_collectives(script, args, cwd):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    return subprocess.Popen([sys.executable, str(ROOT / script), *args],
+                            cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(procs):
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=DEADLINE_S)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(5)
+    return outs
+
+
+def test_topology_collectives_prices_as_the_reference(records, tmp_path):
+    out, _ = records
+    path = str(out / f"{_tag('qwen3-1.7b', 'train_4k', False)}.json")
+    ref, port = _finish([
+        _topology_collectives("examples/topology_collectives.py", [path],
+                              tmp_path),
+        _topology_collectives("examples_torch/topology_collectives.py",
+                              ["--device", "cpu", path], tmp_path)])
+    assert port == ref
+    lines = port.splitlines()
+    assert lines[1] == f"=== {_tag('qwen3-1.7b', 'train_4k', False)} ==="
+    ms = {}
+    for line in lines[3:]:
+        name, rest = line.split(None, 1)
+        ms[name] = float(rest.rsplit("~", 1)[1].split()[0])
+    assert list(ms) == ["mesh", "hexamesh", "folded_torus",
+                        "folded_hexa_torus"]
+    assert 0 < ms["folded_hexa_torus"] < ms["mesh"], ms
+
+
+def test_topology_collectives_without_a_record(tmp_path):
+    out, = _finish([_topology_collectives(
+        "examples_torch/topology_collectives.py", ["--device", "cpu"],
+        tmp_path)])
+    assert out.startswith("no dry-run artifacts found — run python -m "
+                          "repro_torch.launch.dryrun"), out

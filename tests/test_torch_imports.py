@@ -1,6 +1,6 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import no jax
-and nothing of `repro`, and its entry points never fall back to the CPU
-on their own."""
+"""The port stands alone: `repro_torch`, `chip_smoke.py` and the examples
+of `examples_torch/` import no jax and nothing of `repro`, and its entry
+points never fall back to the CPU on their own."""
 import ast
 import os
 import pathlib
@@ -16,6 +16,8 @@ from repro_torch.device import resolve_device  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted(str(p.relative_to(ROOT))
+                  for p in (ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,9 +45,49 @@ def test_every_module_imports_with_jax_absent():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_every_example_imports_with_jax_absent():
+    """Each script of examples_torch/ loads as a module (its `main` not
+    run) with jax unimportable, and loads no module of `repro`."""
+    assert len(EXAMPLES) == 9
+    code = (
+        "import importlib.util, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for path in {[str(ROOT / p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main), path\n"
+        "bad = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", EXAMPLES)
+def test_example_without_device_raises_when_no_gpu(path):
+    """With no --device an example runs on the card: without one it
+    raises before it does any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{pathlib.Path(path).stem}", ROOT / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(["--out", str(ROOT / "build" / "never")])
+    assert not (ROOT / "build" / "never").exists()
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py"] + EXAMPLES))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     for node in ast.walk(tree):

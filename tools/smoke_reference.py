@@ -1,9 +1,10 @@
 """Compute the JAX reference tables of `chip_smoke.py`'s `experiments`,
-`collectives`, `adaptive_telemetry`, `synth`, `analysis`, `train` and
-`families_parity` phases.
+`collectives`, `adaptive_telemetry`, `synth`, `analysis`, `train`,
+`families_parity` and `examples` phases.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/smoke_reference.py \
-        [experiments|collectives|adaptive|synth|analysis|train|families]
+        [experiments|collectives|adaptive|synth|analysis|train|families|
+         examples]
 
 `experiments` builds that phase's Experiment
 (`chip_smoke.experiment_scenarios`: 15 scenarios at N = 256, organic,
@@ -39,13 +40,24 @@ norm (`REFERENCE_TRAIN`, seconds).  `families` runs the smoke configs of
 without virtual-split experts, the attention:SSM:MoE hybrid) at float32
 compute from `train_smoke_params`: prefill and two decode steps on
 `chip_smoke.family_inputs`, and the first train step's loss and grad
-norm (`REFERENCE_FAMILIES`, seconds).  Without an argument, all seven
-tables; the first three take several minutes each on an 8-core CPU.
+norm (`REFERENCE_FAMILIES`, seconds).  `examples` runs the six
+simulator scripts of `examples/` (`chip_smoke.SIM_EXAMPLES`), unedited,
+each in its own process, all at once, from a copy of the directory in a
+temporary one whose sibling `results/` takes what they write, and
+prints the SHA-256 of each file they write and each one's printed
+result lines (`chip_smoke.example_lines`): `REFERENCE_EXAMPLES`, about
+a minute.  Without an argument, all eight tables; the first three take
+several minutes each on an 8-core CPU.
 """
+import hashlib
 import json
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -263,10 +275,94 @@ def families() -> dict:
     return out
 
 
+ROOT = Path(__file__).resolve().parents[1]
+# one thread per example process: they run side by side
+ONE_THREAD = dict(OMP_NUM_THREADS="1", XLA_FLAGS=(
+    "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"))
+EXAMPLES_DEADLINE_S = 600
+
+
+def start_examples(workdir, scripts, port_args=None) -> dict:
+    """Start the reference example `examples/<script>.py` of each of
+    `scripts`, unedited, from a copy of `examples/` in `workdir`, so that
+    it writes to `workdir/results/` (JAX on the CPU); and, given
+    `port_args`, the port's `examples_torch/<script>.py` with them and
+    `--out workdir/port`.  All at once, one thread each, from `workdir`.
+    Returns {(script, "reference" | "port"): Popen}."""
+    workdir = Path(workdir)
+    if not (workdir / "examples").exists():
+        shutil.copytree(ROOT / "examples", workdir / "examples")
+        (workdir / "results").mkdir()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               **ONE_THREAD)
+    runs = {(s, "reference"): [str(workdir / "examples" / f"{s}.py")]
+            for s in scripts}
+    if port_args is not None:
+        runs.update({(s, "port"): [
+            str(ROOT / "examples_torch" / f"{s}.py"), *port_args, "--out",
+            str(workdir / "port")] for s in scripts})
+    return {key: subprocess.Popen([sys.executable, *cmd], cwd=workdir,
+                                  env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+            for key, cmd in runs.items()}
+
+
+def finish_examples(procs: dict, deadline_s: float = EXAMPLES_DEADLINE_S
+                    ) -> dict:
+    """{key: stdout} of `start_examples`' processes; raises, with every
+    process stopped, if one exits non-zero or they are not done within
+    `deadline_s`."""
+    end = time.monotonic() + deadline_s
+    outs = {}
+    try:
+        for key, p in procs.items():
+            out, err = p.communicate(timeout=max(end - time.monotonic(), 1))
+            if p.returncode:
+                raise RuntimeError(f"{key} exited {p.returncode}: "
+                                   f"{err[-3000:]}")
+            outs[key] = out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(5)
+    return outs
+
+
+def example_runs(workdir, scripts, port_args=None) -> dict:
+    """Each of `scripts` run by the reference and, given `port_args`, by
+    the port, all at once (`start_examples`): {script: {"reference" |
+    "port": dict(lines=`chip_smoke.example_lines`, raw=its stdout,
+    out=the directory it writes to, files={name: bytes})}}."""
+    workdir = Path(workdir)
+    runs = {}
+    for (s, side), raw in finish_examples(
+            start_examples(workdir, scripts, port_args)).items():
+        out = workdir / ("port" if side == "port" else "results")
+        runs.setdefault(s, {})[side] = dict(
+            lines=chip_smoke.example_lines(raw, out if side == "port"
+                                           else None),
+            raw=raw, out=str(out),
+            files={name: (out / name).read_bytes()
+                   for name in chip_smoke.SIM_EXAMPLES[s]})
+    return runs
+
+
+def examples() -> dict:
+    """`REFERENCE_EXAMPLES`: the digests of the files the reference's
+    simulator examples write and their printed result lines."""
+    with tempfile.TemporaryDirectory() as d:
+        runs = example_runs(d, chip_smoke.SIM_EXAMPLES)
+    return dict(files={name: hashlib.sha256(data).hexdigest()
+                       for r in runs.values()
+                       for name, data in r["reference"]["files"].items()},
+                lines={s: r["reference"]["lines"] for s, r in runs.items()})
+
+
 def main(argv=None) -> int:
     which = (argv or sys.argv[1:]) or ["experiments", "collectives",
                                        "adaptive", "synth", "analysis",
-                                       "train", "families"]
+                                       "train", "families", "examples"]
     if "experiments" in which:
         t0 = time.perf_counter()
         frame = run(chip_smoke.experiment_scenarios(X, W, F, T),
@@ -290,7 +386,7 @@ def main(argv=None) -> int:
               flush=True)
     for name, fn in (("adaptive", adaptive), ("synth", synth),
                      ("analysis", analysis), ("train", train),
-                     ("families", families)):
+                     ("families", families), ("examples", examples)):
         if name in which:
             t0 = time.perf_counter()
             out = fn()
