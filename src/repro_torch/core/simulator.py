@@ -51,6 +51,7 @@ import contextlib
 import dataclasses
 import os
 import warnings
+from time import perf_counter_ns
 from typing import NamedTuple
 
 import numpy as np
@@ -60,7 +61,7 @@ from ..device import resolve_device
 from ..kernels.netstep.ops import netstep
 from ..kernels.netstep.ref import netstep_ref
 from ..obs.profile import profiling_enabled
-from ..obs.trace import trace as _span
+from ..obs.trace import trace as _span, tracing_enabled
 from . import linkmodel as lm
 from .routing import Routing, productive_ports
 
@@ -71,8 +72,17 @@ _MIX_T = 0x85EBCA6B
 _MIX_N = 0xC2B2AE3D
 
 #: cycles of injection randomness drawn per device call (a chunk of the
-#: hash table [cycles, N] is made at once, outside the per-cycle work)
+#: hash table [cycles, N] is made at once, outside the per-cycle work);
+#: also the cycles of one `sim.cycles` span
 _BITS_CHUNK = 256
+#: the cycle loop's phases, in loop order, as a `sim.cycles` span names
+#: their host nanoseconds (`<phase>_ns`): the chunk's injection bits, then
+#: each cycle's §1 deliveries, §2 credit returns, §3 injection, §4 up to
+#: and including the route lookup (the recorder's occupancy snapshot and
+#: the allocator's arguments too), the allocator call alone, §5 winners
+#: and §6 the flight recorder
+PHASES = ("bits", "deliver", "credit", "inject", "route", "alloc",
+          "winners", "record")
 
 #: flight-recorder latency-histogram bins: bin h counts ejections with
 #: latency in [2^(h-1), 2^h) cycles (bin 0 stays 0: latency < 1 is
@@ -449,6 +459,13 @@ def _check_config(cfg: SimConfig) -> None:
 # batched runner
 # =====================================================================
 
+def _lap(ns: list, phase: int, t0: int) -> int:
+    """Add the host nanoseconds since `t0` to `ns[phase]`; return now."""
+    t1 = perf_counter_ns()
+    ns[phase] += t1 - t0
+    return t1
+
+
 def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                    n: int, p: int, c: int, d: int, cfg: SimConfig,
                    alloc_fn, sched: dict | None = None,
@@ -479,6 +496,13 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     probe (a profile capture or an op trace): receives `state_bytes`,
     the bytes of the state carried across cycles, and `cycle`, the cycle
     the loop is in (None before and after the loop).
+
+    Each chunk of _BITS_CHUNK cycles is one `sim.cycles` span (`obs.
+    trace`) with the attributes `t0`, `cycles`, `measured` (cycles past
+    the warm-up), `mode` ("static" or "workload"), `adaptive`,
+    `recorder`, and, with tracing on, `alloc_calls` and the host
+    nanoseconds of each of PHASES as `<phase>_ns`.  Tracing reads the
+    host's clock only; it never waits for the device.
     """
     N, P, C, D = n, p, c, d
     V, Bd = cfg.n_vcs, cfg.buf_depth
@@ -586,161 +610,200 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         probe["state_bytes"] = sum(x.numel() * x.element_size()
                                    for x in state)
 
-    for t in range(cfg.cycles):
-        if probe is not None:
-            probe["cycle"] = t
-        slot = t % D
-        measuring = t >= cfg.warmup
-        if t % _BITS_CHUNK == 0:
-            ts = torch.arange(t, min(t + _BITS_CHUNK, cfg.cycles),
-                              dtype=i64, device=dev).view(-1, 1)
+    # One `sim.cycles` span per chunk of _BITS_CHUNK cycles, where the
+    # injection bits are drawn.  With tracing on, each phase's host
+    # nanoseconds are summed into `ns` where the phase ends (`_lap`);
+    # with it off, a phase boundary tests `timed` and reads no clock.
+    timed = tracing_enabled()
+    mode = "static" if sched is None else "workload"
+    for c0 in range(0, cfg.cycles, _BITS_CHUNK):
+        c1 = min(c0 + _BITS_CHUNK, cfg.cycles)
+        with _span("sim.cycles", cat="sim", t0=c0, cycles=c1 - c0,
+                   measured=max(c1 - max(c0, cfg.warmup), 0), mode=mode,
+                   adaptive=adaptive, recorder=cfg.telemetry) as chunk:
+            if timed:
+                ns, calls, tk = [0] * len(PHASES), 0, perf_counter_ns()
+            ts = torch.arange(c0, c1, dtype=i64, device=dev).view(-1, 1)
             u_inj_c = _bits_to_unit(_node_bits(cfg.seed, ts, node_r, 0))
             u_dst_c = _bits_to_unit(_node_bits(cfg.seed, ts, node_r, 1))
             vcs_c = _node_bits(cfg.seed, ts, node_r, 2) % V
-        k = t % _BITS_CHUNK
+            if timed:
+                tk = _lap(ns, 0, tk)
+            for t in range(c0, c1):
+                if probe is not None:
+                    probe["cycle"] = t
+                slot = t % D
+                measuring = t >= cfg.warmup
+                k = t - c0
 
-        # ---- 1. link deliveries -> input buffers ------------------------
-        arr_dst = link_dst[:, :C, slot]                 # [B, C]
-        arr_ok = arr_dst >= 0
-        arr_at = (b2, ch_dst, ch_in_port, link_vc[:, :C, slot])
-        pos = (head[arr_at] + cnt[arr_at]) % Bd
-        pos_w = torch.where(arr_ok, pos, Bd)            # Bd: sacrificial
-        buf_dst[arr_at + (pos_w,)] = arr_dst
-        buf_t[arr_at + (pos_w,)] = link_t[:, :C, slot]
-        cnt_flat.index_add_(0, (arr_base + arr_at[3]).view(-1),
-                            arr_ok.long().view(-1))
-        link_dst[:, :, slot] = -1
+                # ---- 1. link deliveries -> input buffers ---------------
+                arr_dst = link_dst[:, :C, slot]             # [B, C]
+                arr_ok = arr_dst >= 0
+                arr_at = (b2, ch_dst, ch_in_port, link_vc[:, :C, slot])
+                pos = (head[arr_at] + cnt[arr_at]) % Bd
+                pos_w = torch.where(arr_ok, pos, Bd)        # Bd: sacrificial
+                buf_dst[arr_at + (pos_w,)] = arr_dst
+                buf_t[arr_at + (pos_w,)] = link_t[:, :C, slot]
+                cnt_flat.index_add_(0, (arr_base + arr_at[3]).view(-1),
+                                    arr_ok.long().view(-1))
+                link_dst[:, :, slot] = -1
+                if timed:
+                    tk = _lap(ns, 1, tk)
 
-        # ---- 2. credit returns --------------------------------------------
-        credits_flat.index_add_(0, ret_flat.view(-1),
-                                credit_pipe[:, :C, slot].reshape(-1))
-        credit_pipe[:, :, slot] = 0
+                # ---- 2. credit returns ---------------------------------
+                credits_flat.index_add_(0, ret_flat.view(-1),
+                                        credit_pipe[:, :C, slot].reshape(-1))
+                credit_pipe[:, :, slot] = 0
+                if timed:
+                    tk = _lap(ns, 2, tk)
 
-        # ---- 3. injection ---------------------------------------------------
-        if sched is None:
-            want = u_inj_c[k] < rate_b * inj_w          # [B, N]
-            cum_t = cum                                 # [S, N, N]
-        else:
-            # this cycle's phase of every row (spec): rate * gain was
-            # formed in float32 on the host, as the reference forms it
-            want = (u_inj_c[k] < rate_t[t].view(B, 1)
-                    * s_inj[kidx_row[t]])
-            cum_t = s_cum[kidx_spec[t]]                 # [S, N, N]
-        dsts = (cum_t < u_dst_c[k].view(1, N, 1)).sum(2).clamp(0, N - 1)
-        dsts = dsts[srow]                               # [B, N]
-        want &= dsts != node_r
-        inj_at = (b2, node_r, P, vcs_c[k])
-        space = cnt[inj_at] < Bd
-        do_inj = want & space
-        posi = (head[inj_at] + cnt[inj_at]) % Bd
-        posi_w = torch.where(do_inj, posi, Bd)
-        buf_dst[inj_at + (posi_w,)] = dsts
-        buf_t[inj_at + (posi_w,)] = ts[k]              # t, on the device
-        cnt[inj_at] += do_inj.long()                    # unique per row/node
-        if measuring:
-            n_want = want.sum(1, dtype=i32)
-            n_inj = do_inj.sum(1, dtype=i32)
-            offered += n_want
-            accepted += n_inj
-            if sched is not None:                       # one phase per row
-                offered_ph.index_add_(0, bk[t], n_want)
-                accepted_ph.index_add_(0, bk[t], n_inj)
+                # ---- 3. injection --------------------------------------
+                if sched is None:
+                    want = u_inj_c[k] < rate_b * inj_w      # [B, N]
+                    cum_t = cum                             # [S, N, N]
+                else:
+                    # this cycle's phase of every row (spec): rate * gain
+                    # was formed in float32 on the host, as the reference
+                    # forms it
+                    want = (u_inj_c[k] < rate_t[t].view(B, 1)
+                            * s_inj[kidx_row[t]])
+                    cum_t = s_cum[kidx_spec[t]]             # [S, N, N]
+                dsts = (cum_t < u_dst_c[k].view(1, N, 1)).sum(2).clamp(
+                    0, N - 1)
+                dsts = dsts[srow]                           # [B, N]
+                want &= dsts != node_r
+                inj_at = (b2, node_r, P, vcs_c[k])
+                space = cnt[inj_at] < Bd
+                do_inj = want & space
+                posi = (head[inj_at] + cnt[inj_at]) % Bd
+                posi_w = torch.where(do_inj, posi, Bd)
+                buf_dst[inj_at + (posi_w,)] = dsts
+                buf_t[inj_at + (posi_w,)] = ts[k]          # t, on the device
+                cnt[inj_at] += do_inj.long()  # unique per row/node
+                if measuring:
+                    n_want = want.sum(1, dtype=i32)
+                    n_inj = do_inj.sum(1, dtype=i32)
+                    offered += n_want
+                    accepted += n_inj
+                    if sched is not None:  # one phase per row
+                        offered_ph.index_add_(0, bk[t], n_want)
+                        accepted_ph.index_add_(0, bk[t], n_inj)
+                if timed:
+                    tk = _lap(ns, 3, tk)
 
-        # ---- 4. route + allocate --------------------------------------------
-        recording = cfg.telemetry and measuring
-        if recording:
-            # the occupancy snapshot: post-arrival, post-injection,
-            # pre-pop (the pop below updates cnt in place)
-            occ = cnt[b2, ch_dst, ch_in_port]           # [B, C, V]
-        head_dst = buf_dst.gather(4, head.unsqueeze(4)).squeeze(4)
-        head_t = buf_t.gather(4, head.unsqueeze(4)).squeeze(4)
-        if adaptive:
-            op_slot, eligible, starved, dvc = _route_lookup_adaptive(
-                table, prod, srow, credits, head_dst, cnt, P)
-        elif cfg.telemetry:
-            op_slot, eligible, starved = _route_lookup(
-                table, srow, credits, head_dst, cnt, P, starved=True)
-        else:
-            op_slot, eligible = _route_lookup(table, srow, credits,
-                                              head_dst, cnt, P)
-        win_mask, vc_choice, out_req = alloc_fn(
-            op_slot.to(i32), eligible, rr % V, rr % pi)
-        port_wins = win_mask.any(3)                     # [B, N, PI]
+                # ---- 4. route + allocate -------------------------------
+                recording = cfg.telemetry and measuring
+                if recording:
+                    # the occupancy snapshot: post-arrival, post-injection,
+                    # pre-pop (the pop below updates cnt in place)
+                    occ = cnt[b2, ch_dst, ch_in_port]       # [B, C, V]
+                head_dst = buf_dst.gather(4, head.unsqueeze(4)).squeeze(4)
+                head_t = buf_t.gather(4, head.unsqueeze(4)).squeeze(4)
+                if adaptive:
+                    op_slot, eligible, starved, dvc = \
+                        _route_lookup_adaptive(table, prod, srow, credits,
+                                               head_dst, cnt, P)
+                elif cfg.telemetry:
+                    op_slot, eligible, starved = _route_lookup(
+                        table, srow, credits, head_dst, cnt, P,
+                        starved=True)
+                else:
+                    op_slot, eligible = _route_lookup(
+                        table, srow, credits, head_dst, cnt, P)
+                alloc_args = (op_slot.to(i32), eligible, rr % V, rr % pi)
+                if timed:
+                    tk = _lap(ns, 4, tk)
+                win_mask, vc_choice, out_req = alloc_fn(*alloc_args)
+                if timed:
+                    tk = _lap(ns, 5, tk)
+                    calls += 1
+                port_wins = win_mask.any(3)                 # [B, N, PI]
 
-        # ---- 5. winners: pop, move, credit ----------------------------------
-        # wvc is the source VC popped at (node, in-port); w_dvc the
-        # downstream VC the flit occupies after the hop.  Static routing
-        # keeps them equal; adaptive routing moves the link VC tag and
-        # the downstream credit to the class the lookup chose, while the
-        # upstream credit return (freeing the popped lane) stays on wvc.
-        wvc = vc_choice.long()                          # [B, N, PI]
-        w_dvc = dvc.gather(3, wvc.unsqueeze(3)).squeeze(3) if adaptive \
-            else wvc
-        w_dst = head_dst.gather(3, wvc.unsqueeze(3)).squeeze(3)
-        w_t = head_t.gather(3, wvc.unsqueeze(3)).squeeze(3)
-        pw = port_wins.long().unsqueeze(3)
-        head.scatter_add_(3, wvc.unsqueeze(3), pw).remainder_(Bd)
-        cnt.scatter_add_(3, wvc.unsqueeze(3), -pw)
+                # ---- 5. winners: pop, move, credit ---------------------
+                # wvc is the source VC popped at (node, in-port); w_dvc
+                # the downstream VC the flit occupies after the hop.
+                # Static routing keeps them equal; adaptive routing moves
+                # the link VC tag and the downstream credit to the class
+                # the lookup chose, while the upstream credit return
+                # (freeing the popped lane) stays on wvc.
+                wvc = vc_choice.long()                      # [B, N, PI]
+                w_dvc = dvc.gather(3, wvc.unsqueeze(3)).squeeze(3) \
+                    if adaptive else wvc
+                w_dst = head_dst.gather(3, wvc.unsqueeze(3)).squeeze(3)
+                w_t = head_t.gather(3, wvc.unsqueeze(3)).squeeze(3)
+                pw = port_wins.long().unsqueeze(3)
+                head.scatter_add_(3, wvc.unsqueeze(3), pw).remainder_(Bd)
+                cnt.scatter_add_(3, wvc.unsqueeze(3), -pw)
 
-        # upstream credit return for real input ports
-        has_up = up_real & port_wins
-        ret_slot = (up_delay + t) % D
-        credit_pipe_flat.index_add_(0, ((up_base + ret_slot) * V
-                                        + wvc).view(-1),
-                                    has_up.long().view(-1))
+                # upstream credit return for real input ports
+                has_up = up_real & port_wins
+                ret_slot = (up_delay + t) % D
+                credit_pipe_flat.index_add_(0, ((up_base + ret_slot) * V
+                                                + wvc).view(-1),
+                                            has_up.long().view(-1))
 
-        # ejection vs traversal
-        eject = port_wins & (out_req == P)
-        traverse = port_wins & (out_req >= 0) & (out_req < P)
-        if measuring:
-            n_ej = eject.sum((1, 2), dtype=i32)
-            lat_row = torch.where(eject, t - w_t, 0).sum(2, dtype=i32)
-            delivered += n_ej
-            lat_node += lat_row
-            if sched is not None:
-                delivered_ph.index_add_(0, bk[t], n_ej)
-                lat_ph.index_add_(0, bk[t], lat_row)
+                # ejection vs traversal
+                eject = port_wins & (out_req == P)
+                traverse = port_wins & (out_req >= 0) & (out_req < P)
+                if measuring:
+                    n_ej = eject.sum((1, 2), dtype=i32)
+                    lat_row = torch.where(eject, t - w_t, 0).sum(
+                        2, dtype=i32)
+                    delivered += n_ej
+                    lat_node += lat_row
+                    if sched is not None:
+                        delivered_ph.index_add_(0, bk[t], n_ej)
+                        lat_ph.index_add_(0, bk[t], lat_row)
 
-        out_port = out_req.long().clamp(0, P - 1)
-        oc_w = torch.where(traverse, out_ch.gather(2, out_port), C)
-        wslot = (depth_pad.gather(1, oc_w.view(B, -1)).view(B, N, PI)
-                 + t) % D
-        link_at = (b3, oc_w, wslot)                     # C: sacrificial
-        link_dst[link_at] = w_dst
-        link_t[link_at] = w_t
-        link_vc[link_at] = w_dvc
-        credits_flat.index_add_(0, ((trav_base + out_port) * V
-                                    + w_dvc).view(-1),
-                                -traverse.long().view(-1))
-        rr = (rr + 1) % (V * pi)
+                out_port = out_req.long().clamp(0, P - 1)
+                oc_w = torch.where(traverse, out_ch.gather(2, out_port), C)
+                wslot = (depth_pad.gather(1, oc_w.view(B, -1)).view(
+                    B, N, PI) + t) % D
+                link_at = (b3, oc_w, wslot)                 # C: sacrificial
+                link_dst[link_at] = w_dst
+                link_t[link_at] = w_t
+                link_vc[link_at] = w_dvc
+                credits_flat.index_add_(0, ((trav_base + out_port) * V
+                                            + w_dvc).view(-1),
+                                        -traverse.long().view(-1))
+                rr = (rr + 1) % (V * pi)
+                if timed:
+                    tk = _lap(ns, 6, tk)
 
-        # ---- 6. flight recorder (DESIGN.md §13, §16) ------------------------
-        # Pure observers: integer adds onto the recorder's own counters,
-        # with non-contributing lanes sent to the sacrificial row C or
-        # adding 0.  Duplicate indices (row C above all) need an
-        # accumulating scatter: `index_add_` on the flattened counter,
-        # as for the state above.
-        if recording:
-            w = min(max(((t - cfg.warmup) * W) // meas, 0), W - 1) if W \
-                else 0
-            tel_busy[w].view(-1).index_add_(
-                0, (ch_base + oc_w).view(-1), traverse.int().view(-1))
-            # credit starvation, charged to the requested out channel
-            st_ch = out_ch.gather(2, op_slot.clamp(0, P - 1).view(
-                B, N, PI * V))
-            tel_stall[w].view(-1).index_add_(
-                0, (ch_base + torch.where(starved.view(B, N, PI * V),
-                                          st_ch, C)).view(-1),
-                starved.int().view(-1))
-            tel_occ[w, :, :C] += occ.int()
-            tel_inj[w] += do_inj.int()
-            tel_eject[w] += eject.sum(2, dtype=i32)
-            # latency bin h counts t - w_t in [2^(h-1), 2^h); lanes that
-            # did not eject add 0 at a stale, in-range bin
-            tel_hist.view(-1).index_add_(
-                0, (hist_base + torch.bucketize(t - w_t, hist_edges,
-                                                right=True)).view(-1),
-                eject.int().view(-1))
+                # ---- 6. flight recorder (DESIGN.md §13, §16) -----------
+                # Pure observers: integer adds onto the recorder's own
+                # counters, with non-contributing lanes sent to the
+                # sacrificial row C or adding 0.  Duplicate indices (row
+                # C above all) need an accumulating scatter: `index_add_`
+                # on the flattened counter, as for the state above.
+                if recording:
+                    w = min(max(((t - cfg.warmup) * W) // meas, 0),
+                            W - 1) if W else 0
+                    tel_busy[w].view(-1).index_add_(
+                        0, (ch_base + oc_w).view(-1),
+                        traverse.int().view(-1))
+                    # credit starvation, charged to the requested out channel
+                    st_ch = out_ch.gather(2, op_slot.clamp(0, P - 1).view(
+                        B, N, PI * V))
+                    tel_stall[w].view(-1).index_add_(
+                        0, (ch_base + torch.where(
+                            starved.view(B, N, PI * V), st_ch, C)).view(-1),
+                        starved.int().view(-1))
+                    tel_occ[w, :, :C] += occ.int()
+                    tel_inj[w] += do_inj.int()
+                    tel_eject[w] += eject.sum(2, dtype=i32)
+                    # latency bin h counts t - w_t in [2^(h-1), 2^h);
+                    # lanes that did not eject add 0 at a stale, in-range
+                    # bin
+                    tel_hist.view(-1).index_add_(
+                        0, (hist_base + torch.bucketize(
+                            t - w_t, hist_edges, right=True)).view(-1),
+                        eject.int().view(-1))
+                    if timed:
+                        tk = _lap(ns, 7, tk)
+            if timed:
+                chunk.set(alloc_calls=calls,
+                          **{f"{ph}_ns": v for ph, v in zip(PHASES, ns)})
 
     if probe is not None:
         probe["cycle"] = None

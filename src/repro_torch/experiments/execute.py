@@ -24,14 +24,15 @@ Scale/robustness knobs:
     every experiment and deprecation shim in a process shares one
     engine and its stats.
 
-Observability (DESIGN.md §13): execution is span-traced (`execute` /
-per-chunk `execute.chunk` spans nest over the engine's `sweep.group`
-and the simulator's `sim.dispatch`/`sim.wait` spans), and the progress
-callback can opt into per-chunk timing: a 4-parameter callback
-`progress(done, total, key, info)` receives an `info` dict with
-`elapsed_s`, `compiled` (runner-cache misses this chunk: always 0 in
-the port, which compiles nothing per shape), `scenarios` and `status`;
-the 3-parameter `progress(done, total, key)` form works too.
+Observability (DESIGN.md §13): execution is span-traced (an
+`experiment.execute` span over per-chunk `execute.chunk` spans, which
+nest over the engine's `sweep.group` and the simulator's `sim.dispatch`
+/ `sim.cycles` / `sim.wait` spans, each followed by an `execute.rows`
+span over the chunk's result rows), and the progress callback can opt
+into per-chunk timing: a 4-parameter callback `progress(done, total,
+key, info)` receives an `info` dict with `elapsed_s`, `compiled` (always
+0: the port compiles nothing per shape), `scenarios` and `status`; the
+3-parameter `progress(done, total, key)` form works too.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import numpy as np
 
 from ..core.simulator import SimConfig
 from ..device import resolve_device
-from ..obs.metrics import cache_counters, metrics
+from ..obs.metrics import metrics
 from ..obs.trace import trace
 from ..sweep.engine import SweepEngine
 
@@ -134,7 +135,6 @@ def execute(pl: Plan, engine: SweepEngine | None = None,
         for bucket in pl.buckets:
             for chunk in _chunks(bucket.items, chunk_size):
                 t0 = time.perf_counter()
-                misses0 = cache_counters()["cache.runner.misses"]
                 status = "ok"
                 with trace("execute.chunk", cat="experiments",
                            kind=bucket.key.kind,
@@ -163,18 +163,19 @@ def execute(pl: Plan, engine: SweepEngine | None = None,
                                 diag_code="EX001")
                         out = None
                 if out is not None:
-                    for ps, res in zip(chunk, out):
-                        planned[ps.index] = ps
-                        results[ps.index] = res
-                        rows[ps.index] = scenario_row(exp, ps, res)
+                    with trace("execute.rows", cat="experiments",
+                               scenarios=len(chunk)):
+                        for ps, res in zip(chunk, out):
+                            planned[ps.index] = ps
+                            results[ps.index] = res
+                            rows[ps.index] = scenario_row(exp, ps, res)
                 done += len(chunk)
                 if progress is not None:
                     if arity >= 4:
                         info = dict(
                             elapsed_s=time.perf_counter() - t0,
-                            compiled=cache_counters()
-                            ["cache.runner.misses"] - misses0,
-                            scenarios=len(chunk), status=status)
+                            compiled=0, scenarios=len(chunk),
+                            status=status)
                         progress(done, total, bucket.key, info)
                     else:
                         progress(done, total, bucket.key)

@@ -20,7 +20,12 @@ onto `SweepEngine` padded batches:
     dropped — the executor emits a `status="invalid"` row for each.
 
 Planning is cheap (no simulation) and deterministic; the plan can be
-inspected (`Plan.describe()`) before committing to execution.
+inspected (`Plan.describe()`) before committing to execution.  It is
+span-traced (DESIGN.md §13): an `experiment.plan` span over each
+scenario's `plan.traffic` (the traffic matrix or schedule) and
+`plan.spec` (the `SimSpec`, the compiled schedule and the rate grid)
+spans, with the scenario's `topology` and `n`; routing tables that are
+built anew are `routing.build` spans.
 """
 from __future__ import annotations
 
@@ -239,16 +244,20 @@ def plan(experiment: Experiment, engine: SweepEngine | None = None,
                 skipped.append((i, f"fault set rejected: {e}"))
                 skip_codes[i] = "FT001"
                 continue
-            tm, schedule = _resolve_traffic(s, topo, meas)
+            with trace("plan.traffic", cat="experiments",
+                       topology=s.topology_name, n=s.n):
+                tm, schedule = _resolve_traffic(s, topo, meas)
             analytic = routing.saturation_rate(tm)
             eff = s.effective_routing(experiment.cfg)
             spec = sched_spec = rates = None
             if sim_backend:
-                spec = make_spec(routing, tm)
-                sched_spec = schedule.compile() \
-                    if schedule is not None else None
-                rates = np.asarray(
-                    s.rates.resolve(analytic, routing=eff), np.float64)
+                with trace("plan.spec", cat="experiments",
+                           topology=s.topology_name, n=s.n):
+                    spec = make_spec(routing, tm)
+                    sched_spec = schedule.compile() \
+                        if schedule is not None else None
+                    rates = np.asarray(
+                        s.rates.resolve(analytic, routing=eff), np.float64)
                 shape = engine.bucket_shape(
                     PadShape(n=spec.n, p=spec.p, c=spec.c, d=spec.d))
                 k = sched_spec.k if sched_spec is not None else 0

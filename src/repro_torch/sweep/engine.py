@@ -10,8 +10,8 @@ group here simulates the same rows as a compiled program there — and
 padding invariance (see `repro_torch.sweep.padding`) keeps results
 bitwise-equal to the single-spec path.
 
-The port compiles nothing per shape: `stats["compiles"]` counts the
-runner-cache misses of `obs.metrics.cache_counters`, which are 0 here.
+The port compiles nothing per shape: `stats["compiles"]` and the
+`sweep.compiles` counter stay 0, and every group counts as a reuse.
 
 Case-level evaluation lives in the experiment API
 (`repro_torch.experiments`): `evaluate_cases`, `evaluate_workload_cases`
@@ -32,7 +32,7 @@ from ..core import topology as T
 from ..core import traffic as TR
 from ..core.routing import cached_routing
 from ..core.simulator import SimConfig, SimSpec
-from ..obs.metrics import cache_counters, metrics
+from ..obs.metrics import metrics
 from ..obs.trace import trace
 
 from .padding import PadShape
@@ -159,10 +159,6 @@ class SweepEngine:
                     k_bucket(i))
                 groups.setdefault(key, []).append(i)
 
-        # compile accounting via the metrics registry's monotonic cache
-        # counters (DESIGN.md §13); the port compiles no runner, so the
-        # runner-miss delta is 0
-        before = cache_counters()["cache.runner.misses"]
         results: list = [None] * s
         for (shape, k_pad), idxs in groups.items():
             g_specs = [specs[i] for i in idxs]
@@ -200,16 +196,16 @@ class SweepEngine:
                     k: (v[:n_rates] if isinstance(v, np.ndarray)
                         and k not in self._PER_PHASE_KEYS else v)
                     for k, v in out[j].items()}
-        compiled = cache_counters()["cache.runner.misses"] - before
+        # the port compiles nothing per shape: no group is a compile, so
+        # `compiles` stays 0 and every group is a reuse
         self.stats["runs"] += 1
         self.stats["groups"] += len(groups)
         self.stats["specs"] += s
-        self.stats["compiles"] += compiled
-        self.stats["reuses"] += max(len(groups) - compiled, 0)
+        self.stats["reuses"] += len(groups)
         metrics.inc("sweep.runs")
         metrics.inc("sweep.groups", len(groups))
         metrics.inc("sweep.specs", s)
-        metrics.inc("sweep.compiles", compiled)
+        metrics.inc("sweep.compiles", 0)
         return results
 
     # ---- case-level deprecation shims ----------------------------------
