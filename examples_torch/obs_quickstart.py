@@ -98,9 +98,9 @@ def main(argv=None):
     print("\n=== 3. where the wall-clock went ===")
     trace_path = os.path.join(args.out, "obs_quickstart.trace.json")
     save_chrome_trace(trace_path, metadata=dict(example="obs_quickstart"))
-    # the simulator is a loop of eager device ops, compiled for no shape:
-    # the port has no compiled-runner cache, so it prints no compile or
-    # cache counts
+    # the simulator compiles nothing per shape (its CUDA graphs are
+    # captured anew each run): the port has no compiled-runner cache, so
+    # it prints no compile or cache counts
     print(f"  sweep runs={runs:.0f}")
     print(f"  open {trace_path} in ui.perfetto.dev for the span tree")
 

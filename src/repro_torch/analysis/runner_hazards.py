@@ -2,9 +2,10 @@
 
 The port's counterpart of `repro.analysis.jaxpr_hazards`, with the same
 public functions and diagnostic codes.  It has a new name because
-nothing here walks a jaxpr: PyTorch runs the cycle loop eagerly, so the
-program the hazards live in is the stream of aten ops the loop issues,
-recorded by `core.simulator.trace_batch` over a few real cycles.
+nothing here walks a jaxpr: the program the hazards live in is the
+stream of aten ops the cycle loop issues (on the card, the ops its CUDA
+graphs hold), recorded by `core.simulator.trace_batch` over a few real
+cycles run eagerly.
 
   * **JX001 int32-overflow** — closed-form worst-case bounds for every
     int32 accumulator of the runner given `SimConfig`; flagged when a

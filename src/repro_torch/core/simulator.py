@@ -15,9 +15,14 @@ same counters, bit for bit —
 Where the JAX package `vmap`s one router grid over specs x rates and
 `lax.scan`s over cycles, the port carries an explicit leading row axis
 B = S*R (row b simulates spec `b // R` at rate `b % R`, every spec leaf
-gathered by the row's spec index) and runs a Python loop over cycles.
-The loop makes no host synchronisation: no `.item()`, no branch on a
-tensor — only on the Python cycle counter.
+gathered by the row's spec index) and steps one cycle body over the
+cycles.  The body reads the cycle from a device counter and updates all
+state in place, so on a CUDA device each body (warm-up, measured) runs
+once eagerly, is captured as a CUDA graph, and every later cycle is one
+graph launch; on the CPU and under an op trace (`trace_batch`) the same
+body runs eagerly every cycle.  The loop makes no host
+synchronisation: no `.item()`, no branch on a tensor — only on the
+host's copy of the cycle counter.
 
 Padding invariance rests on the reference's three ingredients, kept
 as they are: a counter-based hash of (seed, cycle, node, stream) for
@@ -41,9 +46,9 @@ All three modes of the reference run here: static up*/down* routing,
 minimal-adaptive routing with escape VCs (`routing="adaptive"`,
 DESIGN.md §15), and the flight recorder (`telemetry=True`, aggregate and
 binned into `telemetry_windows` time windows, DESIGN.md §13, §16).  The
-defaults (`routing="static"`, `telemetry=False`) issue the same device
-ops as before either mode existed; the recorder's window index, like the
-measuring gate, is a host integer of the cycle loop.
+defaults (`routing="static"`, `telemetry=False`) issue no op of either
+mode; the measuring gate chooses the body (the graph), and the
+recorder's window index is computed on the device from the cycle.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.netstep.ops import netstep
 from ..kernels.netstep.ref import netstep_ref
+from ..obs.metrics import metrics
 from ..obs.profile import profiling_enabled
 from ..obs.trace import trace as _span, tracing_enabled
 from . import linkmodel as lm
@@ -459,11 +465,75 @@ def _check_config(cfg: SimConfig) -> None:
 # batched runner
 # =====================================================================
 
-def _lap(ns: list, phase: int, t0: int) -> int:
-    """Add the host nanoseconds since `t0` to `ns[phase]`; return now."""
-    t1 = perf_counter_ns()
-    ns[phase] += t1 - t0
-    return t1
+class _Laps:
+    """The host nanoseconds of each of PHASES, each summed where the phase
+    ends, and the allocator calls made: the clock of eager cycles with
+    tracing on."""
+    __slots__ = ("ns", "calls", "t")
+
+    def __init__(self):
+        self.ns, self.calls = [0] * len(PHASES), 0
+        self.t = perf_counter_ns()
+
+    def __call__(self, phase: int) -> None:
+        t1 = perf_counter_ns()
+        self.ns[phase] += t1 - self.t
+        self.t = t1
+
+
+def _graphed(device, probe: dict | None) -> bool:
+    """Whether the cycle loop replays its cycles from CUDA graphs: on a
+    CUDA device, unless an op trace follows the loop (a probe holding
+    `cycle`), which needs every op of every cycle issued from Python."""
+    return torch.device(device).type == "cuda" and \
+        not (probe is not None and "cycle" in probe)
+
+
+class _CycleGraphs:
+    """The CUDA graphs of one run's cycle loop, one per cycle body (keyed
+    by `measuring`: warm-up or measured), sharing one memory pool.
+
+    A capture records the body's launches without running them, so the
+    simulation advances only by eager cycles and by replays.  A replay
+    adds the `netstep` launches its graph holds to `netstep.launches`;
+    `release` frees the graphs and their pool."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.stream = torch.cuda.Stream(device=dev)
+        self.graphs: dict = {}
+        self.launches: dict = {}
+        self.replays = 0
+
+    def capture(self, key: bool, body) -> None:
+        g = torch.cuda.CUDAGraph()
+        pool = next(iter(self.graphs.values())).pool() if self.graphs \
+            else None
+        held = netstep.captured
+        cur = torch.cuda.current_stream(self.dev)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            g.capture_begin(pool=pool)
+            try:
+                body()
+            finally:
+                g.capture_end()
+        cur.wait_stream(self.stream)
+        self.graphs[key] = g
+        self.launches[key] = netstep.captured - held
+
+    def replay(self, key: bool) -> None:
+        self.graphs[key].replay()
+        netstep.launches += self.launches[key]
+        self.replays += 1
+
+    def release(self) -> None:
+        if self.graphs:
+            metrics.inc("sim.graph_captures", len(self.graphs))
+            metrics.inc("sim.graph_replays", self.replays)
+        for g in self.graphs.values():
+            g.reset()
+        self.graphs.clear()
 
 
 def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
@@ -494,15 +564,26 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     `run_batch` slices them away.
 
     probe (a profile capture or an op trace): receives `state_bytes`,
-    the bytes of the state carried across cycles, and `cycle`, the cycle
-    the loop is in (None before and after the loop).
+    the bytes of the state carried across cycles.  An op trace's probe
+    holds `cycle`, which the loop keeps at the cycle it is in (None
+    before and after the loop).
+
+    One body, `cycle`, simulates a cycle.  It reads the cycle from the
+    device counter `t` and updates every piece of state in place, so on
+    a CUDA device (`_graphed`) each body (warm-up, measured) runs one
+    eager cycle, which loads whatever its ops need, and is then captured
+    as a CUDA graph that every later cycle of that body replays.  On the
+    CPU and under an op trace every cycle runs the body eagerly.
 
     Each chunk of _BITS_CHUNK cycles is one `sim.cycles` span (`obs.
     trace`) with the attributes `t0`, `cycles`, `measured` (cycles past
     the warm-up), `mode` ("static" or "workload"), `adaptive`,
-    `recorder`, and, with tracing on, `alloc_calls` and the host
-    nanoseconds of each of PHASES as `<phase>_ns`.  Tracing reads the
-    host's clock only; it never waits for the device.
+    `recorder`, and, with tracing on, `graphed` (the chunk's cycles
+    replayed from a graph).  A chunk with no replayed cycle also carries
+    `alloc_calls` and the host nanoseconds of each of PHASES as
+    `<phase>_ns`; one with replayed cycles carries `replay_ns`, the host
+    nanoseconds of its graph launches.  Tracing reads the host's clock
+    only; it never waits for the device.
     """
     N, P, C, D = n, p, c, d
     V, Bd = cfg.n_vcs, cfg.buf_depth
@@ -522,6 +603,7 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     out_ch = lv["out_ch"][srow].long()                   # [B, N, P]
     inj_w = lv["inj_weight"][srow]                       # [B, N] f32
     pi = lv["pi"][srow]                                  # [B] int32
+    rr_mod = V * pi                                      # [B] int32
     rate_b = rate.view(B, 1)
     table, cum = lv["table"], lv["traffic_cum"]          # [S, ...]
     adaptive = cfg.routing == "adaptive"
@@ -571,6 +653,13 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     offered = torch.zeros((B,), dtype=i32, device=dev)
     accepted = torch.zeros((B,), dtype=i32, device=dev)
     lat_node = torch.zeros((B, N), dtype=i32, device=dev)
+    # the cycle, on the device; the chunk's injection randomness, [cycle
+    # % _BITS_CHUNK, node], written at each chunk's start
+    t = torch.zeros((1,), dtype=i64, device=dev)
+    nb = min(_BITS_CHUNK, cfg.cycles)
+    u_inj_c = torch.empty((nb, N), dtype=torch.float32, device=dev)
+    u_dst_c = torch.empty((nb, N), dtype=torch.float32, device=dev)
+    vcs_c = torch.empty((nb, N), dtype=i64, device=dev)
     if sched is not None:
         K = sched["k"]
         s_cum, s_inj = sched["cum"], sched["inj_w"]
@@ -598,6 +687,7 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         # row offsets into the flattened [B, C+1] and [B, bins] counters
         ch_base = b3 * (C + 1)
         hist_base = b3 * LAT_HIST_BINS
+        w_first = torch.zeros((1,), dtype=i64, device=dev)
     if probe is not None:
         state = [buf_dst, buf_t, head, cnt, credits, link_dst, link_t,
                  link_vc, credit_pipe, rr, delivered, offered, accepted,
@@ -610,202 +700,232 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         probe["state_bytes"] = sum(x.numel() * x.element_size()
                                    for x in state)
 
+    def cycle(measuring: bool, lap: _Laps | None = None) -> None:
+        """Simulate cycle `t` and advance `t`.  `measuring` (past the
+        warm-up) adds the counters; `lap` stamps each phase's end."""
+        recording = cfg.telemetry and measuring
+        slot = t % D
+        k = t % _BITS_CHUNK
+
+        # ---- 1. link deliveries -> input buffers -----------------------
+        arr_dst = link_dst[:, :C].index_select(2, slot).view(B, C)
+        arr_ok = arr_dst >= 0
+        arr_at = (b2, ch_dst, ch_in_port,
+                  link_vc[:, :C].index_select(2, slot).view(B, C))
+        pos = (head[arr_at] + cnt[arr_at]) % Bd
+        pos_w = torch.where(arr_ok, pos, Bd)                # Bd: sacrificial
+        buf_dst[arr_at + (pos_w,)] = arr_dst
+        buf_t[arr_at + (pos_w,)] = link_t[:, :C].index_select(2, slot).view(
+            B, C)
+        cnt_flat.index_add_(0, (arr_base + arr_at[3]).view(-1),
+                            arr_ok.long().view(-1))
+        link_dst.index_fill_(2, slot, -1)
+        if lap:
+            lap(1)
+
+        # ---- 2. credit returns -----------------------------------------
+        credits_flat.index_add_(0, ret_flat.view(-1), credit_pipe[:, :C]
+                                .index_select(2, slot).view(-1))
+        credit_pipe.index_fill_(2, slot, 0)
+        if lap:
+            lap(2)
+
+        # ---- 3. injection ----------------------------------------------
+        u_inj = u_inj_c.index_select(0, k)                  # [1, N]
+        if sched is None:
+            want = u_inj < rate_b * inj_w                   # [B, N]
+            cum_t = cum                                     # [S, N, N]
+        else:
+            # this cycle's phase of every row (spec): rate * gain was
+            # formed in float32 on the host, as the reference forms it
+            want = (u_inj < rate_t.index_select(0, t).view(B, 1)
+                    * s_inj[kidx_row.index_select(0, t).view(B)])
+            cum_t = s_cum[kidx_spec.index_select(0, t).view(-1)]
+        dsts = (cum_t < u_dst_c.index_select(0, k).view(1, N, 1)).sum(
+            2).clamp(0, N - 1)
+        dsts = dsts[srow]                                   # [B, N]
+        want &= dsts != node_r
+        inj_at = (b2, node_r, P, vcs_c.index_select(0, k))
+        space = cnt[inj_at] < Bd
+        do_inj = want & space
+        posi = (head[inj_at] + cnt[inj_at]) % Bd
+        posi_w = torch.where(do_inj, posi, Bd)
+        buf_dst[inj_at + (posi_w,)] = dsts
+        buf_t[inj_at + (posi_w,)] = t
+        cnt[inj_at] += do_inj.long()  # unique per row/node
+        if measuring:
+            n_want = want.sum(1, dtype=i32)
+            n_inj = do_inj.sum(1, dtype=i32)
+            offered.add_(n_want)
+            accepted.add_(n_inj)
+            if sched is not None:  # one phase per row
+                bk_t = bk.index_select(0, t).view(B)
+                offered_ph.index_add_(0, bk_t, n_want)
+                accepted_ph.index_add_(0, bk_t, n_inj)
+        if lap:
+            lap(3)
+
+        # ---- 4. route + allocate ---------------------------------------
+        if recording:
+            # the occupancy snapshot: post-arrival, post-injection,
+            # pre-pop (the pop below updates cnt in place)
+            occ = cnt[b2, ch_dst, ch_in_port]               # [B, C, V]
+        head_dst = buf_dst.gather(4, head.unsqueeze(4)).squeeze(4)
+        head_t = buf_t.gather(4, head.unsqueeze(4)).squeeze(4)
+        if adaptive:
+            op_slot, eligible, starved, dvc = _route_lookup_adaptive(
+                table, prod, srow, credits, head_dst, cnt, P)
+        elif cfg.telemetry:
+            op_slot, eligible, starved = _route_lookup(
+                table, srow, credits, head_dst, cnt, P, starved=True)
+        else:
+            op_slot, eligible = _route_lookup(
+                table, srow, credits, head_dst, cnt, P)
+        alloc_args = (op_slot.to(i32), eligible, rr % V, rr % pi)
+        if lap:
+            lap(4)
+        win_mask, vc_choice, out_req = alloc_fn(*alloc_args)
+        if lap:
+            lap(5)
+            lap.calls += 1
+        port_wins = win_mask.any(3)                         # [B, N, PI]
+
+        # ---- 5. winners: pop, move, credit -----------------------------
+        # wvc is the source VC popped at (node, in-port); w_dvc the
+        # downstream VC the flit occupies after the hop.  Static routing
+        # keeps them equal; adaptive routing moves the link VC tag and
+        # the downstream credit to the class the lookup chose, while the
+        # upstream credit return (freeing the popped lane) stays on wvc.
+        wvc = vc_choice.long()                              # [B, N, PI]
+        w_dvc = dvc.gather(3, wvc.unsqueeze(3)).squeeze(3) \
+            if adaptive else wvc
+        w_dst = head_dst.gather(3, wvc.unsqueeze(3)).squeeze(3)
+        w_t = head_t.gather(3, wvc.unsqueeze(3)).squeeze(3)
+        pw = port_wins.long().unsqueeze(3)
+        head.scatter_add_(3, wvc.unsqueeze(3), pw).remainder_(Bd)
+        cnt.scatter_add_(3, wvc.unsqueeze(3), -pw)
+
+        # upstream credit return for real input ports
+        has_up = up_real & port_wins
+        ret_slot = (up_delay + t) % D
+        credit_pipe_flat.index_add_(0, ((up_base + ret_slot) * V
+                                        + wvc).view(-1),
+                                    has_up.long().view(-1))
+
+        # ejection vs traversal
+        eject = port_wins & (out_req == P)
+        traverse = port_wins & (out_req >= 0) & (out_req < P)
+        if measuring:
+            n_ej = eject.sum((1, 2), dtype=i32)
+            lat_row = torch.where(eject, t - w_t, 0).sum(2, dtype=i32)
+            delivered.add_(n_ej)
+            lat_node.add_(lat_row)
+            if sched is not None:
+                delivered_ph.index_add_(0, bk_t, n_ej)
+                lat_ph.index_add_(0, bk_t, lat_row)
+
+        out_port = out_req.long().clamp(0, P - 1)
+        oc_w = torch.where(traverse, out_ch.gather(2, out_port), C)
+        wslot = (depth_pad.gather(1, oc_w.view(B, -1)).view(B, N, PI)
+                 + t) % D
+        link_at = (b3, oc_w, wslot)                         # C: sacrificial
+        link_dst[link_at] = w_dst
+        link_t[link_at] = w_t
+        link_vc[link_at] = w_dvc
+        credits_flat.index_add_(0, ((trav_base + out_port) * V
+                                    + w_dvc).view(-1),
+                                -traverse.long().view(-1))
+        rr.add_(1).remainder_(rr_mod)
+        if lap:
+            lap(6)
+
+        # ---- 6. flight recorder (DESIGN.md §13, §16) -------------------
+        # Pure observers: integer adds onto the recorder's own counters,
+        # with non-contributing lanes sent to the sacrificial row C or
+        # adding 0.  Duplicate indices (row C above all) need an
+        # accumulating scatter: `index_add_` on the flattened counter, as
+        # for the state above.  The window w is this cycle's, [1].
+        if recording:
+            w = ((t - cfg.warmup) * W).div_(
+                meas, rounding_mode="floor").clamp_(0, W - 1) \
+                if W else w_first
+            w_ch = ch_base + w * (B * (C + 1))              # [B, 1, 1]
+            tel_busy.view(-1).index_add_(0, (w_ch + oc_w).view(-1),
+                                         traverse.int().view(-1))
+            # credit starvation, charged to the requested out channel
+            st_ch = out_ch.gather(2, op_slot.clamp(0, P - 1).view(
+                B, N, PI * V))
+            tel_stall.view(-1).index_add_(
+                0, (w_ch + torch.where(starved.view(B, N, PI * V), st_ch,
+                                       C)).view(-1),
+                starved.int().view(-1))
+            tel_occ[:, :, :C].index_add_(0, w, occ.int().unsqueeze(0))
+            tel_inj.index_add_(0, w, do_inj.int().unsqueeze(0))
+            tel_eject.index_add_(0, w, eject.sum(2, dtype=i32).unsqueeze(0))
+            # latency bin h counts t - w_t in [2^(h-1), 2^h); lanes that
+            # did not eject add 0 at a stale, in-range bin
+            tel_hist.view(-1).index_add_(
+                0, (hist_base + torch.bucketize(
+                    t - w_t, hist_edges, right=True)).view(-1),
+                eject.int().view(-1))
+            if lap:
+                lap(7)
+        t.add_(1)
+
     # One `sim.cycles` span per chunk of _BITS_CHUNK cycles, where the
-    # injection bits are drawn.  With tracing on, each phase's host
-    # nanoseconds are summed into `ns` where the phase ends (`_lap`);
-    # with it off, a phase boundary tests `timed` and reads no clock.
+    # injection bits are drawn.  With tracing on, the eager cycles' phase
+    # times are summed where each phase ends (`_Laps`) and the replays'
+    # launch times; with it off, the loop reads no clock.
     timed = tracing_enabled()
     mode = "static" if sched is None else "workload"
-    for c0 in range(0, cfg.cycles, _BITS_CHUNK):
-        c1 = min(c0 + _BITS_CHUNK, cfg.cycles)
-        with _span("sim.cycles", cat="sim", t0=c0, cycles=c1 - c0,
-                   measured=max(c1 - max(c0, cfg.warmup), 0), mode=mode,
-                   adaptive=adaptive, recorder=cfg.telemetry) as chunk:
-            if timed:
-                ns, calls, tk = [0] * len(PHASES), 0, perf_counter_ns()
-            ts = torch.arange(c0, c1, dtype=i64, device=dev).view(-1, 1)
-            u_inj_c = _bits_to_unit(_node_bits(cfg.seed, ts, node_r, 0))
-            u_dst_c = _bits_to_unit(_node_bits(cfg.seed, ts, node_r, 1))
-            vcs_c = _node_bits(cfg.seed, ts, node_r, 2) % V
-            if timed:
-                tk = _lap(ns, 0, tk)
-            for t in range(c0, c1):
-                if probe is not None:
-                    probe["cycle"] = t
-                slot = t % D
-                measuring = t >= cfg.warmup
-                k = t - c0
-
-                # ---- 1. link deliveries -> input buffers ---------------
-                arr_dst = link_dst[:, :C, slot]             # [B, C]
-                arr_ok = arr_dst >= 0
-                arr_at = (b2, ch_dst, ch_in_port, link_vc[:, :C, slot])
-                pos = (head[arr_at] + cnt[arr_at]) % Bd
-                pos_w = torch.where(arr_ok, pos, Bd)        # Bd: sacrificial
-                buf_dst[arr_at + (pos_w,)] = arr_dst
-                buf_t[arr_at + (pos_w,)] = link_t[:, :C, slot]
-                cnt_flat.index_add_(0, (arr_base + arr_at[3]).view(-1),
-                                    arr_ok.long().view(-1))
-                link_dst[:, :, slot] = -1
+    op_trace = probe is not None and "cycle" in probe
+    graphs = _CycleGraphs(dev) if _graphed(dev, probe) else None
+    try:
+        for c0 in range(0, cfg.cycles, _BITS_CHUNK):
+            c1 = min(c0 + _BITS_CHUNK, cfg.cycles)
+            with _span("sim.cycles", cat="sim", t0=c0, cycles=c1 - c0,
+                       measured=max(c1 - max(c0, cfg.warmup), 0),
+                       mode=mode, adaptive=adaptive,
+                       recorder=cfg.telemetry) as chunk:
+                laps = _Laps() if timed else None
+                ts = torch.arange(c0, c1, dtype=i64, device=dev).view(-1, 1)
+                u_inj_c[:c1 - c0] = _bits_to_unit(
+                    _node_bits(cfg.seed, ts, node_r, 0))
+                u_dst_c[:c1 - c0] = _bits_to_unit(
+                    _node_bits(cfg.seed, ts, node_r, 1))
+                vcs_c[:c1 - c0] = _node_bits(cfg.seed, ts, node_r, 2) % V
                 if timed:
-                    tk = _lap(ns, 1, tk)
+                    laps(0)
+                replayed = replay_ns = 0
+                for tc in range(c0, c1):
+                    measuring = tc >= cfg.warmup
+                    if graphs is not None and measuring in graphs.graphs:
+                        if timed:
+                            r0 = perf_counter_ns()
+                        graphs.replay(measuring)
+                        if timed:
+                            replay_ns += perf_counter_ns() - r0
+                        replayed += 1
+                        continue
+                    if op_trace:
+                        probe["cycle"] = tc
+                    cycle(measuring, laps)
+                    # the body's first cycle has run: capture it if it
+                    # has cycles left to replay
+                    if graphs is not None and tc + 1 < (
+                            cfg.cycles if measuring else cfg.warmup):
+                        graphs.capture(measuring, lambda: cycle(measuring))
+                if timed and replayed:
+                    chunk.set(graphed=replayed, replay_ns=replay_ns)
+                elif timed:
+                    chunk.set(graphed=0, alloc_calls=laps.calls,
+                              **{f"{ph}_ns": v
+                                 for ph, v in zip(PHASES, laps.ns)})
+    finally:
+        if graphs is not None:
+            graphs.release()
 
-                # ---- 2. credit returns ---------------------------------
-                credits_flat.index_add_(0, ret_flat.view(-1),
-                                        credit_pipe[:, :C, slot].reshape(-1))
-                credit_pipe[:, :, slot] = 0
-                if timed:
-                    tk = _lap(ns, 2, tk)
-
-                # ---- 3. injection --------------------------------------
-                if sched is None:
-                    want = u_inj_c[k] < rate_b * inj_w      # [B, N]
-                    cum_t = cum                             # [S, N, N]
-                else:
-                    # this cycle's phase of every row (spec): rate * gain
-                    # was formed in float32 on the host, as the reference
-                    # forms it
-                    want = (u_inj_c[k] < rate_t[t].view(B, 1)
-                            * s_inj[kidx_row[t]])
-                    cum_t = s_cum[kidx_spec[t]]             # [S, N, N]
-                dsts = (cum_t < u_dst_c[k].view(1, N, 1)).sum(2).clamp(
-                    0, N - 1)
-                dsts = dsts[srow]                           # [B, N]
-                want &= dsts != node_r
-                inj_at = (b2, node_r, P, vcs_c[k])
-                space = cnt[inj_at] < Bd
-                do_inj = want & space
-                posi = (head[inj_at] + cnt[inj_at]) % Bd
-                posi_w = torch.where(do_inj, posi, Bd)
-                buf_dst[inj_at + (posi_w,)] = dsts
-                buf_t[inj_at + (posi_w,)] = ts[k]          # t, on the device
-                cnt[inj_at] += do_inj.long()  # unique per row/node
-                if measuring:
-                    n_want = want.sum(1, dtype=i32)
-                    n_inj = do_inj.sum(1, dtype=i32)
-                    offered += n_want
-                    accepted += n_inj
-                    if sched is not None:  # one phase per row
-                        offered_ph.index_add_(0, bk[t], n_want)
-                        accepted_ph.index_add_(0, bk[t], n_inj)
-                if timed:
-                    tk = _lap(ns, 3, tk)
-
-                # ---- 4. route + allocate -------------------------------
-                recording = cfg.telemetry and measuring
-                if recording:
-                    # the occupancy snapshot: post-arrival, post-injection,
-                    # pre-pop (the pop below updates cnt in place)
-                    occ = cnt[b2, ch_dst, ch_in_port]       # [B, C, V]
-                head_dst = buf_dst.gather(4, head.unsqueeze(4)).squeeze(4)
-                head_t = buf_t.gather(4, head.unsqueeze(4)).squeeze(4)
-                if adaptive:
-                    op_slot, eligible, starved, dvc = \
-                        _route_lookup_adaptive(table, prod, srow, credits,
-                                               head_dst, cnt, P)
-                elif cfg.telemetry:
-                    op_slot, eligible, starved = _route_lookup(
-                        table, srow, credits, head_dst, cnt, P,
-                        starved=True)
-                else:
-                    op_slot, eligible = _route_lookup(
-                        table, srow, credits, head_dst, cnt, P)
-                alloc_args = (op_slot.to(i32), eligible, rr % V, rr % pi)
-                if timed:
-                    tk = _lap(ns, 4, tk)
-                win_mask, vc_choice, out_req = alloc_fn(*alloc_args)
-                if timed:
-                    tk = _lap(ns, 5, tk)
-                    calls += 1
-                port_wins = win_mask.any(3)                 # [B, N, PI]
-
-                # ---- 5. winners: pop, move, credit ---------------------
-                # wvc is the source VC popped at (node, in-port); w_dvc
-                # the downstream VC the flit occupies after the hop.
-                # Static routing keeps them equal; adaptive routing moves
-                # the link VC tag and the downstream credit to the class
-                # the lookup chose, while the upstream credit return
-                # (freeing the popped lane) stays on wvc.
-                wvc = vc_choice.long()                      # [B, N, PI]
-                w_dvc = dvc.gather(3, wvc.unsqueeze(3)).squeeze(3) \
-                    if adaptive else wvc
-                w_dst = head_dst.gather(3, wvc.unsqueeze(3)).squeeze(3)
-                w_t = head_t.gather(3, wvc.unsqueeze(3)).squeeze(3)
-                pw = port_wins.long().unsqueeze(3)
-                head.scatter_add_(3, wvc.unsqueeze(3), pw).remainder_(Bd)
-                cnt.scatter_add_(3, wvc.unsqueeze(3), -pw)
-
-                # upstream credit return for real input ports
-                has_up = up_real & port_wins
-                ret_slot = (up_delay + t) % D
-                credit_pipe_flat.index_add_(0, ((up_base + ret_slot) * V
-                                                + wvc).view(-1),
-                                            has_up.long().view(-1))
-
-                # ejection vs traversal
-                eject = port_wins & (out_req == P)
-                traverse = port_wins & (out_req >= 0) & (out_req < P)
-                if measuring:
-                    n_ej = eject.sum((1, 2), dtype=i32)
-                    lat_row = torch.where(eject, t - w_t, 0).sum(
-                        2, dtype=i32)
-                    delivered += n_ej
-                    lat_node += lat_row
-                    if sched is not None:
-                        delivered_ph.index_add_(0, bk[t], n_ej)
-                        lat_ph.index_add_(0, bk[t], lat_row)
-
-                out_port = out_req.long().clamp(0, P - 1)
-                oc_w = torch.where(traverse, out_ch.gather(2, out_port), C)
-                wslot = (depth_pad.gather(1, oc_w.view(B, -1)).view(
-                    B, N, PI) + t) % D
-                link_at = (b3, oc_w, wslot)                 # C: sacrificial
-                link_dst[link_at] = w_dst
-                link_t[link_at] = w_t
-                link_vc[link_at] = w_dvc
-                credits_flat.index_add_(0, ((trav_base + out_port) * V
-                                            + w_dvc).view(-1),
-                                        -traverse.long().view(-1))
-                rr = (rr + 1) % (V * pi)
-                if timed:
-                    tk = _lap(ns, 6, tk)
-
-                # ---- 6. flight recorder (DESIGN.md §13, §16) -----------
-                # Pure observers: integer adds onto the recorder's own
-                # counters, with non-contributing lanes sent to the
-                # sacrificial row C or adding 0.  Duplicate indices (row
-                # C above all) need an accumulating scatter: `index_add_`
-                # on the flattened counter, as for the state above.
-                if recording:
-                    w = min(max(((t - cfg.warmup) * W) // meas, 0),
-                            W - 1) if W else 0
-                    tel_busy[w].view(-1).index_add_(
-                        0, (ch_base + oc_w).view(-1),
-                        traverse.int().view(-1))
-                    # credit starvation, charged to the requested out channel
-                    st_ch = out_ch.gather(2, op_slot.clamp(0, P - 1).view(
-                        B, N, PI * V))
-                    tel_stall[w].view(-1).index_add_(
-                        0, (ch_base + torch.where(
-                            starved.view(B, N, PI * V), st_ch, C)).view(-1),
-                        starved.int().view(-1))
-                    tel_occ[w, :, :C] += occ.int()
-                    tel_inj[w] += do_inj.int()
-                    tel_eject[w] += eject.sum(2, dtype=i32)
-                    # latency bin h counts t - w_t in [2^(h-1), 2^h);
-                    # lanes that did not eject add 0 at a stale, in-range
-                    # bin
-                    tel_hist.view(-1).index_add_(
-                        0, (hist_base + torch.bucketize(
-                            t - w_t, hist_edges, right=True)).view(-1),
-                        eject.int().view(-1))
-                    if timed:
-                        tk = _lap(ns, 7, tk)
-            if timed:
-                chunk.set(alloc_calls=calls,
-                          **{f"{ph}_ns": v for ph, v in zip(PHASES, ns)})
-
-    if probe is not None:
+    if op_trace:
         probe["cycle"] = None
     out = (delivered, offered, accepted, lat_node)
     if sched is not None:

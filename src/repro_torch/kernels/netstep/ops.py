@@ -7,6 +7,9 @@ input never falls back: an input the kernel does not take (PI or V above
 32, a non-contiguous or misaligned tensor), a build failure or a launch
 failure raises.  `netstep.launches` counts kernel launches (CPU calls are
 not counted), so a run can show that its cycles went through the kernel.
+A call on a stream that is capturing a CUDA graph launches nothing then:
+it counts in `netstep.captured`, and whoever replays the graph adds its
+launches to `netstep.launches`.
 """
 from __future__ import annotations
 
@@ -83,10 +86,15 @@ def netstep(op_slot: torch.Tensor, eligible: torch.Tensor,
             win.data_ptr(), vc.data_ptr(), req.data_ptr(), B, N, PI, V)
     with torch.cuda.device(dev):
         rc = launch(*args, torch.cuda.current_stream().cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(f"netstep kernel launch failed: CUDA error {rc}")
-    netstep.launches += 1
+    if capturing:
+        netstep.captured += 1
+    else:
+        netstep.launches += 1
     return win, vc, req
 
 
 netstep.launches = 0
+netstep.captured = 0

@@ -16,8 +16,10 @@ engine run stats, executor chunk outcomes.  Three primitives:
 `cache_counters()` exposes those monotonic hit/miss/eviction counters
 for before/after deltas.
 
-The port has no compiled-runner cache: the simulator is a Python loop
-of eager device ops, and nothing is compiled per padded shape.  The
+The port has no compiled-runner cache: the simulator's cycle loop
+captures its CUDA graphs anew each run and keeps none, so nothing is
+compiled or cached per padded shape (`sim.graph_captures` and
+`sim.graph_replays` count the graphs and their launches).  The
 `cache.runner.*` keys stay, so readers of the reference's keys keep
 working, and always read 0 — hence `SweepEngine.stats["compiles"]` and
 the executor's `compiled` progress field are 0 in the port.

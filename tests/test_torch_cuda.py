@@ -230,6 +230,116 @@ def test_search_kernel_equals_plain_and_cpu(cuda):
     assert record(kernel) == record(plain) == record(cpu)
 
 
+#: the loop's four modes; 300 cycles (not a multiple of the 256-cycle
+#: chunk) with a warm-up of 100 (off a chunk edge)
+GRAPH_MODES = {
+    "static": dict(),
+    "workload": dict(),
+    "adaptive": dict(routing="adaptive"),
+    "recorder": dict(telemetry=True, telemetry_windows=3),
+}
+
+
+def _graph_batch(mode):
+    """(specs, rates, cfg, schedules) of the HETERO batch in `mode`."""
+    import repro_torch.workloads as W
+    specs, scheds = [], []
+    for name, n in HETERO:
+        r = build_routing(T.build(name, n))
+        specs.append(sim.make_spec(r, TR.uniform(r.topo)))
+        scheds.append(W.hotspot_drift(r.topo, n_phases=3,
+                                      dwell=70).compile())
+    cfg = sim.SimConfig(cycles=300, warmup=100, **GRAPH_MODES[mode])
+    return (specs, np.array([0.05, 0.3, 0.6], np.float32), cfg,
+            scheds if mode == "workload" else None)
+
+
+def _assert_same_results(got, want):
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in set(g) - {"pad_fill"}:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+            assert np.asarray(g[key]).dtype == np.asarray(w[key]).dtype
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graphed_loop_equals_eager_and_cpu(cuda, mode, monkeypatch):
+    """Each mode replayed from CUDA graphs equals the same body run
+    eagerly on the card and the CPU run, every result key bit for bit;
+    the spans count the replays (all cycles but each body's first) and
+    `netstep.launches` grows by exactly the cycles run."""
+    import importlib
+    tr = importlib.import_module("repro_torch.obs.trace")
+    specs, rates, cfg, scheds = _graph_batch(mode)
+    tr.clear_trace()
+    tr.enable_tracing()
+    before = netstep.launches
+    try:
+        graphed = sim.run_batch(specs, rates, cfg, schedules=scheds,
+                                device=cuda)
+    finally:
+        tr.disable_tracing()
+    launched = netstep.launches - before
+    chunks = [sp for sp in tr.get_spans() if sp.name == "sim.cycles"]
+    tr.clear_trace()
+    assert launched == cfg.cycles
+    assert sum(sp.args["graphed"] for sp in chunks) == cfg.cycles - 2
+    assert all("alloc_calls" not in sp.args for sp in chunks)
+    monkeypatch.setattr(sim, "_graphed", lambda device, probe: False)
+    before = netstep.launches
+    eager = sim.run_batch(specs, rates, cfg, schedules=scheds, device=cuda)
+    assert netstep.launches - before == cfg.cycles
+    cpu = sim.run_batch(specs, rates, cfg, schedules=scheds, device="cpu")
+    _assert_same_results(graphed, eager)
+    _assert_same_results(graphed, cpu)
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graphed_loop_never_waits_for_the_card(cuda, mode):
+    """The graphed loop, eager cycles and captures included, runs under
+    `torch.cuda.set_sync_debug_mode("error")` (the batch is uploaded and
+    read back outside it)."""
+    specs, rates, cfg, scheds = _graph_batch(mode)
+    dev, _, shape, batch, rates2, kmax, _, _ = sim._prepare(
+        specs, rates, cfg, None, cuda, scheds, None)
+    sbatch = None
+    if scheds is not None:
+        from repro_torch.sweep.padding import stack_schedules
+        sbatch, kmax = stack_schedules(scheds, shape.n, None)
+    lv, srow, rate, sched = sim._device_args(batch, sbatch, kmax, rates2,
+                                             cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        raw = sim._simulate_rows(lv, srow, rate, shape.n, shape.p, shape.c,
+                                 shape.d, cfg, netstep, sched)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(raw[0].sum()) > 0
+
+
+def test_graphed_runs_leave_memory_where_it_started(cuda):
+    """Back-to-back runs of two group shapes release their graphs and
+    the graphs' memory pools: allocated memory returns to where it
+    started after each run, and no graph holds a pool afterwards, so
+    emptying the allocator's cache returns every reserved byte."""
+    specs, rates, cfg, _ = _graph_batch("static")
+    shapes = (specs[:2], specs[2:])
+    for group in shapes:                     # build and load the kernel
+        sim.run_batch(group, rates, cfg, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(3):
+        for group in shapes:
+            sim.run_batch(group, rates, cfg, device=cuda)
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated() == allocated
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= reserved
+
+
 @pytest.mark.parametrize("kw", [
     dict(), dict(routing="adaptive"),
     dict(telemetry=True, telemetry_windows=2),

@@ -6,6 +6,7 @@ changes nothing, and the sweep engine equals `run_batch`.  The adaptive
 and recorder modes are held in depth by tests/test_torch_adaptive.py and
 tests/test_torch_telemetry.py."""
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -243,3 +244,178 @@ def test_hash_matches_reference_bits():
                 seed, jnp.int32(ti), jnp.asarray(nodes), stream))
                 for ti in t])
             np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+# ---------------------------------------------------------------------
+# the graphed cycle loop, rehearsed on the CPU
+# ---------------------------------------------------------------------
+
+class _OpGraph:
+    """A stand-in for a CUDA graph on the CPU.  `capture` runs the body
+    under a dispatch mode that records every aten op with its very
+    tensors, then undoes what the ops wrote into tensors they did not
+    make, since a capture runs nothing.  `replay` runs the recorded ops
+    again on those tensors and writes each new result into the tensor
+    the capture made, as a graph's kernels read and write fixed
+    addresses: a Python value the body read at capture stays as it was
+    then."""
+
+    def __init__(self):
+        self.ops = []
+
+    def capture(self, body):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        ops, saved = self.ops, []
+
+        class _Record(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                for i, a in enumerate(func._schema.arguments):
+                    v = args[i] if i < len(args) else kwargs.get(a.name)
+                    if isinstance(v, torch.Tensor) and a.alias_info \
+                            is not None and a.alias_info.is_write:
+                        saved.append((v, v.clone()))
+                out = func(*args, **kwargs)
+                views = any(r.alias_info is not None
+                            for r in func._schema.returns)
+                ops.append((func, args, kwargs, None if views else out))
+                return out
+
+        with _Record():
+            body()
+        for v, old in reversed(saved):
+            v.copy_(old)
+
+    def replay(self):
+        from torch.utils._pytree import tree_leaves
+        for func, args, kwargs, out in self.ops:
+            res = func(*args, **kwargs)
+            if out is not None:
+                for o, r in zip(tree_leaves(out), tree_leaves(res)):
+                    o.copy_(r)
+
+    def reset(self):
+        self.ops.clear()
+
+
+class _CpuGraphs(PS._CycleGraphs):
+    """`_CycleGraphs` with `_OpGraph` in place of CUDA graphs."""
+
+    def __init__(self, dev):
+        self.graphs, self.launches, self.replays = {}, {}, 0
+
+    def capture(self, key, body):
+        self.graphs[key] = _OpGraph()
+        self.graphs[key].capture(body)
+        self.launches[key] = 0
+
+    def replay(self, key):
+        self.graphs[key].replay()
+        self.replays += 1
+
+
+GRAPH_CFG = PS.SimConfig(cycles=300, warmup=100)
+GRAPH_MODES = {
+    "static": dict(),
+    "workload": dict(),
+    "adaptive": dict(routing="adaptive"),
+    "recorder": dict(telemetry=True, telemetry_windows=3),
+}
+
+
+def _graph_batch(port_specs, mode):
+    import repro_torch.workloads as PW
+    specs = port_specs[:2]
+    scheds = None
+    if mode == "workload":
+        scheds = [PW.hotspot_drift(PT.build(name, n), n_phases=3,
+                                   dwell=70).compile()
+                  for name, n in HETERO[:2]]
+    return specs, GRAPH_CFG._replace(**GRAPH_MODES[mode]), scheds
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_replayed_cycles_equal_eager_ones(mode, port_specs, monkeypatch):
+    """Every cycle but each body's first replayed from a stand-in graph
+    (300 cycles, warm-up 100, so both bodies cross a chunk edge): every
+    result key equals the eager loop's bit for bit, the spans count the
+    replays, and the run counts its captures and replays."""
+    TR = importlib.import_module("repro_torch.obs.trace")
+    from repro_torch.obs.metrics import metrics
+    specs, cfg, scheds = _graph_batch(port_specs, mode)
+    eager = PS.run_batch(specs, RATES[1:], cfg, schedules=scheds,
+                         device="cpu")
+    monkeypatch.setattr(PS, "_graphed", lambda device, probe: True)
+    monkeypatch.setattr(PS, "_CycleGraphs", _CpuGraphs)
+    before = {k: metrics.get(k) for k in ("sim.graph_captures",
+                                          "sim.graph_replays")}
+    TR.clear_trace()
+    TR.enable_tracing()
+    try:
+        graphed = PS.run_batch(specs, RATES[1:], cfg, schedules=scheds,
+                               device="cpu")
+    finally:
+        TR.disable_tracing()
+    chunks = [sp for sp in TR.get_spans() if sp.name == "sim.cycles"]
+    TR.clear_trace()
+    for g, e in zip(graphed, eager):
+        _assert_results_equal(g, e, keys=tuple(k for k in e
+                                               if k != "pad_fill"))
+    assert sum(sp.args["graphed"] for sp in chunks) == cfg.cycles - 2
+    assert all(sp.args["graphed"] > 0 and "replay_ns" in sp.args
+               and "alloc_calls" not in sp.args for sp in chunks)
+    assert metrics.get("sim.graph_captures") - \
+        before["sim.graph_captures"] == 2
+    assert metrics.get("sim.graph_replays") - \
+        before["sim.graph_replays"] == cfg.cycles - 2
+
+
+def test_stand_in_graph_keeps_what_the_body_read_at_capture():
+    """The rehearsal can fail: a body that reads a host number each
+    cycle replays the number it read at capture, and a capture leaves
+    the state as it found it."""
+    state = torch.zeros(3, dtype=torch.int64)
+    step = [1]
+
+    def body():
+        state.add_(step[0])
+
+    g = _OpGraph()
+    g.capture(body)
+    assert state.tolist() == [0, 0, 0]
+    step[0] = 5
+    g.replay()
+    g.replay()
+    assert state.tolist() == [2, 2, 2]
+
+
+def test_cpu_spans_carry_graphed_zero_and_every_phase(port_specs):
+    """On the CPU the loop stays eager: each `sim.cycles` span carries
+    `graphed = 0`, the allocator calls and every phase's time."""
+    TR = importlib.import_module("repro_torch.obs.trace")
+    TR.clear_trace()
+    TR.enable_tracing()
+    try:
+        PS.run_batch(port_specs[:1], RATES[:2], GRAPH_CFG, device="cpu")
+    finally:
+        TR.disable_tracing()
+    chunks = [sp for sp in TR.get_spans() if sp.name == "sim.cycles"]
+    TR.clear_trace()
+    assert len(chunks) == 2
+    for sp in chunks:
+        assert sp.args["graphed"] == 0 and "replay_ns" not in sp.args
+        assert sp.args["alloc_calls"] == sp.args["cycles"]
+        assert all(sp.args[f"{ph}_ns"] >= 0 for ph in PS.PHASES)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", "cpu"])
+def test_op_trace_keeps_the_loop_eager(device):
+    """The loop replays graphs on a CUDA device unless an op trace (a
+    probe that follows the cycle) is attached; a profile's probe, which
+    only takes the state's bytes, does not stop it.  Decided from the
+    device and the probe alone, without a card."""
+    cuda = torch.device(device).type == "cuda"
+    assert PS._graphed(torch.device(device), None) is cuda
+    assert PS._graphed(device, {}) is cuda
+    assert PS._graphed(device, {"cycle": None}) is False
+    assert PS._graphed(device, {"cycle": 3, "state_bytes": 1}) is False
