@@ -31,6 +31,8 @@ import json
 import types
 from pathlib import Path
 
+from .reference import derivations
+
 KINDS = ("pattern", "synthetic", "collective", "mixed_tenant",
          "trace_region")
 
@@ -108,6 +110,8 @@ def _traffic_entries(config: dict, mix: dict) -> list:
             if not e["model"]:
                 raise ValueError(f"{e['kind']} traffic needs a model (in "
                                  f"the configuration or the mix)")
+            # a derivation named with no file stops the run here, in set-up
+            derivations.load(derivations.name_of(e["step"]))
         out.append(e)
     return out
 
@@ -131,11 +135,13 @@ def scenario_defs(config: dict, mix: dict) -> list:
 
 def model_sizes(model: dict) -> types.SimpleNamespace:
     """A model's published `config.json` numbers as the size fields
-    the collective workloads read (ModelConfig's names)."""
+    the collective workloads read (ModelConfig's names), and beside them
+    every key of `model` under its published name; where the two clash
+    (`head_dim`), the mapped field wins."""
     n_experts = int(model.get("num_experts", 0) or 0)
     d_ff = model["moe_intermediate_size"] if n_experts \
         else model["intermediate_size"]
-    return types.SimpleNamespace(
+    mapped = dict(
         name=model["name"], d_model=int(model["hidden_size"]),
         n_layers=int(model["num_hidden_layers"]),
         n_heads=int(model["num_attention_heads"]),
@@ -145,13 +151,25 @@ def model_sizes(model: dict) -> types.SimpleNamespace:
         n_experts=n_experts,
         top_k=int(model.get("num_experts_per_tok", 0) or 0),
         moe_every=int(model.get("decoder_sparse_step", 1) or 1))
+    return types.SimpleNamespace(**{**model, **mapped})
+
+
+#: keys of a configuration's `step` that are the harness's own: the
+#: reference's derivation and the CPU tests' mesh
+HARNESS_STEP_KEYS = ("derivation", "tiny_mesh")
+#: the step's whole numbers
+INT_STEP_KEYS = ("seq_len", "global_batch", "step_cycles", "min_phase",
+                 "dtype_bytes")
 
 
 def step_kwargs(step: dict) -> dict:
-    """The training step's keyword arguments of `collective_workload`."""
-    keys = ("seq_len", "global_batch", "step_cycles", "min_phase",
-            "dtype_bytes")
-    kw = {k: int(step[k]) for k in keys if k in step}
+    """The training step's keyword arguments of `collective_workload`:
+    every key of `step` but the harness's own, with `mesh` handed on as
+    `mesh_shape`."""
+    kw = {k: int(step[k]) for k in INT_STEP_KEYS if k in step}
+    kw.update({k: v for k, v in step.items()
+               if k not in kw and k not in HARNESS_STEP_KEYS
+               and k != "mesh"})
     if step.get("mesh"):
         kw["mesh_shape"] = {k: int(v) for k, v in step["mesh"].items()}
     return kw

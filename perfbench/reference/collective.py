@@ -49,29 +49,42 @@ def default_mesh_shape(n: int, model_parallel: int = 0) -> dict:
     return {"data": n, "model": 1}
 
 
+def op_flow(topo: Topology, mesh_shape: dict, op) -> np.ndarray:
+    """[N, N] byte flows of one op: its mesh axis's groups on the
+    placement, its kind's flow within each group."""
+    groups = mesh_axis_groups(topo, mesh_shape, op.axis)
+    return collective_flow(topo.n, op.kind, groups, op.bytes_per_chip)
+
+
 def collective_workload(config, topo: Topology, *, mesh_shape: dict = None,
                         seq_len: int = 2048, global_batch: int = 0,
                         step_cycles: int = 1000, min_phase: int = 50,
-                        dtype_bytes: int = 2) -> Schedule:
+                        dtype_bytes: int = 2, derivation=None,
+                        **step) -> Schedule:
     """Phase schedule of one sharded training step of `config` on `topo`.
 
     config: a `ModelConfig` (or any object with its size fields);
     mesh_shape defaults to TP-8/4/2 x FSDP over the remaining chiplets;
     global_batch defaults to 4 sequences per data shard; step_cycles is
     the replayed step's length, split across phases by bytes moved.
+    derivation: a module of `perfbench.reference.derivations` whose
+    `step_collective_ops` (and `op_flow`, where it has one) replace the
+    frozen ones; `step` is handed on to its `step_collective_ops`.
     """
     mesh_shape = mesh_shape or default_mesh_shape(topo.n)
     dm = int(mesh_shape.get("data", 1))
     global_batch = global_batch or 4 * dm
-    ops = step_collective_ops(config, mesh_shape, seq_len=seq_len,
-                              global_batch=global_batch,
-                              dtype_bytes=dtype_bytes)
+    derive_ops = getattr(derivation, "step_collective_ops",
+                         step_collective_ops)
+    flow_of = getattr(derivation, "op_flow", op_flow)
+    ops = derive_ops(config, mesh_shape, seq_len=seq_len,
+                     global_batch=global_batch, dtype_bytes=dtype_bytes,
+                     **step)
     # phase -> flow matrix + payload bytes, in op order
     flows: dict[str, np.ndarray] = {}
     payload: dict[str, float] = {}
     for op in ops:
-        groups = mesh_axis_groups(topo, mesh_shape, op.axis)
-        f = collective_flow(topo.n, op.kind, groups, op.bytes_per_chip)
+        f = flow_of(topo, mesh_shape, op)
         if f.sum() <= 0:        # degenerate axis (groups of 1): skip
             continue
         flows[op.phase] = flows.get(op.phase, 0) + f

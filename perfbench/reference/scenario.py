@@ -17,6 +17,7 @@ from ..grid import ScenarioDef, SimSettings, model_sizes, step_kwargs
 from . import costmodel as cm
 from . import simulator as sim
 from . import synthetic, traffic as TR
+from . import derivations
 from .collective import collective_workload
 from .mixed import mixed_tenant_workload
 from .routing import build_routing
@@ -65,15 +66,16 @@ def _schedule(d: ScenarioDef, topo, meas: int):
               "phase_alternating": synthetic.phase_alternating,
               "bursty_uniform": synthetic.bursty_uniform}[t["name"]]
         sched = fn(topo, **t.get("args", {}))
-    elif kind == "collective":
-        sched = collective_workload(model_sizes(t["model"]), topo,
-                                    **step_kwargs(t["step"]))
-    elif kind == "mixed_tenant":
-        sched = mixed_tenant_workload(
-            model_sizes(t["model"]), topo,
-            serve_pattern=t.get("serve_pattern", "uniform"),
-            serve_frac=float(t.get("serve_frac", 0.3)),
-            **step_kwargs(t["step"]))
+    elif kind in ("collective", "mixed_tenant"):
+        kw = dict(step_kwargs(t["step"]), derivation=derivations.load(
+            derivations.name_of(t["step"])))
+        if kind == "collective":
+            sched = collective_workload(model_sizes(t["model"]), topo, **kw)
+        else:
+            sched = mixed_tenant_workload(
+                model_sizes(t["model"]), topo,
+                serve_pattern=t.get("serve_pattern", "uniform"),
+                serve_frac=float(t.get("serve_frac", 0.3)), **kw)
     else:
         raise ValueError(f"unknown traffic kind {kind!r}")
     return None, sched.fit(meas)

@@ -3,8 +3,10 @@
 `tiny_root(tmp)` writes BENCHMARK.json and the configurations, mixes
 and metric readers into `tmp`, with every configuration cut to N = 16,
 two chiplet areas and 60 cycles (20 of warm-up), so that a cell runs
-end to end on the CPU in seconds.  `run_cell` runs one cell there and
-returns its exit code, result line and standard error.
+end to end on the CPU in seconds; a training step's mesh becomes the
+configuration's `step.tiny_mesh`, or TINY_MESH where it gives none.
+`run_cell` runs one cell there and returns its exit code, result line
+and standard error.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
 TINY_SIM = {"n_vcs": 4, "buf_depth": 4, "cycles": 60, "warmup": 20}
+#: the mesh of a training step at N = 16 where a configuration names none
+TINY_MESH = {"data": 2, "model": 8}
 
 
 def bench() -> dict:
@@ -40,7 +44,8 @@ def tiny_root(tmp: Path) -> Path:
         c["areas_mm2"] = c["areas_mm2"][:2]
         c["sim"] = dict(TINY_SIM)
         if "step" in c:
-            c["step"]["mesh"] = {"data": 2, "model": 8}
+            c["step"]["mesh"] = dict(c["step"].get("tiny_mesh",
+                                                  TINY_MESH))
         path.write_text(json.dumps(c))
     return tmp
 

@@ -43,12 +43,6 @@ def test_graphed_pct_is_replayed_cycles_over_cycles():
     assert _read("loop.graphed_pct", spans[2:]) == 0
 
 
-def test_replayed_chunks_leave_no_host_time_per_call():
-    """Replayed cycles make no host call of the allocator's wrapper, so
-    chunks made only of replays give `netstep.host_us_per_call` nothing."""
-    assert _read("netstep.host_us_per_call", _graphed_chunks()[:2]) is None
-
-
 @pytest.mark.parametrize("spans", [
     [_span("sim.cycles", 5_000, cycles=10, alloc_calls=10, alloc_ns=900)],
     [_span("sweep.group", 9_000, s_live=1)],

@@ -1,7 +1,6 @@
 """The readers of the program's cycle-loop spans: their arithmetic on
 hand-made span lists, nothing where the program records no `sim.cycles`
-span, and one traced run of a tiny cell on the CPU that reports all
-three."""
+span, and one traced run of a tiny cell on the CPU that reports both."""
 from __future__ import annotations
 
 import pytest
@@ -10,8 +9,7 @@ from perfbench_tiny import REPO, cells, run_cell, tiny_root
 
 from perfbench.run import load_reader
 
-NAMES = ("loop.host_us_per_cycle", "netstep.host_us_per_call",
-         "group.outside_loop_pct")
+NAMES = ("loop.host_us_per_cycle", "group.outside_loop_pct")
 
 
 def _span(name, dur, **args):
@@ -44,11 +42,6 @@ def test_host_us_per_cycle_is_loop_time_over_cycles():
         pytest.approx(1_100_000 / 556)
 
 
-def test_host_us_per_call_is_alloc_time_over_calls():
-    assert _read("netstep.host_us_per_call", _window()) == \
-        pytest.approx(19_240 / 556)
-
-
 def test_outside_loop_pct_is_executor_time_outside_the_loop():
     assert _read("group.outside_loop_pct", _window()) == \
         pytest.approx(100 * (1 - 1_100 / 1_200))
@@ -64,16 +57,15 @@ def test_nothing_without_cycles_spans(name):
 
 
 def test_calls_without_phase_times_give_nothing():
-    """Chunks recorded with the loop's clock off carry no allocator
-    times: no reading of the host's time per call."""
+    """Chunks recorded with the loop's clock off still give the host's
+    time per cycle."""
     spans = [_span("sim.cycles", 5_000, cycles=10)]
-    assert _read("netstep.host_us_per_call", spans) is None
     assert _read("loop.host_us_per_cycle", spans) == pytest.approx(0.5)
 
 
 def test_traced_tiny_run_reports_the_loop_metrics(capsys, tmp_path,
                                                   monkeypatch):
-    """A traced run on the CPU reports the three metrics, and the loop's
+    """A traced run on the CPU reports both metrics, and the loop's
     time it reads lies within the window's executor time."""
     from perfbench.drivers import sim
     recs = []
@@ -97,7 +89,5 @@ def test_traced_tiny_run_reports_the_loop_metrics(capsys, tmp_path,
                      if sp.name == "experiment.execute") / 1e3
     assert cycles > 0
     assert got["loop.host_us_per_cycle"] * cycles <= execute_us
-    assert 0 < got["netstep.host_us_per_call"] < \
-        got["loop.host_us_per_cycle"]
     assert 0 < got["group.outside_loop_pct"] < 100
     assert line["metrics"]["loop.host_us_per_cycle"]["unit"] == "us"
