@@ -34,6 +34,8 @@ PARENT_DIGESTS = {
         ("37ebacb0a422091e", "6deacbe30ad65a1a"),
     ("fig4-n256-organic", "hotspot-adaptive"):
         ("afe2af118fc665e2", "1f061fe52a6f5f47"),
+    ("fig4-n256-organic", "uniform-one-batch"):
+        ("7580fbd853bbf78d", "0ece7d43db04066d"),
 }
 
 #: a derivation that doubles the bytes of one phase of the default's

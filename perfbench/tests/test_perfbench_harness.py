@@ -64,15 +64,47 @@ def test_traced_run_reports_layer_metrics(capsys, root, cell):
         assert 0 < line["metrics"]["sweep.row_fill_pct"]["value"] <= 100
 
 
-@pytest.mark.parametrize("mix", ["uniform-one-batch"])
-def test_mix_kept_for_a_later_cell_runs_and_agrees(capsys, tmp_path, mix):
-    """The mix with no cell yet (the grid as one batch) runs end to end
-    once a cell names it, and agrees with the reference."""
+def _builds(config: dict, mix: dict) -> bool:
+    from perfbench import grid as G
+    try:
+        G.scenario_defs(config, mix)
+    except ValueError:
+        return False
+    return True
+
+
+def _mixes_without_a_cell() -> list:
+    """(configuration, mix) for every mix under `perfbench/traffic/` that
+    no cell names, each with the first configuration in `BENCHMARK.json`
+    whose data builds its scenarios (collective traffic needs one with a
+    model), or else the first, so that the case fails.  Empty once every
+    mix has a cell."""
+    from perfbench import grid as G
+    doc = bench()
+    named = {w["traffic"] for w in doc["workloads"]}
+    configs = [(c["name"], G.load_json(REPO / c["file"]))
+               for c in doc["configs"]]
+    out = []
+    for path in sorted((REPO / "perfbench" / "traffic").glob("*.json")):
+        if path.stem in named:
+            continue
+        mix = G.load_json(path)
+        config = next((name for name, c in configs if _builds(c, mix)),
+                      configs[0][0])
+        out.append(pytest.param(config, path.stem, id=path.stem))
+    return out
+
+
+@pytest.mark.parametrize("config,mix", _mixes_without_a_cell())
+def test_mix_kept_for_a_later_cell_runs_and_agrees(capsys, tmp_path,
+                                                  config, mix):
+    """A mix committed before its cell runs end to end once a cell names
+    it, and agrees with the reference; adding that cell later needs no
+    edit here."""
     root = tiny_root(tmp_path)
     doc = json.loads((root / "BENCHMARK.json").read_text())
-    name = f"fig4-n256-organic.{mix}"
-    assert name not in cells()
-    doc["workloads"].append({"name": name, "config": "fig4-n256-organic",
+    name = f"{config}.{mix}"
+    doc["workloads"].append({"name": name, "config": config,
                              "traffic": mix, "chips": 1,
                              "why": "a later cell"})
     (root / "BENCHMARK.json").write_text(json.dumps(doc))
