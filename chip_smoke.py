@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  Phases, each printing one JSON line:
 
   device               card name and power limit (nvidia-smi), versions
-  build                nvcc builds the five kernel sources from the
+  build                nvcc builds the six kernel sources from the
                        checkout, and netstep with its body cut out (the
                        launch floor; kernels.ablate's `empty` cut), one
                        process per source, all started together; netstep's
@@ -36,7 +36,8 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        (organic, uniform, default SimConfig) through
                        SweepEngine.run_specs; counters equal the JAX
                        reference's, and every cycle went through the
-                       kernel
+                       kernel and the fused cycle kernels (cycle_route,
+                       cycle_move and sim.fused_cycles: one a cycle)
   timing               netstep at kernels.ablate's NETSTEP_SHAPES (the
                        main path's [32, 256, 7, 4], mesh's PI 5, the
                        widest radix's PI 31): the profiler's device time
@@ -47,6 +48,13 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        the wrapper's host time) and the plain version's
   profile              torch.profiler: the device busy/idle share of
                        simulated cycles at the main path's widest group
+  cycle_kernels        at that group: the fused body equals the PyTorch
+                       body (alloc="torch") on the card in every counter,
+                       bit for bit; from the fused run's last state,
+                       cycle_route and cycle_move equal their plain
+                       versions (kernels/cycle/ref.py) cycle by cycle;
+                       each kernel's device time per launch beside its
+                       byte bound and the plain version's time
   workload_kernel_vs_plain
                        the heterogeneous workload batch of
                        tests/test_torch_workloads.py (multi-phase
@@ -1612,6 +1620,11 @@ LANE_N = 13
 # multiply-high), each row its own rr pair
 ROW_SHAPES = ((40, 1, 7, 4), (9, 1, 2, 3), (7, 1000, 5, 4), (3, 4099, 31, 2))
 NETSTEP_PROFILED_CALLS = 50
+# cycles of the fused cycle kernels held against their plain versions
+# one by one from a loaded network, and the plain versions' timing
+CYCLE_CHECKS = 8
+PLAIN_CYCLE_SAMPLES = 5
+PLAIN_CYCLE_REPS = 4
 
 # The LM serving path (qwen3-1.7b and gemma3-1b: flash attention,
 # mamba2-1.3b: SSD scan).  Peak rates of the H100 SXM data sheet by input
@@ -2852,6 +2865,127 @@ def wrapper_device_ms(torch, fn, calls: int = 5, sessions: int = 3):
             break
     total = sum(per_kernel.values())
     return (total if total > 0 else None), per_kernel
+
+
+def cycle_bytes(a: dict) -> tuple:
+    """(cycle_route bytes, cycle_move bytes): a lower bound on what each
+    fused cycle kernel reads and writes in one launch at the shapes of
+    the kernels' arguments `a`, whatever the traffic.  cycle_route reads
+    every VC's head, count, head flit and route entry and writes its
+    op_slot and eligible (19 B a VC); reads and writes every out-port
+    VC's credit and reads its credit-pipe slot (12 B); reads each port's
+    two channel ids (8 B), each channel's link slot (12 B), each node's
+    injection bits (16 B) and weight a row (4 B), and rr (12 B a row).
+    cycle_move reads the allocation (win 1 B a VC, vc and req 8 B a
+    port) and rr (8 B a row); what the winners move depends on the
+    traffic and is left out."""
+    B, N, PI, V, _ = a["buf_dst"].shape
+    C = a["link_dst"].shape[1]
+    P = PI - 1
+    route = (19 * B * N * PI * V + 12 * B * N * P * V + 8 * B * N * P
+             + 12 * B * C + 16 * N + 4 * B * N + 12 * B)
+    move = B * N * PI * V + 8 * B * N * PI + 8 * B
+    return route, move
+
+
+def cycle_kernels_phase(torch, group, group_rates, launches) -> list:
+    """`cycle_kernels`; returns the `kernels` entries of cycle_route and
+    cycle_move (`launches`: the main path's)."""
+    import numpy as np
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels.cycle import ops as cops
+    from repro_torch.kernels.cycle.ref import cycle_move_ref, cycle_route_ref
+    from repro_torch.kernels.netstep.ops import netstep
+    t0 = time.perf_counter()
+    cfg = sim.SimConfig()
+    # the fused run, keeping its kernels' arguments: they end at cycle
+    # cfg.cycles with the network loaded at each row's rate
+    held, route = {}, sim.cycle_route
+
+    def keep(a, measuring):
+        held.setdefault("a", a)
+        route(a, measuring)
+    sim.cycle_route = keep
+    try:
+        fused = sim.run_batch(group, group_rates, cfg)
+    finally:
+        sim.cycle_route = route
+    check("a" in held, "the main path's widest group missed the fused body")
+    on_torch = sim.run_batch(group, group_rates, cfg._replace(alloc="torch"))
+    keys = 0
+    for i, (f, b) in enumerate(zip(fused, on_torch)):
+        check(f.keys() == b.keys(), f"spec {i}: result keys differ")
+        for key in f:
+            x, y = np.asarray(f[key]), np.asarray(b[key])
+            check(np.array_equal(x, y, equal_nan=x.dtype.kind == "f"),
+                  f"spec {i} {key}: fused {x.tolist()} torch body "
+                  f"{y.tolist()}")
+            keys += 1
+
+    # each kernel against its plain version, cycle by cycle, from the
+    # fused run's last state
+    def clone(a):
+        return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in a.items()}
+
+    def same(x, y, what):
+        for k in cops.ARGS:
+            if k != "ticket" and isinstance(x.get(k), torch.Tensor):
+                check(torch.equal(x[k], y[k]),
+                      f"{what} at cycle {int(y['t'][0])}: {k} differs")
+
+    a = held["a"]
+    ka, ra = clone(a), clone(a)
+    for _ in range(CYCLE_CHECKS):
+        cops.cycle_route(ka, True)
+        cycle_route_ref(ra, True)
+        torch.cuda.synchronize()
+        same(ka, ra, "cycle_route")
+        win, vc, req = netstep(ka["op_slot"], ka["eligible"], ka["rr_vc"],
+                               ka["rr_port"])
+        cops.cycle_move(ka, win, vc, req, True)
+        cycle_move_ref(ra, win, vc, req, True)
+        torch.cuda.synchronize()
+        same(ka, ra, "cycle_move")
+
+    def one_cycle(x=ka):
+        cops.cycle_route(x, True)
+        cops.cycle_move(x, *netstep(x["op_slot"], x["eligible"],
+                                    x["rr_vc"], x["rr_port"]), True)
+
+    cycle_ms = time_ms(torch, one_cycle, TIMING_SAMPLES, LAUNCHES_PER_SAMPLE)
+    per_kernel = wrapper_device_ms(torch, one_cycle,
+                                   calls=NETSTEP_PROFILED_CALLS)[1]
+    pa = clone(a)
+    route_plain_ms = time_ms(torch, lambda: cycle_route_ref(pa, True),
+                             PLAIN_CYCLE_SAMPLES, PLAIN_CYCLE_REPS)
+    win, vc, req = netstep(pa["op_slot"], pa["eligible"], pa["rr_vc"],
+                           pa["rr_port"])
+
+    # every call pops this allocation's winners again: the counts drift,
+    # every index the plain version forms stays in range
+    move_plain_ms = time_ms(torch, lambda: cycle_move_ref(
+        pa, win, vc, req, True), PLAIN_CYCLE_SAMPLES, PLAIN_CYCLE_REPS)
+    n_bytes = dict(zip(("cycle_route", "cycle_move"), cycle_bytes(a)))
+    plain_ms = dict(cycle_route=route_plain_ms, cycle_move=move_plain_ms)
+    rows = []
+    for name in ("cycle_route", "cycle_move"):
+        dev_ms = sum(v for k, v in per_kernel.items() if name in k) or None
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/cycle/csrc/cycle.cu",
+            replaces="src/repro/core/simulator.py:585",
+            launches=launches[name], max_abs_err=0, ms=dev_ms,
+            plain_ms=plain_ms[name],
+            bound_ms=1e3 * n_bytes[name] / PEAK_BYTES_PER_S,
+            bound_by="bytes", bytes=n_bytes[name], library_ms=None))
+    emit("cycle_kernels", shape=list(a["op_slot"].shape), cycles=cfg.cycles,
+         fused_equals_torch_body=True, keys_compared=keys,
+         kernel_equals_plain_cycles=CYCLE_CHECKS,
+         cycle_events_ms=cycle_ms,
+         device_ms=per_kernel,
+         kernels=rows, seconds=round(time.perf_counter() - t0, 3))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -5366,9 +5500,11 @@ def main() -> int:
         from repro_torch.core.routing import build_routing
         from repro_torch.kernels import ablate
         from repro_torch.kernels.build import build_all, nvcc
+        from repro_torch.kernels.cycle import ops as cops
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.kernels.netstep import ops as nops
         from repro_torch.kernels.netstep.ops import netstep
+        from repro_torch.obs.metrics import metrics
         from repro_torch.kernels.netstep.ref import netstep_ref
         from repro_torch.kernels.ssd_scan import ops as sops
         from repro_torch.launch import serve
@@ -5395,15 +5531,15 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = (nops.LIB, *fops.LIBS.values(), *sops.LIBS.values())
     floor_lib = ablate.variant_libs("netstep")["empty"]
-    paths = build_all(libs + (floor_lib,))
-    for lib in libs:
+    paths = build_all(libs + (floor_lib, cops.LIB))
+    for lib in libs + (cops.LIB,):
         lib.launcher()
     build_s = time.perf_counter() - t0
     netstep_ptxas = ptxas_lines(paths[0])
     spills = spill_bytes(netstep_ptxas)
     emit("build", seconds=round(build_s, 3),
          library=str(paths[0].relative_to(ROOT)), ptxas=netstep_ptxas,
-         spill_bytes=sum(spills))
+         spill_bytes=sum(spills), cycle_ptxas=ptxas_lines(paths[-1]))
     check(spills and not any(spills),
           f"netstep: ptxas reports spills or nothing: {netstep_ptxas}")
     # the hd 256 instantiations of both flash routes (template argument
@@ -5552,14 +5688,23 @@ def main() -> int:
     engine = SweepEngine(cfg=cfg)
     torch.cuda.synchronize()
     netstep.launches = 0
+    cops.cycle_route.launches = cops.cycle_move.launches = 0
+    fused_before = metrics.get("sim.fused_cycles")
     t1 = time.perf_counter()
     results = engine.run_specs(specs, rates)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t1
     main_launches = netstep.launches
     groups = engine.stats["groups"]
+    cycle_launches = dict(
+        cycle_route=cops.cycle_route.launches,
+        cycle_move=cops.cycle_move.launches,
+        fused_cycles=metrics.get("sim.fused_cycles") - fused_before)
     check(main_launches == cfg.cycles * groups,
           f"main path launched netstep {main_launches} times for "
+          f"{cfg.cycles} cycles x {groups} groups")
+    check(all(n == cfg.cycles * groups for n in cycle_launches.values()),
+          f"main path ran the fused cycle kernels {cycle_launches} for "
           f"{cfg.cycles} cycles x {groups} groups")
     rows = {}
     for topo, spec, res in zip(topos, specs, results):
@@ -5579,6 +5724,7 @@ def main() -> int:
             spec=dict(n=spec.n, p=spec.p, c=spec.c, d=spec.d))
     emit("main_path", topologies=rows, groups=groups,
          netstep_launches=main_launches, cycles=cfg.cycles,
+         cycle_launches=cycle_launches,
          counters_equal_reference=True, setup_seconds=round(setup_s, 3),
          wall_seconds=wall_s, seconds_per_run=wall_s / len(specs),
          ms_per_simulated_cycle=1e3 * wall_s / (cfg.cycles * groups))
@@ -5639,6 +5785,8 @@ def main() -> int:
          device_launches_per_cycle=static_profile[
              "device_launches_per_cycle"],
          top_device_us_per_cycle=static_profile.pop("top_device_us"))
+    cycle_rows = cycle_kernels_phase(torch, group, group_rates,
+                                     cycle_launches)
 
     workload_phase(torch, dev, netstep)
     exp_launches = experiments_phase(torch, dev, smi, netstep,
@@ -5678,7 +5826,8 @@ def main() -> int:
         events_ms=main_row["events_ms"],
         empty_kernel_floor_ms=main_row["empty_kernel_floor_ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
-        bound_by=main_row["bound_by"], library_ms=None)] + lm_rows}),
+        bound_by=main_row["bound_by"], library_ms=None)] + cycle_rows
+        + lm_rows}),
         flush=True)
     emit("done", seconds=round(time.perf_counter() - t_all, 3))
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,16 @@ body runs eagerly every cycle.  The loop makes no host
 synchronisation: no `.item()`, no branch on a tensor — only on the
 host's copy of the cycle counter.
 
+Two bodies compute a cycle, bit for bit alike.  Static and workload runs
+on the card with the `netstep` kernel (`_fused`) run the fused one: two
+hand-written kernels (`kernels.cycle`: §1-§4 deliveries, credit
+returns, injection and route lookup; §5 pops, credits, ejections,
+traversals and the counters) around `netstep`, three launches a cycle
+on int32 state.  Every other run keeps the PyTorch body of about 170
+stock ops: the CPU, `alloc="torch"`, adaptive routing, the flight
+recorder and op traces; it is also the fused body's oracle in the card
+tests.
+
 Padding invariance rests on the reference's three ingredients, kept
 as they are: a counter-based hash of (seed, cycle, node, stream) for
 injection randomness; scatters that are unique, pure integer adds
@@ -63,6 +73,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.cycle.ops import cycle_move, cycle_route
 from ..kernels.netstep.ops import netstep
 from ..kernels.netstep.ref import netstep_ref
 from ..obs.metrics import metrics
@@ -489,27 +500,101 @@ def _graphed(device, probe: dict | None) -> bool:
         not (probe is not None and "cycle" in probe)
 
 
+def _fused(device, cfg: SimConfig, probe: dict | None) -> bool:
+    """Whether each cycle runs as the fused kernels (`kernels.cycle`)
+    around the `netstep` kernel: on a CUDA device with the kernel
+    allocator, static routing, no flight recorder and no op trace.  Every
+    other run keeps the PyTorch body: the CPU, `alloc="torch"`, adaptive
+    routing, the recorder and `trace_batch`."""
+    return torch.device(device).type == "cuda" and \
+        resolve_alloc(cfg.alloc, device) == "cuda" and \
+        cfg.routing == "static" and not cfg.telemetry and \
+        not (probe is not None and "cycle" in probe)
+
+
+#: the fused kernels' state carried across cycles (`_fused_args`' keys)
+_FUSED_STATE = ("buf_dst", "buf_t", "head", "cnt", "credits", "link_dst",
+                "link_t", "link_vc", "credit_pipe", "rr", "delivered",
+                "offered", "accepted", "lat_node")
+#: the tensors `_simulate_rows` keeps for both bodies (named as the fused
+#: kernels' arguments): the cycle, the chunk's injection bits, the
+#: rotating priority and the counters; workload runs add _PHASE_COUNTERS
+_SHARED = ("t", "u_inj", "u_dst", "vcs", "rr", "delivered", "offered",
+           "accepted", "lat_node")
+_PHASE_COUNTERS = ("delivered_ph", "offered_ph", "accepted_ph", "lat_ph")
+
+
+def _fused_args(lv: dict, srow, rate, sched: dict | None, n: int, p: int,
+                c: int, d: int, cfg: SimConfig) -> dict:
+    """The arguments of the fused kernels (`kernels.cycle.ops.ARGS`) but
+    the ones the loop keeps for both bodies (`_SHARED`, and in workload
+    runs `_PHASE_COUNTERS`): per-row spec leaves, the injection tables and
+    the state, int32 (every value fits: cycles, node ids, counts <= Bd)
+    and without the body's sacrificial slots and channel row."""
+    B, dev = srow.shape[0], srow.device
+    V, Bd, PI = cfg.n_vcs, cfg.buf_depth, p + 1
+    i32 = torch.int32
+    depth = lv["ch_depth"][srow].long()                      # [B, C]
+
+    def zeros(*shape, dtype=i32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def delay(ch):
+        """The pipeline depth of each (row, node, port)'s channel."""
+        return depth.gather(1, ch.long().clamp(min=0).view(B, -1)).view(
+            ch.shape).to(i32)
+
+    up_ch, out_ch = lv["in_ch"][srow], lv["out_ch"][srow]    # [B, N, P]
+    a = dict(up_ch=up_ch, up_delay=delay(up_ch), out_ch=out_ch,
+             out_delay=delay(out_ch), table=lv["table"], srow=srow.to(i32),
+             pi=lv["pi"][srow], rate=rate, inj_w=lv["inj_weight"],
+             cum=lv["traffic_cum"], rate_t=None, kidx_row=None, bk=None,
+             buf_dst=zeros(B, n, PI, V, Bd), buf_t=zeros(B, n, PI, V, Bd),
+             head=zeros(B, n, PI, V), cnt=zeros(B, n, PI, V),
+             credits=torch.full((B, n, p, V), Bd, dtype=i32, device=dev),
+             link_dst=torch.full((B, c, d), -1, dtype=i32, device=dev),
+             link_t=zeros(B, c, d), link_vc=zeros(B, c, d),
+             credit_pipe=zeros(B, c, d, V), op_slot=zeros(B, n, PI, V),
+             eligible=zeros(B, n, PI, V, dtype=torch.bool),
+             rr_vc=zeros(B), rr_port=zeros(B), delivered_ph=None,
+             offered_ph=None, accepted_ph=None, lat_ph=None,
+             ticket=zeros(1))
+    if sched is not None:
+        a.update(inj_w=sched["inj_w"], cum=sched["cum"],
+                 **{k: sched[j].contiguous() for k, j in (
+                     ("rate_t", "rate"), ("kidx_row", "kidx_row"),
+                     ("bk", "bk"))})
+    return a
+
+
+#: the kernel wrappers that count their launches (`launches`, and
+#: `captured` for a call made while a graph is captured)
+_COUNTED = (netstep, cycle_route, cycle_move)
+
+
 class _CycleGraphs:
     """The CUDA graphs of one run's cycle loop, one per cycle body (keyed
     by `measuring`: warm-up or measured), sharing one memory pool.
 
     A capture records the body's launches without running them, so the
-    simulation advances only by eager cycles and by replays.  A replay
-    adds the `netstep` launches its graph holds to `netstep.launches`;
-    `release` frees the graphs and their pool."""
+    simulation advances only by eager cycles and by replays.  `release`
+    adds the launches the replays made of each counted kernel wrapper
+    (`_COUNTED`) to that wrapper's `launches`, once a run rather than
+    once a replay (the host's replay of a cycle is the loop's time in the
+    cells that wait on it), then frees the graphs and their pool."""
 
     def __init__(self, dev):
         self.dev = dev
         self.stream = torch.cuda.Stream(device=dev)
         self.graphs: dict = {}
         self.launches: dict = {}
-        self.replays = 0
+        self.replays: dict = {}
 
     def capture(self, key: bool, body) -> None:
         g = torch.cuda.CUDAGraph()
         pool = next(iter(self.graphs.values())).pool() if self.graphs \
             else None
-        held = netstep.captured
+        held = [f.captured for f in _COUNTED]
         cur = torch.cuda.current_stream(self.dev)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
@@ -520,77 +605,81 @@ class _CycleGraphs:
                 g.capture_end()
         cur.wait_stream(self.stream)
         self.graphs[key] = g
-        self.launches[key] = netstep.captured - held
+        self.launches[key] = [f.captured - h for f, h in zip(_COUNTED, held)]
+        self.replays[key] = 0
 
     def replay(self, key: bool) -> None:
         self.graphs[key].replay()
-        netstep.launches += self.launches[key]
-        self.replays += 1
+        self.replays[key] += 1
 
     def release(self) -> None:
         if self.graphs:
             metrics.inc("sim.graph_captures", len(self.graphs))
-            metrics.inc("sim.graph_replays", self.replays)
+            metrics.inc("sim.graph_replays", sum(self.replays.values()))
+        for key, n in self.replays.items():
+            for f, k in zip(_COUNTED, self.launches[key]):
+                f.launches += n * k
+        self.replays.clear()
         for g in self.graphs.values():
             g.reset()
         self.graphs.clear()
 
 
-def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
-                   n: int, p: int, c: int, d: int, cfg: SimConfig,
-                   alloc_fn, sched: dict | None = None,
-                   probe: dict | None = None):
-    """Simulate B = len(srow) rows for cfg.cycles cycles.
+def _fused_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
+                n: int, p: int, c: int, d: int, cfg: SimConfig, alloc_fn):
+    """The fused body of `_simulate_rows`: `cycle_route`, `alloc_fn` and
+    `cycle_move` on int32 state of their own (`_fused_args`) and the
+    loop's `shared` tensors.  Returns (cycle, state, recorder) as
+    `_torch_body` does; it keeps no recorder."""
+    fa = _fused_args(lv, srow, rate, sched, n, p, c, d, cfg)
+    fa.update(shared)
+    state = [fa[k] for k in _FUSED_STATE]
+    if sched is not None:
+        state += [fa[k] for k in _PHASE_COUNTERS]
 
-    lv: the BatchSpec leaves as device tensors ([S, ...]); srow [B] the
-    spec of each row; rate [B] float32.  Returns the raw counters
-    (delivered, offered, accepted [B], lat_node [B, N]) as int32
-    device tensors.
+    def cycle(measuring: bool, lap: _Laps | None = None) -> None:
+        """Simulate cycle `t` and advance `t` in three launches:
+        §1-§4, the allocator, §5.  `lap` stamps the first two under
+        `route` and `alloc` and the last under `winners`."""
+        cycle_route(fa, measuring)
+        if lap:
+            lap(4)
+        win_mask, vc_choice, out_req = alloc_fn(
+            fa["op_slot"], fa["eligible"], fa["rr_vc"], fa["rr_port"])
+        if lap:
+            lap(5)
+            lap.calls += 1
+        cycle_move(fa, win_mask, vc_choice, out_req, measuring)
+        if lap:
+            lap(6)
 
-    sched (workload mode): the SchedBatch leaves `cum` [S*K, N, N] and
-    `inj_w` [S*K, N] flattened over (spec, phase), the `_phase_tables`
-    as device tensors and `k`.  Injection then reads the row's phase at
-    cycle t from the tables, and four per-phase counters follow the
-    totals: delivered_ph, offered_ph, accepted_ph [B, K] and lat_ph
-    [B, K, N], int32.
+    return cycle, state, lambda: ()
 
-    cfg.routing="adaptive" routes through `_route_lookup_adaptive` (the
-    `prod` leaf) and moves each traversing flit to the downstream VC it
-    chose.  cfg.telemetry=True appends the flight recorder's counters,
-    int32: busy and stall [B, C+1], occupancy sums [B, C+1, V],
-    injections and ejections [B, N] and the latency histogram [B,
-    LAT_HIST_BINS]; with cfg.telemetry_windows=W also the first five
-    binned by window, [B, W, ...].  Row C and pad lanes are sacrificial:
-    `run_batch` slices them away.
 
-    probe (a profile capture or an op trace): receives `state_bytes`,
-    the bytes of the state carried across cycles.  An op trace's probe
-    holds `cycle`, which the loop keeps at the cycle it is in (None
-    before and after the loop).
-
-    One body, `cycle`, simulates a cycle.  It reads the cycle from the
-    device counter `t` and updates every piece of state in place, so on
-    a CUDA device (`_graphed`) each body (warm-up, measured) runs one
-    eager cycle, which loads whatever its ops need, and is then captured
-    as a CUDA graph that every later cycle of that body replays.  On the
-    CPU and under an op trace every cycle runs the body eagerly.
-
-    Each chunk of _BITS_CHUNK cycles is one `sim.cycles` span (`obs.
-    trace`) with the attributes `t0`, `cycles`, `measured` (cycles past
-    the warm-up), `mode` ("static" or "workload"), `adaptive`,
-    `recorder`, and, with tracing on, `graphed` (the chunk's cycles
-    replayed from a graph).  A chunk with no replayed cycle also carries
-    `alloc_calls` and the host nanoseconds of each of PHASES as
-    `<phase>_ns`; one with replayed cycles carries `replay_ns`, the host
-    nanoseconds of its graph launches.  Tracing reads the host's clock
-    only; it never waits for the device.
-    """
+def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
+                n: int, p: int, c: int, d: int, cfg: SimConfig, alloc_fn):
+    """The PyTorch body of `_simulate_rows`: about 170 stock ops a cycle
+    on int64 state of its own, with sacrificial slots and a sacrificial
+    channel row, around `alloc_fn`.  `shared` holds the tensors the loop
+    keeps for both bodies (`_simulate_rows`).  Returns (cycle, state,
+    recorder): `cycle(measuring, lap)` simulates cycle `t` and advances
+    it, `state` lists the tensors carried across cycles, and
+    `recorder()` gives the flight recorder's outputs after the loop (none
+    without `cfg.telemetry`)."""
     N, P, C, D = n, p, c, d
     V, Bd = cfg.n_vcs, cfg.buf_depth
     PI = P + 1
     B = srow.shape[0]
     dev = srow.device
     i64, i32 = torch.int64, torch.int32
+    t, u_inj_c, u_dst_c, vcs_c, rr, delivered, offered, accepted, \
+        lat_node = (shared[k] for k in _SHARED)
+    if sched is not None:
+        s_cum, s_inj = sched["cum"], sched["inj_w"]
+        rate_t, kidx_spec, kidx_row, bk = (
+            sched[k] for k in ("rate", "kidx_spec", "kidx_row", "bk"))
+        delivered_ph, offered_ph, accepted_ph, lat_ph = (
+            shared[k] for k in _PHASE_COUNTERS)
 
     # ---- per-row spec leaves (gathered once) ---------------------------
     ch_dst = lv["ch_dst"][srow].long()                   # [B, C]
@@ -648,27 +737,6 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     credit_pipe = torch.zeros((B, C + 1, D, V), dtype=i64, device=dev)
     cnt_flat, credits_flat = cnt.view(-1), credits.view(-1)
     credit_pipe_flat = credit_pipe.view(-1)
-    rr = torch.zeros((B,), dtype=i32, device=dev)
-    delivered = torch.zeros((B,), dtype=i32, device=dev)
-    offered = torch.zeros((B,), dtype=i32, device=dev)
-    accepted = torch.zeros((B,), dtype=i32, device=dev)
-    lat_node = torch.zeros((B, N), dtype=i32, device=dev)
-    # the cycle, on the device; the chunk's injection randomness, [cycle
-    # % _BITS_CHUNK, node], written at each chunk's start
-    t = torch.zeros((1,), dtype=i64, device=dev)
-    nb = min(_BITS_CHUNK, cfg.cycles)
-    u_inj_c = torch.empty((nb, N), dtype=torch.float32, device=dev)
-    u_dst_c = torch.empty((nb, N), dtype=torch.float32, device=dev)
-    vcs_c = torch.empty((nb, N), dtype=i64, device=dev)
-    if sched is not None:
-        K = sched["k"]
-        s_cum, s_inj = sched["cum"], sched["inj_w"]
-        rate_t, kidx_spec, kidx_row, bk = (
-            sched[k] for k in ("rate", "kidx_spec", "kidx_row", "bk"))
-        delivered_ph = torch.zeros((B * K,), dtype=i32, device=dev)
-        offered_ph = torch.zeros((B * K,), dtype=i32, device=dev)
-        accepted_ph = torch.zeros((B * K,), dtype=i32, device=dev)
-        lat_ph = torch.zeros((B * K, N), dtype=i32, device=dev)
     W = cfg.telemetry_windows
     if cfg.telemetry:
         # the recorder's counters with a leading window axis (one window
@@ -688,17 +756,14 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         ch_base = b3 * (C + 1)
         hist_base = b3 * LAT_HIST_BINS
         w_first = torch.zeros((1,), dtype=i64, device=dev)
-    if probe is not None:
-        state = [buf_dst, buf_t, head, cnt, credits, link_dst, link_t,
-                 link_vc, credit_pipe, rr, delivered, offered, accepted,
-                 lat_node]
-        if sched is not None:
-            state += [delivered_ph, offered_ph, accepted_ph, lat_ph]
-        if cfg.telemetry:
-            state += [tel_busy, tel_stall, tel_occ, tel_inj, tel_eject,
-                      tel_hist]
-        probe["state_bytes"] = sum(x.numel() * x.element_size()
-                                   for x in state)
+    state = [buf_dst, buf_t, head, cnt, credits, link_dst, link_t,
+             link_vc, credit_pipe, rr, delivered, offered, accepted,
+             lat_node]
+    if sched is not None:
+        state += [delivered_ph, offered_ph, accepted_ph, lat_ph]
+    if cfg.telemetry:
+        state += [tel_busy, tel_stall, tel_occ, tel_inj, tel_eject,
+                  tel_hist]
 
     def cycle(measuring: bool, lap: _Laps | None = None) -> None:
         """Simulate cycle `t` and advance `t`.  `measuring` (past the
@@ -872,6 +937,116 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                 lap(7)
         t.add_(1)
 
+    def recorder() -> tuple:
+        """The recorder's outputs: the window sums of its counters and
+        the latency histogram, then, with W windows, the counters by
+        window."""
+        if not cfg.telemetry:
+            return ()
+        wins = (tel_busy, tel_stall, tel_occ, tel_inj, tel_eject)
+        out = tuple(x.sum(0, dtype=i32) for x in wins) + (tel_hist,)
+        if W:
+            out += tuple(x.transpose(0, 1) for x in wins)
+        return out
+
+    return cycle, state, recorder
+
+def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
+                   n: int, p: int, c: int, d: int, cfg: SimConfig,
+                   alloc_fn, sched: dict | None = None,
+                   probe: dict | None = None):
+    """Simulate B = len(srow) rows for cfg.cycles cycles.
+
+    lv: the BatchSpec leaves as device tensors ([S, ...]); srow [B] the
+    spec of each row; rate [B] float32.  Returns the raw counters
+    (delivered, offered, accepted [B], lat_node [B, N]) as int32
+    device tensors.
+
+    sched (workload mode): the SchedBatch leaves `cum` [S*K, N, N] and
+    `inj_w` [S*K, N] flattened over (spec, phase), the `_phase_tables`
+    as device tensors and `k`.  Injection then reads the row's phase at
+    cycle t from the tables, and four per-phase counters follow the
+    totals: delivered_ph, offered_ph, accepted_ph [B, K] and lat_ph
+    [B, K, N], int32.
+
+    cfg.routing="adaptive" routes through `_route_lookup_adaptive` (the
+    `prod` leaf) and moves each traversing flit to the downstream VC it
+    chose.  cfg.telemetry=True appends the flight recorder's counters,
+    int32: busy and stall [B, C+1], occupancy sums [B, C+1, V],
+    injections and ejections [B, N] and the latency histogram [B,
+    LAT_HIST_BINS]; with cfg.telemetry_windows=W also the first five
+    binned by window, [B, W, ...].  Row C and pad lanes are sacrificial:
+    `run_batch` slices them away.
+
+    probe (a profile capture or an op trace): receives `state_bytes`,
+    the bytes of the state carried across cycles.  An op trace's probe
+    holds `cycle`, which the loop keeps at the cycle it is in (None
+    before and after the loop).
+
+    One body, `cycle`, simulates a cycle.  It reads the cycle from the
+    device counter `t` and updates every piece of state in place, so on
+    a CUDA device (`_graphed`) each body (warm-up, measured) runs one
+    eager cycle, which loads whatever its ops need, and is then captured
+    as a CUDA graph that every later cycle of that body replays.  On the
+    CPU and under an op trace every cycle runs the body eagerly.  Where
+    `_fused` holds (a CUDA device, the `netstep` kernel, static routing,
+    no recorder, no op trace: static and workload runs on the card) the
+    body is the fused kernels `cycle_route`, `alloc_fn` and `cycle_move`
+    on int32 state of their own (`_fused_body`); every other run, the
+    CPU's included, keeps the PyTorch body (`_torch_body`).
+
+    Each chunk of _BITS_CHUNK cycles is one `sim.cycles` span (`obs.
+    trace`) with the attributes `t0`, `cycles`, `measured` (cycles past
+    the warm-up), `mode` ("static" or "workload"), `adaptive`,
+    `recorder`, and, with tracing on, `graphed` (the chunk's cycles
+    replayed from a graph) and `fused` (its cycles simulated by the
+    fused kernels).  `obs.metrics`' `sim.fused_cycles` counts a fused
+    run's cycles at its end.  A chunk with no replayed cycle also carries
+    `alloc_calls` and the host nanoseconds of each of PHASES as
+    `<phase>_ns`; one with replayed cycles carries `replay_ns`, the host
+    nanoseconds of its graph launches.  Tracing reads the host's clock
+    only; it never waits for the device.
+    """
+
+    N = n
+    V = cfg.n_vcs
+    B = srow.shape[0]
+    dev = srow.device
+    i64, i32 = torch.int64, torch.int32
+
+    # ---- what both bodies keep: the cycle, its injection bits, the
+    # rotating priority and the counters --------------------------------
+    # the cycle, on the device; the chunk's injection randomness, [cycle
+    # % _BITS_CHUNK, node], written at each chunk's start
+    t = torch.zeros((1,), dtype=i64, device=dev)
+    nb = min(_BITS_CHUNK, cfg.cycles)
+    u_inj_c = torch.empty((nb, N), dtype=torch.float32, device=dev)
+    u_dst_c = torch.empty((nb, N), dtype=torch.float32, device=dev)
+    vcs_c = torch.empty((nb, N), dtype=i64, device=dev)
+    rr = torch.zeros((B,), dtype=i32, device=dev)
+    delivered = torch.zeros((B,), dtype=i32, device=dev)
+    offered = torch.zeros((B,), dtype=i32, device=dev)
+    accepted = torch.zeros((B,), dtype=i32, device=dev)
+    lat_node = torch.zeros((B, N), dtype=i32, device=dev)
+    shared = dict(zip(_SHARED, (t, u_inj_c, u_dst_c, vcs_c, rr, delivered,
+                                offered, accepted, lat_node)))
+    shared.update(dict.fromkeys(_PHASE_COUNTERS))
+    if sched is not None:
+        K = sched["k"]
+        shared.update(zip(_PHASE_COUNTERS, (
+            torch.zeros((B * K,), dtype=i32, device=dev),
+            torch.zeros((B * K,), dtype=i32, device=dev),
+            torch.zeros((B * K,), dtype=i32, device=dev),
+            torch.zeros((B * K, N), dtype=i32, device=dev))))
+    node_r = torch.arange(N, device=dev)
+    adaptive = cfg.routing == "adaptive"
+    fused = _fused(dev, cfg, probe)
+    cycle, state, recorder = (_fused_body if fused else _torch_body)(
+        lv, srow, rate, sched, shared, n, p, c, d, cfg, alloc_fn)
+    if probe is not None:
+        probe["state_bytes"] = sum(x.numel() * x.element_size()
+                                   for x in state)
+
     # One `sim.cycles` span per chunk of _BITS_CHUNK cycles, where the
     # injection bits are drawn.  With tracing on, the eager cycles' phase
     # times are summed where each phase ends (`_Laps`) and the replays'
@@ -880,6 +1055,7 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     mode = "static" if sched is None else "workload"
     op_trace = probe is not None and "cycle" in probe
     graphs = _CycleGraphs(dev) if _graphed(dev, probe) else None
+    ran = 0
     try:
         for c0 in range(0, cfg.cycles, _BITS_CHUNK):
             c1 = min(c0 + _BITS_CHUNK, cfg.cycles)
@@ -915,28 +1091,29 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                     if graphs is not None and tc + 1 < (
                             cfg.cycles if measuring else cfg.warmup):
                         graphs.capture(measuring, lambda: cycle(measuring))
+                if timed:
+                    chunk.set(fused=c1 - c0 if fused else 0)
                 if timed and replayed:
                     chunk.set(graphed=replayed, replay_ns=replay_ns)
                 elif timed:
                     chunk.set(graphed=0, alloc_calls=laps.calls,
                               **{f"{ph}_ns": v
                                  for ph, v in zip(PHASES, laps.ns)})
+            ran = c1
     finally:
         if graphs is not None:
             graphs.release()
+        if fused:
+            metrics.inc("sim.fused_cycles", ran)
 
     if op_trace:
         probe["cycle"] = None
     out = (delivered, offered, accepted, lat_node)
     if sched is not None:
-        out += (delivered_ph.view(B, K), offered_ph.view(B, K),
-                accepted_ph.view(B, K), lat_ph.view(B, K, N))
-    if cfg.telemetry:
-        wins = (tel_busy, tel_stall, tel_occ, tel_inj, tel_eject)
-        out += tuple(x.sum(0, dtype=i32) for x in wins) + (tel_hist,)
-        if W:
-            out += tuple(x.transpose(0, 1) for x in wins)
-    return out
+        d_ph, o_ph, a_ph, l_ph = (shared[k] for k in _PHASE_COUNTERS)
+        out += (d_ph.view(B, K), o_ph.view(B, K), a_ph.view(B, K),
+                l_ph.view(B, K, N))
+    return out + recorder()
 
 
 def _pad_fill(specs, shape, schedules, kmax) -> list[dict]:

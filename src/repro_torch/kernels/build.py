@@ -44,15 +44,15 @@ class CudaLibrary:
     """One kernel source, its library and its C entry point.
 
     `entry` is the name of the `extern "C"` launcher and `argtypes` its
-    ctypes signature; every launcher returns `cudaGetLastError()` as an
-    int."""
+    ctypes signature (`symbol` loads any other entry point of the same
+    library); every launcher returns `cudaGetLastError()` as an int."""
 
     def __init__(self, source: Path, stem: str, entry: str, argtypes):
         self.source = Path(source)
         self.stem = stem
         self.entry = entry
         self.argtypes = list(argtypes)
-        self._fn = None
+        self._symbols = {}
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
@@ -62,12 +62,17 @@ class CudaLibrary:
     def launcher(self):
         """The loaded C entry point, with its signature declared; the
         kernel is compiled first unless its library exists."""
-        if self._fn is None:
-            fn = getattr(ctypes.CDLL(str(build_all([self])[0])), self.entry)
-            fn.argtypes = self.argtypes
+        return self.symbol(self.entry, self.argtypes)
+
+    def symbol(self, entry: str, argtypes):
+        """The library's C entry point `entry` (the launcher's or another),
+        loaded once with an int return and `argtypes` declared."""
+        if entry not in self._symbols:
+            fn = getattr(ctypes.CDLL(str(build_all([self])[0])), entry)
+            fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._symbols[entry] = fn
+        return self._symbols[entry]
 
 
 def build_all(libs) -> list:

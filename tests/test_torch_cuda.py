@@ -340,6 +340,160 @@ def test_graphed_runs_leave_memory_where_it_started(cuda):
     assert torch.cuda.memory_reserved() <= reserved
 
 
+#: batches of the fused-kernel tests: HETERO (N 36, P 8: PI 9, three
+#: routers a warp, 12 a row) and one whose rows straddle warps (N 25, P
+#: 4: PI 5, six routers a warp), both with heterogeneous N and P
+FUSED_BATCHES = {
+    "hetero": HETERO,
+    "straddle": [("mesh", 25), ("honeycomb_mesh", 16), ("hexamesh", 19)],
+}
+
+
+def _fused_batch(batch, mode, v):
+    """(specs, rates, cfg, schedules) of a fused-kernel test: 300 cycles
+    with a warm-up of 100, so both bodies cross a chunk edge."""
+    import repro_torch.workloads as W
+    specs, scheds = [], []
+    for name, n in FUSED_BATCHES[batch]:
+        r = build_routing(T.build(name, n))
+        specs.append(sim.make_spec(r, TR.uniform(r.topo)))
+        scheds.append(W.hotspot_drift(r.topo, n_phases=3,
+                                      dwell=70).compile())
+    cfg = sim.SimConfig(cycles=300, warmup=100, n_vcs=v)
+    return (specs, np.array([0.05, 0.3, 0.6], np.float32), cfg,
+            scheds if mode == "workload" else None)
+
+
+@pytest.mark.parametrize("batch", list(FUSED_BATCHES))
+@pytest.mark.parametrize("mode,v", [
+    ("static", 1), ("static", 2), ("static", 3), ("static", 4),
+    ("static", 8), ("workload", 2), ("workload", 4), ("workload", 8)])
+def test_fused_kernels_equal_torch_body_and_cpu(cuda, batch, mode, v,
+                                                monkeypatch):
+    """The fused cycle kernels (graphed, the card's default for static and
+    workload runs) equal the PyTorch body on the card (the predicate
+    patched off) and the CPU run, every result key bit for bit; V = 3
+    takes the kernels' generic instantiation."""
+    from repro_torch.kernels.cycle.ops import cycle_move, cycle_route
+    from repro_torch.obs.metrics import metrics
+    specs, rates, cfg, scheds = _fused_batch(batch, mode, v)
+    assert sim._fused(cuda, cfg, None)
+    before = metrics.get("sim.fused_cycles")
+    launched = netstep.launches, cycle_route.launches, cycle_move.launches
+    fused = sim.run_batch(specs, rates, cfg, schedules=scheds, device=cuda)
+    assert metrics.get("sim.fused_cycles") - before == cfg.cycles
+    assert [n - b for n, b in zip((netstep.launches, cycle_route.launches,
+                                   cycle_move.launches), launched)] == \
+        [cfg.cycles] * 3
+    monkeypatch.setattr(sim, "_fused", lambda device, cfg, probe: False)
+    body = sim.run_batch(specs, rates, cfg, schedules=scheds, device=cuda)
+    assert metrics.get("sim.fused_cycles") - before == cfg.cycles
+    cpu = sim.run_batch(specs, rates, cfg, schedules=scheds, device="cpu")
+    _assert_same_results(fused, body)
+    _assert_same_results(fused, cpu)
+
+
+def test_fused_kernels_run_eagerly_too(cuda, monkeypatch):
+    """Without graphs (`_graphed` patched off) every cycle launches the
+    fused kernels from Python, and the results are the same."""
+    specs, rates, cfg, scheds = _fused_batch("straddle", "workload", 4)
+    graphed = sim.run_batch(specs, rates, cfg, schedules=scheds,
+                            device=cuda)
+    monkeypatch.setattr(sim, "_graphed", lambda device, probe: False)
+    eager = sim.run_batch(specs, rates, cfg, schedules=scheds, device=cuda)
+    _assert_same_results(graphed, eager)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 36, 256, 300])
+def test_fused_draw_equals_linear_count(cuda, n):
+    """The kernels' binary-search destination draw equals the linear count
+    `(cum < u).sum().clamp(0, N - 1)` of the PyTorch body on random
+    cumulative rows with pad columns (1.0) and pad rows, for draws on the
+    simulator's 24-bit grid, draws equal to an entry, 0 and the last
+    value below 1."""
+    from repro_torch.kernels.cycle.ops import cycle_draw
+    from repro_torch.kernels.cycle.ref import draw_ref
+    rng = np.random.default_rng(n)
+    rows = 4096
+    w = rng.exponential(size=(rows, n)) * (rng.uniform(size=(rows, n))
+                                           < 0.7)
+    cum = np.cumsum(w, axis=1)
+    cum = cum / np.maximum(cum[:, -1:], 1e-12)
+    cum[cum[:, -1] <= 0] = 1.0
+    live = rng.integers(1, n + 1, rows)
+    cum[np.arange(n)[None, :] >= live[:, None]] = 1.0     # pad columns
+    cum[rng.uniform(size=rows) < 0.05] = 1.0              # pad rows
+    cum = cum.astype(np.float32)
+    u = (rng.integers(0, 1 << 24, rows) * (1.0 / (1 << 24))).astype(
+        np.float32)
+    tie = rng.uniform(size=rows) < 0.25
+    u[tie] = cum[tie, rng.integers(0, n, rows)[tie]]
+    u[:64] = 0.0
+    u[64:128] = np.float32(1.0 - 2.0 ** -24)
+    cum_t, u_t = torch.from_numpy(cum), torch.from_numpy(u)
+    got = cycle_draw(cum_t.to(cuda), u_t.to(cuda))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), draw_ref(cum_t, u_t))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(routing="adaptive"),
+    dict(telemetry=True, telemetry_windows=3)],
+    ids=["static", "adaptive", "recorder"])
+def test_fused_cycles_counted_where_the_kernels_ran(cuda, kw):
+    """`sim.fused_cycles` and the `sim.cycles` spans' `fused` count the
+    cycles simulated through the fused kernels: all of a static run's,
+    none of an adaptive or recorder run's."""
+    import importlib
+    tr = importlib.import_module("repro_torch.obs.trace")
+    from repro_torch.obs.metrics import metrics
+    specs, rates, cfg, _ = _graph_batch("static")
+    cfg = cfg._replace(**kw)
+    want = cfg.cycles if not kw else 0
+    before = metrics.get("sim.fused_cycles")
+    tr.clear_trace()
+    tr.enable_tracing()
+    try:
+        sim.run_batch(specs, rates, cfg, device=cuda)
+    finally:
+        tr.disable_tracing()
+    chunks = [sp for sp in tr.get_spans() if sp.name == "sim.cycles"]
+    tr.clear_trace()
+    assert metrics.get("sim.fused_cycles") - before == want
+    assert sum(sp.args["fused"] for sp in chunks) == want
+
+
+@pytest.mark.parametrize("mode", ["static", "workload"])
+def test_profiler_sees_each_netstep_launch_once(cuda, mode):
+    """Under torch.profiler the card's kernels whose names hold
+    "netstep" number exactly `netstep.launches` of the run (the fused
+    kernels' names do not hold it), and each fused kernel runs once a
+    cycle."""
+    from torch.profiler import ProfilerActivity, profile
+    specs, rates, cfg, scheds = _fused_batch("straddle", mode, 4)
+    sim.run_batch(specs, rates, cfg, schedules=scheds, device=cuda)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        before = netstep.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sim.run_batch(specs, rates, cfg, schedules=scheds, device=cuda)
+            torch.cuda.synchronize()
+        made = netstep.launches - before
+        counts: dict = {}
+        for e in prof.profiler.kineto_results.events():
+            if str(e.device_type()).endswith("CUDA"):
+                counts[e.name()] = counts.get(e.name(), 0) + 1
+        seen = sum(c for k, c in counts.items() if "netstep" in k)
+        if seen:
+            break
+    assert made == cfg.cycles
+    assert seen == made
+    for kernel in ("cycle_route", "cycle_move"):
+        assert sum(c for k, c in counts.items() if kernel in k) == \
+            cfg.cycles, kernel
+
+
 @pytest.mark.parametrize("kw", [
     dict(), dict(routing="adaptive"),
     dict(telemetry=True, telemetry_windows=2),

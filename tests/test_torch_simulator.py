@@ -302,16 +302,17 @@ class _CpuGraphs(PS._CycleGraphs):
     """`_CycleGraphs` with `_OpGraph` in place of CUDA graphs."""
 
     def __init__(self, dev):
-        self.graphs, self.launches, self.replays = {}, {}, 0
+        self.graphs, self.launches, self.replays = {}, {}, {}
 
     def capture(self, key, body):
         self.graphs[key] = _OpGraph()
         self.graphs[key].capture(body)
-        self.launches[key] = 0
+        self.launches[key] = [0] * len(PS._COUNTED)
+        self.replays[key] = 0
 
     def replay(self, key):
         self.graphs[key].replay()
-        self.replays += 1
+        self.replays[key] += 1
 
 
 GRAPH_CFG = PS.SimConfig(cycles=300, warmup=100)
