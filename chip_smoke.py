@@ -3043,7 +3043,7 @@ def experiments_phase(torch, dev, smi, netstep, static_profile) -> int:
     from repro_torch import workloads as W
     from repro_torch.core import simulator as sim
     from repro_torch.core import topology as T
-    from repro_torch.sweep.engine import SweepEngine
+    from repro_torch.sweep.engine import S_ROUND, SweepEngine
     t0 = time.perf_counter()
     exp_cfg = sim.SimConfig(cycles=EXP_CYCLES, warmup=EXP_WARMUP)
     exp = X.Experiment(experiment_scenarios(X, W, F, T), cfg=exp_cfg,
@@ -3096,7 +3096,7 @@ def experiments_phase(torch, dev, smi, netstep, static_profile) -> int:
     widest = max((b for b in plan.buckets if b.key.kind == "workload"),
                  key=lambda b: (b.key.shape, b.key.k_pad))
     items = list(widest.items)
-    while len(items) % engine.s_round:
+    while len(items) % S_ROUND:
         items.append(items[-1])
 
     def group_run(cycles):
@@ -3214,7 +3214,7 @@ def adaptive_phase(torch, dev, smi, netstep, static_profile) -> int:
     from repro_torch import workloads as W
     from repro_torch.core import simulator as sim
     from repro_torch.obs import profile as P
-    from repro_torch.sweep.engine import SweepEngine
+    from repro_torch.sweep.engine import S_ROUND, SweepEngine
     check(REFERENCE_ADAPTIVE is not None, "REFERENCE_ADAPTIVE is missing")
     t0 = time.perf_counter()
     cfg = adaptive_cfg(sim.SimConfig)
@@ -3281,7 +3281,7 @@ def adaptive_phase(torch, dev, smi, netstep, static_profile) -> int:
     P.clear_profiles()
     for b in plan.buckets:
         items = list(b.items)
-        while len(items) % engine.s_round:
+        while len(items) % S_ROUND:
             items.append(items[-1])
         sim.profile_batch([ps.spec for ps in items],
                           [ps.rates for ps in items],
@@ -3297,7 +3297,7 @@ def adaptive_phase(torch, dev, smi, netstep, static_profile) -> int:
     widest = max((b for b in plan.buckets if b.key.routing == "adaptive"),
                  key=lambda b: (b.key.shape, b.key.k_pad))
     items = list(widest.items)
-    while len(items) % engine.s_round:
+    while len(items) % S_ROUND:
         items.append(items[-1])
     modes = {}
     for routing in ("static", "adaptive"):
@@ -3385,7 +3385,7 @@ def synth_phase(torch, dev, smi, netstep, static_profile) -> int:
     from repro_torch.experiments import io as xio
     from repro_torch.obs.trace import (clear_trace, disable_tracing,
                                        enable_tracing, get_spans)
-    from repro_torch.sweep.engine import SweepEngine
+    from repro_torch.sweep.engine import S_ROUND, SweepEngine
     config = S.SearchConfig(n=SYNTH_N, substrate="organic", seed=0)
     cfg = config.cfg
     clear_trace()
@@ -3434,7 +3434,7 @@ def synth_phase(torch, dev, smi, netstep, static_profile) -> int:
     padded = {}
     for b in plan.buckets:
         items = list(b.items)
-        while len(items) % engine.s_round:
+        while len(items) % S_ROUND:
             items.append(items[-1])
         padded[b.key.shape] = items
     widest = max(plan.buckets, key=lambda b: b.key.shape)

@@ -258,8 +258,9 @@ def check_recompiles(shapes, target: str = "", bucketed=None,
     """JX003 when a spec collection spans several padded shapes.
 
     `shapes`: one `PadShape` per spec.  Each distinct shape is a
-    separate run of the cycle loop; pass `bucketed` (the shapes after
-    `SweepEngine.bucket_shape`) to show how many runs bucketing saves.
+    separate run of the cycle loop; pass `bucketed` (the shapes the
+    sweep engine's `group_key` gives) to show how many runs bucketing
+    saves.
     """
     shapes = list(shapes)
     distinct = sorted(set(shapes))

@@ -66,7 +66,6 @@ import contextlib
 import dataclasses
 import os
 import warnings
-from time import perf_counter_ns
 from typing import NamedTuple
 
 import numpy as np
@@ -92,14 +91,6 @@ _MIX_N = 0xC2B2AE3D
 #: hash table [cycles, N] is made at once, outside the per-cycle work);
 #: also the cycles of one `sim.cycles` span
 _BITS_CHUNK = 256
-#: the cycle loop's phases, in loop order, as a `sim.cycles` span names
-#: their host nanoseconds (`<phase>_ns`): the chunk's injection bits, then
-#: each cycle's §1 deliveries, §2 credit returns, §3 injection, §4 up to
-#: and including the route lookup (the recorder's occupancy snapshot and
-#: the allocator's arguments too), the allocator call alone, §5 winners
-#: and §6 the flight recorder
-PHASES = ("bits", "deliver", "credit", "inject", "route", "alloc",
-          "winners", "record")
 
 #: flight-recorder latency-histogram bins: bin h counts ejections with
 #: latency in [2^(h-1), 2^h) cycles (bin 0 stays 0: latency < 1 is
@@ -476,22 +467,6 @@ def _check_config(cfg: SimConfig) -> None:
 # batched runner
 # =====================================================================
 
-class _Laps:
-    """The host nanoseconds of each of PHASES, each summed where the phase
-    ends, and the allocator calls made: the clock of eager cycles with
-    tracing on."""
-    __slots__ = ("ns", "calls", "t")
-
-    def __init__(self):
-        self.ns, self.calls = [0] * len(PHASES), 0
-        self.t = perf_counter_ns()
-
-    def __call__(self, phase: int) -> None:
-        t1 = perf_counter_ns()
-        self.ns[phase] += t1 - self.t
-        self.t = t1
-
-
 def _graphed(device, probe: dict | None) -> bool:
     """Whether the cycle loop replays its cycles from CUDA graphs: on a
     CUDA device, unless an op trace follows the loop (a probe holding
@@ -637,21 +612,13 @@ def _fused_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
     if sched is not None:
         state += [fa[k] for k in _PHASE_COUNTERS]
 
-    def cycle(measuring: bool, lap: _Laps | None = None) -> None:
+    def cycle(measuring: bool) -> None:
         """Simulate cycle `t` and advance `t` in three launches:
-        §1-§4, the allocator, §5.  `lap` stamps the first two under
-        `route` and `alloc` and the last under `winners`."""
+        §1-§4, the allocator, §5."""
         cycle_route(fa, measuring)
-        if lap:
-            lap(4)
         win_mask, vc_choice, out_req = alloc_fn(
             fa["op_slot"], fa["eligible"], fa["rr_vc"], fa["rr_port"])
-        if lap:
-            lap(5)
-            lap.calls += 1
         cycle_move(fa, win_mask, vc_choice, out_req, measuring)
-        if lap:
-            lap(6)
 
     return cycle, state, lambda: ()
 
@@ -662,7 +629,7 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
     on int64 state of its own, with sacrificial slots and a sacrificial
     channel row, around `alloc_fn`.  `shared` holds the tensors the loop
     keeps for both bodies (`_simulate_rows`).  Returns (cycle, state,
-    recorder): `cycle(measuring, lap)` simulates cycle `t` and advances
+    recorder): `cycle(measuring)` simulates cycle `t` and advances
     it, `state` lists the tensors carried across cycles, and
     `recorder()` gives the flight recorder's outputs after the loop (none
     without `cfg.telemetry`)."""
@@ -765,9 +732,9 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
         state += [tel_busy, tel_stall, tel_occ, tel_inj, tel_eject,
                   tel_hist]
 
-    def cycle(measuring: bool, lap: _Laps | None = None) -> None:
+    def cycle(measuring: bool) -> None:
         """Simulate cycle `t` and advance `t`.  `measuring` (past the
-        warm-up) adds the counters; `lap` stamps each phase's end."""
+        warm-up) adds the counters."""
         recording = cfg.telemetry and measuring
         slot = t % D
         k = t % _BITS_CHUNK
@@ -785,15 +752,11 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
         cnt_flat.index_add_(0, (arr_base + arr_at[3]).view(-1),
                             arr_ok.long().view(-1))
         link_dst.index_fill_(2, slot, -1)
-        if lap:
-            lap(1)
 
         # ---- 2. credit returns -----------------------------------------
         credits_flat.index_add_(0, ret_flat.view(-1), credit_pipe[:, :C]
                                 .index_select(2, slot).view(-1))
         credit_pipe.index_fill_(2, slot, 0)
-        if lap:
-            lap(2)
 
         # ---- 3. injection ----------------------------------------------
         u_inj = u_inj_c.index_select(0, k)                  # [1, N]
@@ -827,8 +790,6 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
                 bk_t = bk.index_select(0, t).view(B)
                 offered_ph.index_add_(0, bk_t, n_want)
                 accepted_ph.index_add_(0, bk_t, n_inj)
-        if lap:
-            lap(3)
 
         # ---- 4. route + allocate ---------------------------------------
         if recording:
@@ -846,13 +807,8 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
         else:
             op_slot, eligible = _route_lookup(
                 table, srow, credits, head_dst, cnt, P)
-        alloc_args = (op_slot.to(i32), eligible, rr % V, rr % pi)
-        if lap:
-            lap(4)
-        win_mask, vc_choice, out_req = alloc_fn(*alloc_args)
-        if lap:
-            lap(5)
-            lap.calls += 1
+        win_mask, vc_choice, out_req = alloc_fn(op_slot.to(i32), eligible,
+                                                rr % V, rr % pi)
         port_wins = win_mask.any(3)                         # [B, N, PI]
 
         # ---- 5. winners: pop, move, credit -----------------------------
@@ -901,8 +857,6 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
                                     + w_dvc).view(-1),
                                 -traverse.long().view(-1))
         rr.add_(1).remainder_(rr_mod)
-        if lap:
-            lap(6)
 
         # ---- 6. flight recorder (DESIGN.md §13, §16) -------------------
         # Pure observers: integer adds onto the recorder's own counters,
@@ -933,8 +887,6 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
                 0, (hist_base + torch.bucketize(
                     t - w_t, hist_edges, right=True)).view(-1),
                 eject.int().view(-1))
-            if lap:
-                lap(7)
         t.add_(1)
 
     def recorder() -> tuple:
@@ -1000,12 +952,11 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     the warm-up), `mode` ("static" or "workload"), `adaptive`,
     `recorder`, and, with tracing on, `graphed` (the chunk's cycles
     replayed from a graph) and `fused` (its cycles simulated by the
-    fused kernels).  `obs.metrics`' `sim.fused_cycles` counts a fused
-    run's cycles at its end.  A chunk with no replayed cycle also carries
-    `alloc_calls` and the host nanoseconds of each of PHASES as
-    `<phase>_ns`; one with replayed cycles carries `replay_ns`, the host
-    nanoseconds of its graph launches.  Tracing reads the host's clock
-    only; it never waits for the device.
+    fused kernels); a chunk with no replayed cycle also carries
+    `alloc_calls`, its cycles' allocator calls (one a cycle).
+    `obs.metrics`' `sim.fused_cycles` counts a fused run's cycles at its
+    end.  Tracing reads the host's clock only where a span opens and
+    closes; it never waits for the device.
     """
 
     N = n
@@ -1048,9 +999,7 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                                    for x in state)
 
     # One `sim.cycles` span per chunk of _BITS_CHUNK cycles, where the
-    # injection bits are drawn.  With tracing on, the eager cycles' phase
-    # times are summed where each phase ends (`_Laps`) and the replays'
-    # launch times; with it off, the loop reads no clock.
+    # injection bits are drawn; with tracing off, the loop reads no clock.
     timed = tracing_enabled()
     mode = "static" if sched is None else "workload"
     op_trace = probe is not None and "cycle" in probe
@@ -1063,42 +1012,32 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                        measured=max(c1 - max(c0, cfg.warmup), 0),
                        mode=mode, adaptive=adaptive,
                        recorder=cfg.telemetry) as chunk:
-                laps = _Laps() if timed else None
                 ts = torch.arange(c0, c1, dtype=i64, device=dev).view(-1, 1)
                 u_inj_c[:c1 - c0] = _bits_to_unit(
                     _node_bits(cfg.seed, ts, node_r, 0))
                 u_dst_c[:c1 - c0] = _bits_to_unit(
                     _node_bits(cfg.seed, ts, node_r, 1))
                 vcs_c[:c1 - c0] = _node_bits(cfg.seed, ts, node_r, 2) % V
-                if timed:
-                    laps(0)
-                replayed = replay_ns = 0
+                replayed = 0
                 for tc in range(c0, c1):
                     measuring = tc >= cfg.warmup
                     if graphs is not None and measuring in graphs.graphs:
-                        if timed:
-                            r0 = perf_counter_ns()
                         graphs.replay(measuring)
-                        if timed:
-                            replay_ns += perf_counter_ns() - r0
                         replayed += 1
                         continue
                     if op_trace:
                         probe["cycle"] = tc
-                    cycle(measuring, laps)
+                    cycle(measuring)
                     # the body's first cycle has run: capture it if it
                     # has cycles left to replay
                     if graphs is not None and tc + 1 < (
                             cfg.cycles if measuring else cfg.warmup):
                         graphs.capture(measuring, lambda: cycle(measuring))
                 if timed:
-                    chunk.set(fused=c1 - c0 if fused else 0)
-                if timed and replayed:
-                    chunk.set(graphed=replayed, replay_ns=replay_ns)
-                elif timed:
-                    chunk.set(graphed=0, alloc_calls=laps.calls,
-                              **{f"{ph}_ns": v
-                                 for ph, v in zip(PHASES, laps.ns)})
+                    chunk.set(graphed=replayed,
+                              fused=c1 - c0 if fused else 0)
+                    if not replayed:
+                        chunk.set(alloc_calls=c1 - c0)
             ran = c1
     finally:
         if graphs is not None:

@@ -144,7 +144,8 @@ class ResultFrame:
 
     # ---- legacy-shaped per-scenario views -----------------------------
     def case_result(self, i: int) -> dict | None:
-        """`SweepEngine.evaluate_cases`-shaped dict for scenario i."""
+        """Scenario i as the reference's `SweepEngine.evaluate_cases`
+        gives a case (None where it did not run)."""
         ps, res = self.planned[i], self.results[i]
         if ps is None or res is None:
             return None
@@ -155,7 +156,8 @@ class ResultFrame:
                     latency_at_sat=float(res["latency"][k]), sweep=res)
 
     def workload_result(self, i: int) -> dict | None:
-        """`evaluate_workload_cases`-shaped dict for scenario i."""
+        """`case_result` with the reference's
+        `evaluate_workload_cases` keys for a workload scenario."""
         out = self.case_result(i)
         ps = self.planned[i]
         if out is None or ps.schedule is None:

@@ -10,8 +10,8 @@ rate grids — and groups the survivors into *buckets* that lower 1:1
 onto `SweepEngine` padded batches:
 
   * bucket key = (kind, R, bucketed PadShape, bucketed phase count),
-    mirroring the engine's own shape-rounding policy so one bucket is
-    one engine group;
+    from the engine's `group_key` / `merged_key`, so one bucket is one
+    engine group;
   * static scenarios and workload scenarios flow through the same
     pipeline — a workload scenario simply carries a compiled
     `SchedSpec` next to its `SimSpec` (its spec's traffic matrix is the
@@ -40,7 +40,7 @@ from ..core.routing import cached_routing, routing_for
 from ..core.simulator import SimSpec, make_spec
 from ..faults import FaultError
 from ..obs.trace import trace
-from ..sweep.engine import SweepEngine, _round_up
+from ..sweep.engine import SweepEngine, group_key, merged_key
 from ..sweep.padding import PadShape
 
 from .scenario import CustomTraffic, Experiment, Scenario
@@ -210,9 +210,9 @@ def plan(experiment: Experiment, engine: SweepEngine | None = None,
          single_program: bool = False) -> Plan:
     """Validate + resolve every scenario and bucket them for execution.
 
-    `engine` only contributes its shape-bucketing policy (so the plan's
-    buckets coincide with the engine groups executed later); planning
-    never runs anything.
+    The buckets are the engine's groups (`sweep.engine.group_key`);
+    `engine` is accepted in the reference's signature and unused, since
+    the bucketing is fixed.  Planning never runs anything.
 
     single_program=True coalesces all scenarios of one (kind, R, phase
     bucket) into a single bucket that the executor runs as ONE batch
@@ -220,7 +220,6 @@ def plan(experiment: Experiment, engine: SweepEngine | None = None,
     `run_specs(..., single_program=True)` mode) — fewer groups at the
     cost of padding small topologies to the largest shape present.
     """
-    engine = engine or SweepEngine(cfg=experiment.cfg)
     meas = experiment.cfg.cycles - experiment.cfg.warmup
     sim_backend = experiment.backend == "sim"
     buckets: dict[BucketKey, Bucket] = {}
@@ -258,11 +257,7 @@ def plan(experiment: Experiment, engine: SweepEngine | None = None,
                         if schedule is not None else None
                     rates = np.asarray(
                         s.rates.resolve(analytic, routing=eff), np.float64)
-                shape = engine.bucket_shape(
-                    PadShape(n=spec.n, p=spec.p, c=spec.c, d=spec.d))
-                k = sched_spec.k if sched_spec is not None else 0
-                k_pad = _round_up(k, engine.k_round) \
-                    if engine.bucket and k else k
+                shape, k_pad = group_key(spec, sched_spec)
                 key = BucketKey(kind=s.kind, n_rates=len(rates),
                                 shape=shape, k_pad=k_pad, routing=eff)
             else:
@@ -286,13 +281,13 @@ def plan(experiment: Experiment, engine: SweepEngine | None = None,
                 merged[mk] = Bucket(key=b.key, items=list(b.items))
             else:
                 m = merged[mk]
-                specs = [ps.spec for ps in m.items + b.items]
-                m.key = BucketKey(
-                    kind=b.key.kind, n_rates=b.key.n_rates,
-                    shape=engine.bucket_shape(PadShape.of(specs)),
-                    k_pad=max(m.key.k_pad, b.key.k_pad),
-                    routing=b.key.routing)
                 m.items += b.items
+                shape, k_pad = merged_key(
+                    [ps.spec for ps in m.items],
+                    [ps.sched_spec for ps in m.items])
+                m.key = BucketKey(kind=b.key.kind, n_rates=b.key.n_rates,
+                                  shape=shape, k_pad=k_pad,
+                                  routing=b.key.routing)
         out = list(merged.values())
     return Plan(experiment=experiment, buckets=out, skipped=skipped,
                 single_program=single_program, skip_codes=skip_codes)

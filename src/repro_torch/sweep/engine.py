@@ -2,27 +2,22 @@
 
 The port of `repro.sweep.engine`.  `SweepEngine` runs "K topologies x R
 injection rates" as a handful of batched simulations: specs are grouped
-by *bucketed* padded shape (dims rounded up to configurable multiples,
-batch size rounded up by replicating the last spec, rate rows rounded
-up by repeating the last rate, and in workload mode the phase axis
-rounded up to `k_round`) — the same bucketing as the reference, so a
-group here simulates the same rows as a compiled program there — and
-padding invariance (see `repro_torch.sweep.padding`) keeps results
-bitwise-equal to the single-spec path.
+by *bucketed* padded shape (dims rounded up to fixed multiples, batch
+size rounded up by replicating the last spec, rate rows rounded up by
+repeating the last rate, and in workload mode the phase axis rounded up
+to `K_ROUND`) — the same bucketing as the reference, so a group here
+simulates the same rows as a compiled program there — and padding
+invariance (see `repro_torch.sweep.padding`) keeps results
+bitwise-equal to the single-spec path.  This module owns that policy:
+`group_key` and `merged_key` decide a group, for the engine and for the
+experiment planner alike.
 
 The port compiles nothing per shape: `stats["compiles"]` and the
 `sweep.compiles` counter stay 0, and every group counts as a reuse.
-
-Case-level evaluation lives in the experiment API
-(`repro_torch.experiments`): `evaluate_cases`, `evaluate_workload_cases`
-and `sweep` are deprecation shims forwarding there; `run_specs` /
-`run_workloads` are the primitive layer the experiment executor lowers
-onto.
 """
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -58,39 +53,46 @@ class SweepCase(NamedTuple):
         return T.valid_n(self.name, self.n)
 
 
+# The bucketing policy.  These are the reference engine's defaults, so the
+# port's groups, per-spec `pad_fill` and plan keys equal the reference's.
+S_ROUND = 4     # batch axis rounded up to a multiple of this
+R_ROUND = 4     # rate axis rounded up to a multiple of this
+N_MULT, C_MULT, D_MULT = 8, 32, 4    # node, channel and link-ring buckets
+K_ROUND = 2     # phase axis (workload mode) bucket
+
+
 def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m if m > 1 else x
+    return -(-x // m) * m
+
+
+def merged_key(specs: Sequence[SimSpec], scheds: Sequence
+               ) -> tuple[PadShape, int]:
+    """The group of `specs` run as one batch, each with its compiled
+    schedule (None for a static spec): the padded shape that covers them
+    all with its dims rounded up to their buckets, and the largest phase
+    count rounded up to `K_ROUND` (0 for static specs)."""
+    sh = PadShape.of(specs)
+    return (PadShape(n=_round_up(sh.n, N_MULT), p=sh.p,
+                     c=_round_up(sh.c, C_MULT), d=_round_up(sh.d, D_MULT)),
+            max(_round_up(sc.k, K_ROUND) if sc is not None else 0
+                for sc in scheds))
+
+
+def group_key(spec: SimSpec, sched=None) -> tuple[PadShape, int]:
+    """The group of one spec and its compiled schedule (None for a static
+    spec), as `merged_key` gives it."""
+    return merged_key([spec], [sched])
 
 
 @dataclasses.dataclass
 class SweepEngine:
-    """Padded-batch sweep runner.
-
-    bucket=False disables shape rounding (every distinct max-shape gets
-    its own group).  `device` is passed to `simulator.run_batch`: None
-    is the CUDA card, "cpu" the CPU.
-    """
+    """Padded-batch sweep runner.  `device` is passed to
+    `simulator.run_batch`: None is the CUDA card, "cpu" the CPU."""
     cfg: SimConfig = SimConfig()
-    bucket: bool = True
-    s_round: int = 4         # batch axis rounded up to a multiple of this
-    r_round: int = 4         # rate axis rounded up to a multiple of this
-    n_mult: int = 8          # node-dim bucket
-    c_mult: int = 32         # channel-dim bucket
-    d_mult: int = 4          # link-ring bucket
-    k_round: int = 2         # phase axis (workload mode) bucket
     device: object = None
 
     def __post_init__(self):
         self.stats = dict(runs=0, groups=0, specs=0, compiles=0, reuses=0)
-
-    # ---- shape policy --------------------------------------------------
-    def bucket_shape(self, shape: PadShape) -> PadShape:
-        if not self.bucket:
-            return shape
-        return PadShape(n=_round_up(shape.n, self.n_mult),
-                        p=shape.p,
-                        c=_round_up(shape.c, self.c_mult),
-                        d=_round_up(shape.d, self.d_mult))
 
     # ---- core entry points ---------------------------------------------
     def run_specs(self, specs: Sequence[SimSpec], rates,
@@ -115,7 +117,7 @@ class SweepEngine:
 
         schedules: one `simulator.SchedSpec` (or compilable
         `workloads.Schedule`) per spec.  Groups also bucket the phase
-        axis (`k_round`) so workloads with similar phase counts share a
+        axis (`K_ROUND`) so workloads with similar phase counts share a
         group.  Result dicts gain the per-phase counters of
         `run_batch(..., schedules=...)`.  `cfg` as in `run_specs`.
         """
@@ -139,25 +141,15 @@ class SweepEngine:
         if rates.ndim == 1:
             rates = np.broadcast_to(rates, (s, rates.shape[0])).copy()
         n_rates = rates.shape[1]
-        r_pad = _round_up(n_rates, self.r_round) if self.bucket else n_rates
-
-        def k_bucket(i: int) -> int:
-            if schedules is None:
-                return 0
-            k = schedules[i].k
-            return _round_up(k, self.k_round) if self.bucket else k
+        r_pad = _round_up(n_rates, R_ROUND)
+        scheds = schedules if schedules is not None else [None] * s
 
         groups: dict[tuple[PadShape, int], list[int]] = {}
         if single_program:
-            key = (self.bucket_shape(PadShape.of(specs)),
-                   max(k_bucket(i) for i in range(s)))
-            groups[key] = list(range(s))
+            groups[merged_key(specs, scheds)] = list(range(s))
         else:
             for i, spec in enumerate(specs):
-                key = (self.bucket_shape(
-                    PadShape(n=spec.n, p=spec.p, c=spec.c, d=spec.d)),
-                    k_bucket(i))
-                groups.setdefault(key, []).append(i)
+                groups.setdefault(group_key(spec, scheds[i]), []).append(i)
 
         results: list = [None] * s
         for (shape, k_pad), idxs in groups.items():
@@ -171,8 +163,7 @@ class SweepEngine:
                      np.repeat(g_rates[:, -1:], r_pad - n_rates, axis=1)],
                     axis=1)
             s_live = len(g_specs)
-            s_pad = _round_up(s_live, self.s_round) \
-                if self.bucket else s_live
+            s_pad = _round_up(s_live, S_ROUND)
             while len(g_specs) < s_pad:           # replicate an inert tail
                 g_specs.append(g_specs[-1])
                 g_rates = np.concatenate([g_rates, g_rates[-1:]], axis=0)
@@ -207,98 +198,3 @@ class SweepEngine:
         metrics.inc("sweep.specs", s)
         metrics.inc("sweep.compiles", 0)
         return results
-
-    # ---- case-level deprecation shims ----------------------------------
-    # Case-level evaluation lives in the declarative experiment API
-    # (repro_torch.experiments, DESIGN.md §10).  These shims forward to
-    # it and reshape the ResultFrame into the legacy list-of-dicts.
-
-    def _experiment_frame(self, scenarios):
-        from .. import experiments as X
-        exp = X.Experiment(scenarios, cfg=self.cfg, name="legacy_shim")
-        return X.execute(X.plan(exp, engine=self), engine=self)
-
-    def evaluate_cases(self, cases: Sequence[SweepCase],
-                       n_rates: int = 6) -> list[dict | None]:
-        """DEPRECATED: use `repro_torch.experiments.run` on an
-        `Experiment` of static `Scenario`s.
-
-        Simulated saturation for many cells; invalid cells yield None.
-        """
-        warnings.warn(
-            "SweepEngine.evaluate_cases is deprecated; build an "
-            "Experiment of Scenarios and call repro_torch.experiments.run",
-            DeprecationWarning, stacklevel=2)
-        from .. import experiments as X
-        frame = self._experiment_frame(
-            [X.scenario_from_case(c, rates=X.SaturationGrid(n_rates))
-             for c in cases])
-        out = []
-        for i, case in enumerate(cases):
-            res = frame.case_result(i)
-            if res is not None:
-                res["case"] = case
-            out.append(res)
-        return out
-
-    def evaluate_workload_cases(self, cases: Sequence[SweepCase],
-                                workloads: Sequence, n_rates: int = 5,
-                                fit: bool = True) -> list[dict | None]:
-        """DEPRECATED: use `repro_torch.experiments.run` on an
-        `Experiment` whose Scenarios carry the workloads as their
-        `traffic`.
-
-        Returns len(cases) * len(workloads) rows in case-major order;
-        invalid cases yield None rows.
-        """
-        warnings.warn(
-            "SweepEngine.evaluate_workload_cases is deprecated; build "
-            "an Experiment of workload Scenarios and call "
-            "repro_torch.experiments.run", DeprecationWarning,
-            stacklevel=2)
-        from .. import experiments as X
-        frame = self._experiment_frame(
-            [dataclasses.replace(
-                X.scenario_from_case(case, traffic=wl,
-                                     rates=X.SaturationGrid(n_rates)),
-                fit_schedule=fit)
-             for case in cases for wl in workloads])
-        out = []
-        for ci, case in enumerate(cases):
-            for wi in range(len(workloads)):
-                res = frame.workload_result(ci * len(workloads) + wi)
-                if res is not None:
-                    res["case"] = case
-                out.append(res)
-        return out
-
-    def sweep(self, names: Sequence[str], n: int, substrate: str = "organic",
-              pattern: str = "uniform", area: float = 74.0,
-              roles: str = "homogeneous", n_rates: int = 6) -> list[dict]:
-        """Evaluate several topologies at one size in one batched sweep
-        (a thin convenience over `repro_torch.experiments.run`)."""
-        from .. import experiments as X
-        frame = self._experiment_frame(
-            [X.Scenario(name, n, substrate, pattern, area, roles,
-                        rates=X.SaturationGrid(n_rates))
-             for name in names])
-        rows = []
-        for i, name in enumerate(names):
-            res = frame.case_result(i)
-            if res is None:
-                continue
-            rows.append(dict(topology=name, n=n, substrate=substrate,
-                             pattern=pattern,
-                             sim_saturation=res["sim_saturation"],
-                             analytic_saturation=res["analytic_saturation"],
-                             latency_at_sat=res["latency_at_sat"]))
-        return rows
-
-
-def default_engine(device=None) -> SweepEngine:
-    """Process-wide engine for the default SimConfig on `device` (None:
-    the card).  Forwards to the experiment executor's per-(config,
-    device) registry so legacy callers and the declarative pipeline
-    share one engine (and its stats)."""
-    from ..experiments import engine_for
-    return engine_for(SimConfig(), device)

@@ -4,11 +4,10 @@ and raw results: one Experiment mixing static, workload, degraded
 goes through `repro.experiments.run` and `repro_torch.experiments.run(...,
 device="cpu")`, row by row and column by column.  Also held: plan
 buckets and skip reasons, `single_program`, `chunk_size` with progress,
-`on_error="skip"`, the CSV and JSON bytes, the analytic backend, the
-legacy shims, `figures`, adaptive scenarios, and the flight recorder's
-columns and per-link / per-window views."""
-import warnings
-
+`on_error="skip"`, the CSV and JSON bytes, the analytic backend,
+the legacy per-scenario views, the sweep engine's group keys,
+`figures`, adaptive scenarios, and the flight recorder's columns and
+per-link / per-window views."""
 import numpy as np
 import pytest
 
@@ -19,7 +18,6 @@ import repro.faults as RF  # noqa: E402
 import repro.workloads as RW  # noqa: E402
 from repro.core import topology as RT  # noqa: E402
 from repro.core.simulator import SimConfig as RCfg  # noqa: E402
-from repro.sweep.engine import SweepCase as RCase  # noqa: E402
 from repro.sweep.engine import SweepEngine as REngine  # noqa: E402
 import repro_torch.experiments as PX  # noqa: E402
 import repro_torch.faults as PF  # noqa: E402
@@ -27,7 +25,6 @@ import repro_torch.workloads as PW  # noqa: E402
 from repro_torch import figures  # noqa: E402
 from repro_torch.core import topology as PT  # noqa: E402
 from repro_torch.core.simulator import SimConfig as PCfg  # noqa: E402
-from repro_torch.sweep.engine import SweepCase as PCase  # noqa: E402
 from repro_torch.sweep.engine import SweepEngine  # noqa: E402
 
 
@@ -249,6 +246,82 @@ def test_fault_rejection_skips_as_the_reference():
         want.skip_codes == {0: "FT001"}
 
 
+#: specs as (topology, N, phase count; 0 for a static spec), and whether
+#: they form one `single_program` batch
+KEY_CASES = {
+    "static-mesh": ([("mesh", 16, 0)], False),
+    "static-fht": ([("folded_hexa_torus", 36, 0)], False),
+    "workload-odd": ([("hypercube", 16, 3)], False),
+    "workload-even": ([("folded_hexa_torus", 16, 4)], False),
+    "single-static": ([("mesh", 16, 0), ("hypercube", 16, 0),
+                       ("folded_hexa_torus", 36, 0)], True),
+    "single-workload": ([("mesh", 16, 5), ("folded_hexa_torus", 16, 2)],
+                        True),
+}
+
+
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_group_key_equals_reference_bucketing(case):
+    """The engine's group of a spec (`group_key`) and of a
+    `single_program` batch (`merged_key`) are the reference engine's
+    `bucket_shape` and its rounding of the phase count."""
+    from repro.sweep.engine import _round_up as ref_round_up
+    from repro.sweep.padding import PadShape as RPad
+    from repro_torch.core.routing import build_routing
+    from repro_torch.core.simulator import make_spec
+    from repro_torch.core.traffic import uniform
+    from repro_torch.sweep import engine as E
+    cells, single = KEY_CASES[case]
+    specs, scheds = [], []
+    for name, n, k in cells:
+        r = build_routing(PT.build(name, n))
+        specs.append(make_spec(r, uniform(r.topo)))
+        scheds.append(PW.hotspot_drift(r.topo, n_phases=k, dwell=50)
+                      .compile() if k else None)
+    ks = [sc.k if sc is not None else 0 for sc in scheds]
+    assert ks == [k for _, _, k in cells]
+    ref = REngine(cfg=RCFG)
+
+    def dims(shape):
+        return (shape.n, shape.p, shape.c, shape.d)
+
+    if single:
+        got = [E.merged_key(specs, scheds)]
+        want = [(ref.bucket_shape(RPad.of(specs)),
+                 max(ref_round_up(k, ref.k_round) for k in ks))]
+    else:
+        got = [E.group_key(spec, sc) for spec, sc in zip(specs, scheds)]
+        want = [(ref.bucket_shape(RPad(*dims(spec))),
+                 ref_round_up(k, ref.k_round))
+                for spec, k in zip(specs, ks)]
+    assert [(dims(sh), k) for sh, k in got] == \
+        [(dims(sh), k) for sh, k in want]
+
+
+def test_sweep_imports_nothing_of_the_experiment_api():
+    """The sweep engine sits below the experiment API: no module of
+    `repro_torch.sweep` imports `repro_torch.experiments`."""
+    import ast
+    import pathlib
+    import repro_torch.sweep as S
+    pkg = ["repro_torch", "sweep"]
+    for path in sorted(pathlib.Path(S.__file__).parent.glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = pkg[:len(pkg) + 1 - node.level] if node.level \
+                    else []
+                mod = ".".join(base + ([node.module] if node.module
+                                       else []))
+                names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+            else:
+                continue
+            assert not any(m.split(".")[:2] == ["repro_torch",
+                                                "experiments"]
+                           for m in names), (path.name, names)
+
+
 # ---------------------------------------------------------------------
 # execution: single program, chunks, progress, failures
 # ---------------------------------------------------------------------
@@ -341,41 +414,6 @@ def test_analytic_backend_equals_reference():
         _rows_equal(a, b)
     assert got.results == want.results == [None, None, None, None] + \
         [None] * (N_SCEN - 4)
-
-
-def test_legacy_shims_equal_reference():
-    eng = SweepEngine(cfg=PCFG, device="cpu")
-    ref = REngine(cfg=RCFG)
-    cases = [("mesh", 16), ("hypercube", 15)]
-    wl = [PW.Workload("alt", lambda t: PW.phase_alternating(
-        t, phase_cycles=60, repeats=1))]
-    rwl = [RW.Workload("alt", lambda t: RW.phase_alternating(
-        t, phase_cycles=60, repeats=1))]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.warns(DeprecationWarning, match="evaluate_cases"):
-            got = eng.evaluate_cases([PCase(*c) for c in cases], n_rates=3)
-        want = ref.evaluate_cases([RCase(*c) for c in cases], n_rates=3)
-        with pytest.warns(DeprecationWarning,
-                          match="evaluate_workload_cases"):
-            got_wl = eng.evaluate_workload_cases([PCase("mesh", 16)], wl,
-                                                 n_rates=3)
-        want_wl = ref.evaluate_workload_cases([RCase("mesh", 16)], rwl,
-                                              n_rates=3)
-    assert got[1] is None and want[1] is None
-    for g, w in ((got[0], want[0]), (got_wl[0], want_wl[0])):
-        for k in ("sim_saturation", "analytic_saturation",
-                  "latency_at_sat"):
-            assert g[k] == w[k], k
-        for k in RAW:
-            np.testing.assert_array_equal(g["sweep"][k], w["sweep"][k])
-    np.testing.assert_array_equal(got_wl[0]["throughput_ph"],
-                                  want_wl[0]["throughput_ph"])
-    rows = eng.sweep(["mesh", "hypercube", "folded_hexa_torus"], 16,
-                     n_rates=3)
-    assert rows == ref.sweep(["mesh", "hypercube", "folded_hexa_torus"],
-                             16, n_rates=3)
-    assert eng.stats["compiles"] == 0
 
 
 def test_fig8_frame_equals_reference(tmp_path):

@@ -363,8 +363,8 @@ def test_replayed_cycles_equal_eager_ones(mode, port_specs, monkeypatch):
         _assert_results_equal(g, e, keys=tuple(k for k in e
                                                if k != "pad_fill"))
     assert sum(sp.args["graphed"] for sp in chunks) == cfg.cycles - 2
-    assert all(sp.args["graphed"] > 0 and "replay_ns" in sp.args
-               and "alloc_calls" not in sp.args for sp in chunks)
+    assert all(sp.args["graphed"] > 0 and "alloc_calls" not in sp.args
+               for sp in chunks)
     assert metrics.get("sim.graph_captures") - \
         before["sim.graph_captures"] == 2
     assert metrics.get("sim.graph_replays") - \
@@ -390,9 +390,9 @@ def test_stand_in_graph_keeps_what_the_body_read_at_capture():
     assert state.tolist() == [2, 2, 2]
 
 
-def test_cpu_spans_carry_graphed_zero_and_every_phase(port_specs):
+def test_cpu_spans_carry_graphed_zero_and_alloc_calls(port_specs):
     """On the CPU the loop stays eager: each `sim.cycles` span carries
-    `graphed = 0`, the allocator calls and every phase's time."""
+    `graphed = 0` and one allocator call a cycle."""
     TR = importlib.import_module("repro_torch.obs.trace")
     TR.clear_trace()
     TR.enable_tracing()
@@ -404,9 +404,41 @@ def test_cpu_spans_carry_graphed_zero_and_every_phase(port_specs):
     TR.clear_trace()
     assert len(chunks) == 2
     for sp in chunks:
-        assert sp.args["graphed"] == 0 and "replay_ns" not in sp.args
+        assert sp.args["graphed"] == 0
         assert sp.args["alloc_calls"] == sp.args["cycles"]
-        assert all(sp.args[f"{ph}_ns"] >= 0 for ph in PS.PHASES)
+
+
+#: what every traced `sim.cycles` span carries; an eager chunk (no cycle
+#: replayed) adds `alloc_calls`
+SPAN_ATTRS = {"t0", "cycles", "measured", "mode", "adaptive", "recorder",
+              "graphed", "fused"}
+
+
+@pytest.mark.parametrize("replayed", [False, True],
+                         ids=["eager", "replayed"])
+def test_cycles_spans_carry_the_documented_attributes(replayed, port_specs,
+                                                      monkeypatch):
+    """With tracing on, a `sim.cycles` span carries exactly SPAN_ATTRS,
+    and `alloc_calls` too where none of its cycles was replayed: the
+    CPU's eager loop, or a stand-in graph replaying each body's cycles
+    after its first."""
+    TR = importlib.import_module("repro_torch.obs.trace")
+    if replayed:
+        monkeypatch.setattr(PS, "_graphed", lambda device, probe: True)
+        monkeypatch.setattr(PS, "_CycleGraphs", _CpuGraphs)
+    TR.clear_trace()
+    TR.enable_tracing()
+    try:
+        PS.run_batch(port_specs[:1], RATES[:2], GRAPH_CFG, device="cpu")
+    finally:
+        TR.disable_tracing()
+    chunks = [sp for sp in TR.get_spans() if sp.name == "sim.cycles"]
+    TR.clear_trace()
+    assert len(chunks) == 2
+    for sp in chunks:
+        assert (sp.args["graphed"] > 0) is replayed
+        assert set(sp.args) == SPAN_ATTRS | (
+            set() if replayed else {"alloc_calls"})
 
 
 @pytest.mark.parametrize("device", ["cuda", "cuda:0", "cpu"])

@@ -2,15 +2,14 @@
 
 `run_batch` records one `sim.cycles` span per chunk of 256 cycles inside
 its `sim.dispatch` span, with the chunk's cycles, measured cycles, loop
-mode, allocator calls and the host nanoseconds of each phase of the
-loop; the executor names each chunk's result rows (`execute.rows`) and
-the planner each scenario's traffic and spec (`plan.traffic`,
-`plan.spec`).  Tracing changes no counter, and with tracing off the loop
-records nothing and reads no clock.  Times are only checked for sign and
-sum here: their shares are read on the card.
+mode and allocator calls; the executor names each chunk's result rows
+(`execute.rows`) and the planner each scenario's traffic and spec
+(`plan.traffic`, `plan.spec`).  Tracing changes no counter, and with
+tracing off the loop records nothing and reads no clock.
 """
 import importlib
 import math
+import time
 
 import numpy as np
 import pytest
@@ -128,19 +127,6 @@ def test_cycles_spans_lie_inside_dispatch(runs):
     assert not any(_inside(sp, wait) for sp in chunks)
 
 
-def test_phase_times_are_within_the_chunk(runs):
-    for sp in _named(runs["on_spans"], "sim.cycles"):
-        ns = [sp.args[f"{ph}_ns"] for ph in PS.PHASES]
-        assert all(isinstance(v, int) and v >= 0 for v in ns), sp.args
-        assert sum(ns) <= sp.dur
-        assert sp.args["alloc_calls"] == sp.args["cycles"]
-        assert sp.args["alloc_ns"] > 0 and sp.args["deliver_ns"] > 0
-        if runs["mode"] != "recorder" or sp.args["measured"] == 0:
-            assert sp.args["record_ns"] == 0
-        else:
-            assert sp.args["record_ns"] > 0
-
-
 def test_alloc_calls_sum_to_cycles(runs):
     chunks = _named(runs["on_spans"], "sim.cycles")
     assert sum(sp.args["alloc_calls"] for sp in chunks) == \
@@ -169,12 +155,12 @@ def test_tracing_changes_no_counter(runs):
 
 
 def test_loop_reads_no_clock_with_tracing_off(monkeypatch):
-    """With tracing off the loop never stamps a phase: a clock that
-    raises is never called."""
+    """With tracing off the loop opens no span: a clock that raises is
+    never called, and with tracing on the spans call it."""
     def no_clock():
         raise AssertionError("the cycle loop read the clock")
 
-    monkeypatch.setattr(PS, "perf_counter_ns", no_clock)
+    monkeypatch.setattr(time, "perf_counter_ns", no_clock)
     specs, rates, cfg, _ = _batch("static")
     out = PS.run_batch(specs, rates, cfg._replace(cycles=40, warmup=10),
                        device="cpu")
