@@ -36,6 +36,7 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.csgraph as csgraph
 
+from ..obs.metrics import metrics
 from ..obs.trace import trace as _span
 
 from .topology import CUSTOM_GENERATORS, Topology, build
@@ -86,8 +87,10 @@ class Routing:
         """Follow the routing table for all (s, d) pairs simultaneously.
 
         traffic: [N, N] matrix, rows sum to 1 (diagonal ignored).
-        Returns (loads[C], hops[N, N], lat_cycles[N, N]).
+        Returns (loads[C], hops[N, N], lat_cycles[N, N]).  Each call
+        counts one `routing.walks` in `obs.metrics`.
         """
+        metrics.inc("routing.walks")
         topo, n = self.topo, self.topo.n
         if max_hops is None:
             max_hops = 4 * topo.n  # safe upper bound; loops would exceed it
@@ -135,11 +138,7 @@ class Routing:
     def saturation_rate(self, traffic: np.ndarray) -> float:
         """Analytic saturation injection rate (flits/node/cycle)."""
         loads, _, _ = self.paths_channel_loads(traffic)
-        max_load = loads.max()
-        # ejection bottleneck: a node cannot absorb more than 1 flit/cycle
-        ej_load = traffic.sum(axis=0).max()
-        return float(min(1.0 / max(max_load, 1e-12),
-                         1.0 / max(ej_load, 1e-12), 1.0))
+        return saturation_from_loads(loads, traffic)
 
     def restricted_hops(self) -> np.ndarray:
         u = np.ones((self.topo.n, self.topo.n))
@@ -147,6 +146,16 @@ class Routing:
         rs = u.sum(1, keepdims=True)
         _, hops, _ = self.paths_channel_loads(u / np.maximum(rs, 1))
         return hops
+
+
+def saturation_from_loads(loads: np.ndarray, traffic: np.ndarray) -> float:
+    """Saturation injection rate from a walk's channel loads: the
+    busiest channel's or node's ejection bound, at most 1."""
+    max_load = loads.max()
+    # ejection bottleneck: a node cannot absorb more than 1 flit/cycle
+    ej_load = traffic.sum(axis=0).max()
+    return float(min(1.0 / max(max_load, 1e-12),
+                     1.0 / max(ej_load, 1e-12), 1.0))
 
 
 def build_routing(topo: Topology, root: int | None = None,

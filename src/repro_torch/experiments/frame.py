@@ -21,7 +21,6 @@ import dataclasses
 import numpy as np
 
 from ..core import costmodel as cm
-from ..core.simulator import zero_load_latency
 
 from . import io as xio
 from .plan import PlannedScenario
@@ -64,8 +63,10 @@ def scenario_row(exp: Experiment, ps: PlannedScenario,
     """Tidy row for one executed scenario (res=None: analytic backend).
 
     The scenario's relative saturation (simulated plateau, or the
-    analytic channel-load bound) and latency feed the §V-B cost model
-    at the traffic's average hop count.
+    analytic channel-load bound) and latency (simulated, or the
+    zero-load latency) feed the §V-B cost model at the traffic's
+    average hop count; the planner's routing walk gave the hop count
+    and the zero-load latency, so the row walks no path itself.
     """
     row = _identity_row(exp, ps.scenario, "ok")
     if res is not None:
@@ -89,15 +90,12 @@ def scenario_row(exp: Experiment, ps: PlannedScenario,
                     link_gini=round(gini(util), 6))
     else:
         t_r = ps.analytic
-        lat = zero_load_latency(ps.routing, ps.traffic)
-    _, hops, _ = ps.routing.paths_channel_loads(ps.traffic)
-    w = ps.traffic / max(ps.traffic.sum(), 1e-12)
-    avg_hops = float((hops * w).sum())
-    rep = cm.report(ps.topo, t_r, avg_hops, lat)
+        lat = ps.zero_load_cycles
+    rep = cm.report(ps.topo, t_r, ps.avg_hops, lat)
     row.update(analytic_saturation=ps.analytic,
                rel_throughput=rep.rel_throughput,
                abs_throughput_gbps=rep.abs_throughput_gbps,
-               latency_ns=rep.avg_latency_ns, avg_hops=avg_hops,
+               latency_ns=rep.avg_latency_ns, avg_hops=ps.avg_hops,
                chiplet_area_mm2=rep.area_mm2,
                phy_area_frac=rep.phy_area_fraction, power_w=rep.power_w,
                max_link_mm=rep.max_link_mm, radix=rep.radix)

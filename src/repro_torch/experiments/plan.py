@@ -36,7 +36,7 @@ import numpy as np
 from ..core import placement as pl
 from ..core import topology as T
 from ..core import traffic as TR
-from ..core.routing import cached_routing, routing_for
+from ..core.routing import cached_routing, routing_for, saturation_from_loads
 from ..core.simulator import SimSpec, make_spec
 from ..faults import FaultError
 from ..obs.trace import trace
@@ -55,6 +55,8 @@ class PlannedScenario:
     routing: object
     traffic: np.ndarray         # static matrix, or schedule mean demand
     analytic: float             # channel-load saturation bound
+    avg_hops: float             # traffic-weighted hop count
+    zero_load_cycles: float     # traffic-weighted zero-load latency
     spec: SimSpec | None        # None on the analytic backend
     schedule: object | None     # fitted workloads.Schedule (labels)
     sched_spec: object | None   # compiled simulator.SchedSpec
@@ -246,7 +248,11 @@ def plan(experiment: Experiment, engine: SweepEngine | None = None,
             with trace("plan.traffic", cat="experiments",
                        topology=s.topology_name, n=s.n):
                 tm, schedule = _resolve_traffic(s, topo, meas)
-            analytic = routing.saturation_rate(tm)
+            # one routing walk gives the bound and the tidy row's
+            # traffic-weighted hops and zero-load latency
+            loads, hops, lat = routing.paths_channel_loads(tm)
+            analytic = saturation_from_loads(loads, tm)
+            w = tm / max(tm.sum(), 1e-12)
             eff = s.effective_routing(experiment.cfg)
             spec = sched_spec = rates = None
             if sim_backend:
@@ -265,7 +271,10 @@ def plan(experiment: Experiment, engine: SweepEngine | None = None,
                                 k_pad=0, routing=eff)
             ps = PlannedScenario(index=i, scenario=s, topo=topo,
                                  routing=routing, traffic=tm,
-                                 analytic=float(analytic), spec=spec,
+                                 analytic=analytic,
+                                 avg_hops=float((hops * w).sum()),
+                                 zero_load_cycles=float((lat * w).sum()),
+                                 spec=spec,
                                  schedule=schedule, sched_spec=sched_spec,
                                  rates=rates)
             buckets.setdefault(key,

@@ -416,6 +416,57 @@ def test_analytic_backend_equals_reference():
         [None] * (N_SCEN - 4)
 
 
+# ---------------------------------------------------------------------
+# one routing walk a planned scenario: the plan's hops and latency
+# ---------------------------------------------------------------------
+
+def _planned(pl) -> dict:
+    return {ps.index: ps for b in pl.buckets for ps in b.items}
+
+
+@pytest.fixture(scope="module")
+def analytic_plan():
+    return PX.plan(_port_exp(backend="analytic"))
+
+
+@pytest.mark.parametrize("backend", ["sim", "analytic"])
+@pytest.mark.parametrize("i", range(N_SCEN))
+def test_planned_walk_values_equal_a_fresh_walk(i, backend, port_frame,
+                                                analytic_plan):
+    """The planner's one walk gives `analytic`, `avg_hops` and
+    `zero_load_cycles` bit for bit as `saturation_rate`, a fresh
+    `paths_channel_loads` and `zero_load_latency` do (static, workload
+    and degraded scenarios; the skipped one has none)."""
+    from repro_torch.core.simulator import zero_load_latency
+    ps = (port_frame.planned[i] if backend == "sim"
+          else _planned(analytic_plan).get(i))
+    if i == 3:                       # hypercube at N = 15: skipped
+        assert ps is None
+        return
+    _, hops, _ = ps.routing.paths_channel_loads(ps.traffic)
+    w = ps.traffic / max(ps.traffic.sum(), 1e-12)
+    for got, want in ((ps.analytic, ps.routing.saturation_rate(ps.traffic)),
+                      (ps.avg_hops, float((hops * w).sum())),
+                      (ps.zero_load_cycles,
+                       zero_load_latency(ps.routing, ps.traffic))):
+        assert type(got) is float and got == want
+
+
+@pytest.mark.parametrize("backend", ["sim", "analytic"])
+def test_routing_walks_once_a_planned_scenario(backend):
+    """`routing.walks` rises by one a planned scenario in `plan()` and
+    not at all in `execute()`: the tidy rows walk no path."""
+    from repro_torch.obs.metrics import metrics
+    before = metrics.get("routing.walks")
+    pl = PX.plan(_port_exp(backend=backend))
+    planned = metrics.get("routing.walks")
+    assert pl.n_planned == N_SCEN - 1
+    assert planned - before == pl.n_planned
+    frame = PX.execute(pl, device="cpu")
+    assert metrics.get("routing.walks") == planned
+    assert [r["status"] for r in frame.rows].count("ok") == pl.n_planned
+
+
 def test_fig8_frame_equals_reference(tmp_path):
     """`figures.fig8` at one tiny size, simulated on the CPU, gives the
     JAX package's frame for the same scenarios."""
