@@ -119,22 +119,36 @@ def mesh_coords(topo: Topology, mesh_shape: dict) -> dict[str, np.ndarray]:
     return coords
 
 
-def mesh_axis_groups(topo: Topology, mesh_shape: dict, axis: str
-                     ) -> list[list[int]]:
+def mesh_axis_groups(topo: Topology, mesh_shape: dict, axis
+                     ) -> list[list]:
     """Communication groups of one mesh axis: chiplets that share every
     *other* axis coordinate, ordered by their own coordinate along
-    `axis` (= the ring order used for ring collectives)."""
+    `axis` (= the ring order used for ring collectives).
+
+    `axis` may be a tuple of axes (major first): a group is then the
+    chiplets that share every axis outside the tuple, nested one list
+    level per axis, e.g. [node][local] for ("node", "local").  Ring
+    collectives run over it in row-major order (last axis fastest).
+    """
     coords = mesh_coords(topo, mesh_shape)
-    if axis not in coords:
-        raise KeyError(f"axis {axis!r} not in mesh {list(mesh_shape)}")
-    others = [coords[a] for a in mesh_shape if a != axis]
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in axes:
+        if a not in coords:
+            raise KeyError(f"axis {a!r} not in mesh {list(mesh_shape)}")
+    others = [coords[a] for a in mesh_shape if a not in axes]
     key = np.zeros(topo.n, dtype=np.int64)
     for o in others:
         key = key * (int(o.max()) + 1) + o
+    pos = np.zeros(topo.n, dtype=np.int64)
+    for a in axes:
+        pos = pos * int(mesh_shape[a]) + coords[a]
     groups: dict[int, list[int]] = {}
-    for node in np.argsort(coords[axis] + key * topo.n, kind="stable"):
+    for node in np.argsort(pos + key * topo.n, kind="stable"):
         groups.setdefault(int(key[node]), []).append(int(node))
-    return list(groups.values())
+    if isinstance(axis, str):
+        return list(groups.values())
+    shape = [int(mesh_shape[a]) for a in axes]
+    return [np.reshape(g, shape).tolist() for g in groups.values()]
 
 
 # flow factor: bytes each member sends to its ring successor (ring
@@ -143,17 +157,48 @@ _RING_FACTOR = {"all_reduce": lambda k: 2.0 * (k - 1) / k,
                 "all_gather": lambda k: (k - 1) / k,
                 "reduce_scatter": lambda k: (k - 1) / k,
                 "collective_permute": lambda k: 1.0}
+#: unwrapped sends along a group: member i to i + 1, or i + 1 to i
+_SENDS = ("send_next", "send_prev")
+#: two-stage expert dispatch and its reverse, over [node][local] groups
+_TWO_STAGE = ("dispatch", "combine")
 
 
-def collective_flow(n: int, kind: str, groups, bytes_per_chip: float
-                    ) -> np.ndarray:
+def _two_stage(m: np.ndarray, nodes, bytes_per_chip, shares) -> None:
+    """Add one group's two-stage dispatch to `m`: each chiplet sends
+    `inter` of its payload to the chiplet of its own `local` index in
+    every other node, and `intra` of it to every other chiplet of its
+    own node (the forwarding there, counted at the sender's row)."""
+    inter, intra = shares
+    for gi, node in enumerate(nodes):
+        for li, src in enumerate(node):
+            for gj, other in enumerate(nodes):
+                if gj != gi:
+                    m[src, other[li]] += bytes_per_chip * inter
+            for lj, dst in enumerate(node):
+                if lj != li:
+                    m[src, dst] += bytes_per_chip * intra
+
+
+def collective_flow(n: int, kind: str, groups, bytes_per_chip: float,
+                    shares: tuple = ()) -> np.ndarray:
     """[N, N] byte-flow matrix of one collective over chiplet groups.
 
     Ring collectives put their whole payload on the group's ring edges
     (successor in group order); all-to-all spreads it over every pair.
+    `send_next` / `send_prev` send the whole payload one member on /
+    back along the group, without wrapping (a pipeline's stage
+    boundaries).  `dispatch` takes groups nested [node][local] and
+    `shares` = (inter, intra), the payload's shares to each other node
+    and to each other chiplet of the node (`_two_stage`); `combine` is
+    its transpose, the answers coming back the same way.
     """
     m = np.zeros((n, n))
+    if kind in _TWO_STAGE:
+        for g in groups:
+            _two_stage(m, g, bytes_per_chip, shares)
+        return np.ascontiguousarray(m.T) if kind == "combine" else m
     for g in groups:
+        g = np.ravel(g).tolist()        # a nested group: row-major
         k = len(g)
         if k < 2:
             continue
@@ -167,6 +212,11 @@ def collective_flow(n: int, kind: str, groups, bytes_per_chip: float
             share = bytes_per_chip * _RING_FACTOR[kind](k)
             for idx, i in enumerate(g):
                 m[i, g[(idx + 1) % k]] += share
+        elif kind in _SENDS:
+            src, dst = (g[:-1], g[1:]) if kind == "send_next" \
+                else (g[1:], g[:-1])
+            for i, j in zip(src, dst):
+                m[i, j] += bytes_per_chip
         else:
             raise KeyError(f"unknown collective kind {kind!r}")
     return m

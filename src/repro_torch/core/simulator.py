@@ -1103,7 +1103,10 @@ def _prepare(specs, rates, cfg: SimConfig, pad_shape, device, schedules,
             if sched.n != spec.n:
                 raise ValueError(f"schedule for {sched.n} nodes paired "
                                  f"with a {spec.n}-node spec")
-        sbatch, kmax = stack_schedules(schedules, shape.n, k_pad)
+        with _span("sim.phase_tables", cat="sim",
+                   k=max(sc.k for sc in schedules), n_pad=shape.n) as sp:
+            sbatch, kmax = stack_schedules(schedules, shape.n, k_pad)
+            sp.set(k_pad=kmax, bytes=sum(v.nbytes for v in sbatch))
     fills = _pad_fill(specs, shape, schedules, kmax)
 
     def run(run_cfg, probe=None):
@@ -1271,15 +1274,21 @@ def _device_args(batch, sbatch, kmax: int, rates: np.ndarray,
     sched = None
     if sbatch is not None:
         n_pad = sbatch.cum.shape[-1]
-        sched = {k: torch.as_tensor(v, device=dev) for k, v in
-                 _phase_tables(sbatch, srow_np, rate_np,
-                               cfg.cycles).items()}
-        sched.update(
-            k=kmax,
-            cum=torch.as_tensor(sbatch.cum, device=dev).view(
-                s * kmax, n_pad, n_pad),
-            inj_w=torch.as_tensor(sbatch.inj_w, device=dev).view(
-                s * kmax, n_pad))
+        # k: the most live phases of a spec (padded ones end at INF)
+        with _span("sim.phase_tables", cat="sim", k=int(
+                (sbatch.end < INF).sum(1).max()), k_pad=kmax,
+                n_pad=n_pad) as sp:
+            tables = _phase_tables(sbatch, srow_np, rate_np, cfg.cycles)
+            sched = {k: torch.as_tensor(v, device=dev)
+                     for k, v in tables.items()}
+            sched.update(
+                k=kmax,
+                cum=torch.as_tensor(sbatch.cum, device=dev).view(
+                    s * kmax, n_pad, n_pad),
+                inj_w=torch.as_tensor(sbatch.inj_w, device=dev).view(
+                    s * kmax, n_pad))
+            sp.set(bytes=sum(v.nbytes for v in tables.values())
+                   + sbatch.cum.nbytes + sbatch.inj_w.nbytes)
     return lv, srow, rate, sched
 
 

@@ -35,7 +35,8 @@ Default layout (single pod 16x16, multi-pod 2x16x16):
 `CollectiveOp` / `step_collective_ops` derive the ordered collectives a
 sharded train step issues from the architecture config alone; the
 collective workloads (`workloads/collective.py`) need them, and they
-need neither a mesh nor torch.
+need neither a mesh nor torch.  The pipeline x expert x ZeRO-1 step
+is `models.pipeline_step`'s.
 """
 from __future__ import annotations
 
