@@ -48,13 +48,20 @@ CUDA toolkit (nvcc).  Phases, each printing one JSON line:
                        the wrapper's host time) and the plain version's
   profile              torch.profiler: the device busy/idle share of
                        simulated cycles at the main path's widest group
-  cycle_kernels        at that group: the fused body equals the PyTorch
-                       body (alloc="torch") on the card in every counter,
-                       bit for bit; from the fused run's last state,
-                       cycle_route and cycle_move equal their plain
-                       versions (kernels/cycle/ref.py) cycle by cycle;
-                       each kernel's device time per launch beside its
-                       byte bound and the plain version's time
+  cycle_kernels        at that group, static (the main path's settings)
+                       and as perfbench's hotspot-adaptive cell runs it
+                       (adaptive routing, the recorder in 6 windows, a
+                       6-phase drifting hotspot): the fused body equals
+                       the PyTorch body (alloc="torch") on the card in
+                       every result key, bit for bit; from the fused
+                       run's last state, cycle_route and cycle_move equal
+                       their plain versions (kernels/cycle/ref.py) cycle
+                       by cycle; each kernel's device time per launch
+                       beside its byte bound and the plain version's
+                       time, and the graphed loop's µs a cycle on each
+                       body; the registers, stack and local bytes of
+                       every instantiation (cuobjdump
+                       --dump-resource-usage) and its ptxas lines
   workload_kernel_vs_plain
                        the heterogeneous workload batch of
                        tests/test_torch_workloads.py (multi-phase
@@ -2876,28 +2883,84 @@ def cycle_bytes(a: dict) -> tuple:
     VC's credit and reads its credit-pipe slot (12 B); reads each port's
     two channel ids (8 B), each channel's link slot (12 B), each node's
     injection bits (16 B) and weight a row (4 B), and rr (12 B a row).
+    Adaptive runs (`prod` given) add each VC's productive-port word and
+    its dvc store (8 B a VC); the recorder (its counters given) adds each
+    channel's occupancy, read and written (8 B a channel VC).
     cycle_move reads the allocation (win 1 B a VC, vc and req 8 B a
-    port) and rr (8 B a row); what the winners move depends on the
+    port) and rr (8 B a row); what the winners move (their dvc, the
+    recorder's traversals and ejections among it) depends on the
     traffic and is left out."""
     B, N, PI, V, _ = a["buf_dst"].shape
     C = a["link_dst"].shape[1]
     P = PI - 1
     route = (19 * B * N * PI * V + 12 * B * N * P * V + 8 * B * N * P
              + 12 * B * C + 16 * N + 4 * B * N + 12 * B)
+    if a.get("prod") is not None:
+        route += 8 * B * N * PI * V
+    if a.get("tel_busy") is not None:
+        route += 8 * B * C * V
     move = B * N * PI * V + 8 * B * N * PI + 8 * B
     return route, move
 
 
-def cycle_kernels_phase(torch, group, group_rates, launches) -> list:
-    """`cycle_kernels`; returns the `kernels` entries of cycle_route and
-    cycle_move (`launches`: the main path's)."""
+#: cell 3's simulator settings (perfbench `fig4-n256-organic.hotspot-
+#: adaptive`): Fig. 4's cycles, adaptive routing, the recorder in 6
+#: windows, under a hotspot drifting over 6 phases of 200 cycles
+CYCLE_ADAPTIVE = dict(routing="adaptive", telemetry=True,
+                      telemetry_windows=6)
+CYCLE_HOTSPOT = dict(n_phases=6, dwell=200)
+# the cycles of the two runs whose difference times a body's cycle, and
+# the pairs whose median it takes (the first pair also warms up)
+LOOP_CYCLES = (300, 1300)
+LOOP_ROUNDS = 3
+
+
+def cycle_resources(lib_path, nvcc_path) -> dict:
+    """{kernel: {registers, stack, local}} of every cycle_route /
+    cycle_move instantiation in a library (cuobjdump
+    --dump-resource-usage), named `cycle_route<4>` (<kV> before the
+    adaptive and recorder template arguments) or `cycle_route<4, 0, 1>`
+    (<kV, kAdaptive, kRecord>)."""
+    tool = Path(nvcc_path).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "--dump-resource-usage",
+                           str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function (\w+):", ln)
+        if m:
+            k = re.search(r"(cycle_route|cycle_move)ILi(\d+)E"
+                          r"(?:Lb([01])ELb([01])E)?E", m.group(1))
+            name = None
+            if k:
+                name = f"{k.group(1)}<{k.group(2)}" + (
+                    f", {k.group(3)}, {k.group(4)}>" if k.group(3)
+                    else ">")
+            continue
+        if name:
+            regs = re.search(r"REG:(\d+)", ln)
+            if regs:
+                out[name] = dict(
+                    registers=int(regs.group(1)),
+                    stack=int(re.search(r"STACK:(\d+)", ln).group(1)),
+                    local=int(re.search(r"LOCAL:(\d+)", ln).group(1)))
+                name = None
+    return out
+
+
+def cycle_mode(torch, group, group_rates, cfg, schedules, label) -> dict:
+    """One mode of `cycle_kernels` at a group: the fused run equals the
+    PyTorch body on the card (alloc="torch") in every result key, bit
+    for bit; from its last state cycle_route and cycle_move equal their
+    plain versions cycle by cycle; then each kernel's device time a
+    launch (profiler), a cycle's CUDA-event time, the byte bounds, the
+    plain versions' times, and the graphed loop's µs a cycle on each
+    body (the difference of a LOOP_CYCLES run pair)."""
     import numpy as np
     from repro_torch.core import simulator as sim
     from repro_torch.kernels.cycle import ops as cops
     from repro_torch.kernels.cycle.ref import cycle_move_ref, cycle_route_ref
     from repro_torch.kernels.netstep.ops import netstep
-    t0 = time.perf_counter()
-    cfg = sim.SimConfig()
     # the fused run, keeping its kernels' arguments: they end at cycle
     # cfg.cycles with the network loaded at each row's rate
     held, route = {}, sim.cycle_route
@@ -2907,18 +2970,21 @@ def cycle_kernels_phase(torch, group, group_rates, launches) -> list:
         route(a, measuring)
     sim.cycle_route = keep
     try:
-        fused = sim.run_batch(group, group_rates, cfg)
+        fused = sim.run_batch(group, group_rates, cfg, schedules=schedules)
     finally:
         sim.cycle_route = route
-    check("a" in held, "the main path's widest group missed the fused body")
-    on_torch = sim.run_batch(group, group_rates, cfg._replace(alloc="torch"))
+    check("a" in held, f"{label}: the group missed the fused body")
+    on_torch = sim.run_batch(group, group_rates, cfg._replace(alloc="torch"),
+                             schedules=schedules)
     keys = 0
     for i, (f, b) in enumerate(zip(fused, on_torch)):
-        check(f.keys() == b.keys(), f"spec {i}: result keys differ")
+        check(f.keys() == b.keys(), f"{label} spec {i}: result keys differ")
         for key in f:
+            if key == "pad_fill":
+                continue
             x, y = np.asarray(f[key]), np.asarray(b[key])
             check(np.array_equal(x, y, equal_nan=x.dtype.kind == "f"),
-                  f"spec {i} {key}: fused {x.tolist()} torch body "
+                  f"{label} spec {i} {key}: fused {x.tolist()} torch body "
                   f"{y.tolist()}")
             keys += 1
 
@@ -2932,9 +2998,15 @@ def cycle_kernels_phase(torch, group, group_rates, launches) -> list:
         for k in cops.ARGS:
             if k != "ticket" and isinstance(x.get(k), torch.Tensor):
                 check(torch.equal(x[k], y[k]),
-                      f"{what} at cycle {int(y['t'][0])}: {k} differs")
+                      f"{label} {what} at cycle {int(y['t'][0])}: {k} "
+                      f"differs")
 
     a = held["a"]
+    hold = a["rate_t"] is not None
+    if hold:
+        # the phase tables end at cfg.cycles: go on from the first
+        # measured cycle, and keep the timed cycles there
+        a["t"].fill_(cfg.warmup)
     ka, ra = clone(a), clone(a)
     for _ in range(CYCLE_CHECKS):
         cops.cycle_route(ka, True)
@@ -2952,6 +3024,8 @@ def cycle_kernels_phase(torch, group, group_rates, launches) -> list:
         cops.cycle_route(x, True)
         cops.cycle_move(x, *netstep(x["op_slot"], x["eligible"],
                                     x["rr_vc"], x["rr_port"]), True)
+        if hold:
+            x["t"].fill_(cfg.warmup)
 
     cycle_ms = time_ms(torch, one_cycle, TIMING_SAMPLES, LAUNCHES_PER_SAMPLE)
     per_kernel = wrapper_device_ms(torch, one_cycle,
@@ -2966,24 +3040,84 @@ def cycle_kernels_phase(torch, group, group_rates, launches) -> list:
     # every index the plain version forms stays in range
     move_plain_ms = time_ms(torch, lambda: cycle_move_ref(
         pa, win, vc, req, True), PLAIN_CYCLE_SAMPLES, PLAIN_CYCLE_REPS)
+
+    def loop_us(fused_body: bool) -> float:
+        """µs a measured cycle of the graphed loop on one body: the
+        difference of two runs of LOOP_CYCLES cycles (set-up and readback
+        cancel), the median of LOOP_ROUNDS pairs."""
+        real = sim._fused
+        if not fused_body:
+            sim._fused = lambda device, cfg, probe: False
+        try:
+            per_cycle = []
+            for _ in range(LOOP_ROUNDS):
+                walls = []
+                for n in LOOP_CYCLES:
+                    run_cfg = cfg._replace(cycles=n, warmup=0)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sim.run_batch(group, group_rates, run_cfg,
+                                  schedules=schedules)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                per_cycle.append(1e6 * (walls[1] - walls[0])
+                                 / (LOOP_CYCLES[1] - LOOP_CYCLES[0]))
+        finally:
+            sim._fused = real
+        return sorted(per_cycle)[len(per_cycle) // 2]
+
     n_bytes = dict(zip(("cycle_route", "cycle_move"), cycle_bytes(a)))
-    plain_ms = dict(cycle_route=route_plain_ms, cycle_move=move_plain_ms)
+    return dict(
+        label=label, shape=list(a["op_slot"].shape), cycles=cfg.cycles,
+        config={k: v for k, v in cfg._asdict().items()
+                if k in ("routing", "telemetry", "telemetry_windows")},
+        fused_equals_torch_body=True, keys_compared=keys,
+        kernel_equals_plain_cycles=CYCLE_CHECKS,
+        cycle_events_ms=cycle_ms, device_ms=per_kernel,
+        kernel_device_ms={name: sum(v for k, v in per_kernel.items()
+                                    if name in k) or None
+                          for name in n_bytes},
+        bytes=n_bytes,
+        bound_ms={k: 1e3 * v / PEAK_BYTES_PER_S for k, v in n_bytes.items()},
+        plain_ms=dict(cycle_route=route_plain_ms, cycle_move=move_plain_ms),
+        loop_us_per_cycle=dict(fused=loop_us(True), torch_body=loop_us(False)))
+
+
+def cycle_kernels_phase(torch, group, group_rates, group_topos,
+                        launches) -> list:
+    """`cycle_kernels`; returns the `kernels` entries of cycle_route and
+    cycle_move (`launches`: the main path's) from the static mode."""
+    from repro_torch import workloads as W
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels.build import nvcc
+    from repro_torch.kernels.cycle import ops as cops
+    t0 = time.perf_counter()
+    static = cycle_mode(torch, group, group_rates, sim.SimConfig(), None,
+                        "static")
+    scheds = [W.hotspot_drift(topo, **CYCLE_HOTSPOT).compile()
+              for topo in group_topos]
+    adaptive = cycle_mode(
+        torch, group, group_rates,
+        sim.SimConfig(cycles=EXP_CYCLES, warmup=EXP_WARMUP,
+                      **CYCLE_ADAPTIVE), scheds, "hotspot_adaptive_recorder")
+    lib = cops.LIB.library_path()
+    resources = cycle_resources(lib, nvcc())
+    check(resources, f"cuobjdump found no cycle kernel in {lib}")
     rows = []
     for name in ("cycle_route", "cycle_move"):
-        dev_ms = sum(v for k, v in per_kernel.items() if name in k) or None
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/cycle/csrc/cycle.cu",
             replaces="src/repro/core/simulator.py:585",
-            launches=launches[name], max_abs_err=0, ms=dev_ms,
-            plain_ms=plain_ms[name],
-            bound_ms=1e3 * n_bytes[name] / PEAK_BYTES_PER_S,
-            bound_by="bytes", bytes=n_bytes[name], library_ms=None))
-    emit("cycle_kernels", shape=list(a["op_slot"].shape), cycles=cfg.cycles,
-         fused_equals_torch_body=True, keys_compared=keys,
-         kernel_equals_plain_cycles=CYCLE_CHECKS,
-         cycle_events_ms=cycle_ms,
-         device_ms=per_kernel,
+            launches=launches[name], max_abs_err=0,
+            ms=static["kernel_device_ms"][name],
+            plain_ms=static["plain_ms"][name],
+            bound_ms=static["bound_ms"][name],
+            bound_by="bytes", bytes=static["bytes"][name], library_ms=None))
+    emit("cycle_kernels", shape=static["shape"], cycles=static["cycles"],
+         fused_equals_torch_body=True, modes=[static, adaptive],
+         resource_usage=resources,
+         ptxas=ptxas_functions(lib),
          kernels=rows, seconds=round(time.perf_counter() - t0, 3))
     return rows
 
@@ -5786,7 +5920,7 @@ def main() -> int:
              "device_launches_per_cycle"],
          top_device_us_per_cycle=static_profile.pop("top_device_us"))
     cycle_rows = cycle_kernels_phase(torch, group, group_rates,
-                                     cycle_launches)
+                                     [topos[-1]] * 4, cycle_launches)
 
     workload_phase(torch, dev, netstep)
     exp_launches = experiments_phase(torch, dev, smi, netstep,

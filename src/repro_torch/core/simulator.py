@@ -24,15 +24,14 @@ body runs eagerly every cycle.  The loop makes no host
 synchronisation: no `.item()`, no branch on a tensor — only on the
 host's copy of the cycle counter.
 
-Two bodies compute a cycle, bit for bit alike.  Static and workload runs
-on the card with the `netstep` kernel (`_fused`) run the fused one: two
-hand-written kernels (`kernels.cycle`: §1-§4 deliveries, credit
-returns, injection and route lookup; §5 pops, credits, ejections,
-traversals and the counters) around `netstep`, three launches a cycle
-on int32 state.  Every other run keeps the PyTorch body of about 170
-stock ops: the CPU, `alloc="torch"`, adaptive routing, the flight
-recorder and op traces; it is also the fused body's oracle in the card
-tests.
+Two bodies compute a cycle, bit for bit alike.  Every run on the card
+with the `netstep` kernel (`_fused`) runs the fused one, in every mode:
+two hand-written kernels (`kernels.cycle`: §1-§4 deliveries, credit
+returns, injection and the static or adaptive route lookup; §5 pops,
+credits, ejections, traversals, the counters and the flight recorder's)
+around `netstep`, three launches a cycle on int32 state.  The PyTorch
+body, 166-236 stock ops a cycle, serves the CPU, `alloc="torch"` and
+op traces; it is also the fused body's oracle in the card tests.
 
 Padding invariance rests on the reference's three ingredients, kept
 as they are: a counter-based hash of (seed, cycle, node, stream) for
@@ -478,12 +477,11 @@ def _graphed(device, probe: dict | None) -> bool:
 def _fused(device, cfg: SimConfig, probe: dict | None) -> bool:
     """Whether each cycle runs as the fused kernels (`kernels.cycle`)
     around the `netstep` kernel: on a CUDA device with the kernel
-    allocator, static routing, no flight recorder and no op trace.  Every
-    other run keeps the PyTorch body: the CPU, `alloc="torch"`, adaptive
-    routing, the recorder and `trace_batch`."""
+    allocator and no op trace, in every mode (static or adaptive routing,
+    with or without the flight recorder).  Every other run keeps the
+    PyTorch body: the CPU, `alloc="torch"` and `trace_batch`."""
     return torch.device(device).type == "cuda" and \
         resolve_alloc(cfg.alloc, device) == "cuda" and \
-        cfg.routing == "static" and not cfg.telemetry and \
         not (probe is not None and "cycle" in probe)
 
 
@@ -497,6 +495,45 @@ _FUSED_STATE = ("buf_dst", "buf_t", "head", "cnt", "credits", "link_dst",
 _SHARED = ("t", "u_inj", "u_dst", "vcs", "rr", "delivered", "offered",
            "accepted", "lat_node")
 _PHASE_COUNTERS = ("delivered_ph", "offered_ph", "accepted_ph", "lat_ph")
+#: the flight recorder's counters (DESIGN.md §13, §16), kept for both
+#: bodies with the recorder on (`_recorder_counters`): busy, stall [nw, B,
+#: C+1], occupancy [nw, B, C+1, V], injections, ejections [nw, B, N] and
+#: the latency histogram [B, LAT_HIST_BINS], nw = max(W, 1) windows
+_RECORDER = ("tel_busy", "tel_stall", "tel_occ", "tel_inj", "tel_eject",
+             "tel_hist")
+
+
+def _recorder_counters(cfg: SimConfig, B: int, n: int, c: int,
+                       dev) -> dict:
+    """The recorder's counters, int32 zeros, each with a leading window
+    axis (one window when W = 0): each measured cycle adds into one
+    window, so the aggregates are the window sums, formed once after the
+    loop (`_recorder_outputs`).  Row C is sacrificial.  All None without
+    the recorder."""
+    if not cfg.telemetry:
+        return dict.fromkeys(_RECORDER)
+    nw, V = max(cfg.telemetry_windows, 1), cfg.n_vcs
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+    return dict(tel_busy=zeros(nw, B, c + 1), tel_stall=zeros(nw, B, c + 1),
+                tel_occ=zeros(nw, B, c + 1, V), tel_inj=zeros(nw, B, n),
+                tel_eject=zeros(nw, B, n),
+                tel_hist=zeros(B, LAT_HIST_BINS))
+
+
+def _recorder_outputs(tel: dict, cfg: SimConfig) -> tuple:
+    """The recorder's outputs: the window sums of its counters and the
+    latency histogram, then, with W windows, the counters by window;
+    none without the recorder."""
+    if not cfg.telemetry:
+        return ()
+    wins = [tel[k] for k in _RECORDER[:5]]
+    out = tuple(x.sum(0, dtype=torch.int32) for x in wins) + (
+        tel["tel_hist"],)
+    if cfg.telemetry_windows:
+        out += tuple(x.transpose(0, 1) for x in wins)
+    return out
 
 
 def _fused_args(lv: dict, srow, rate, sched: dict | None, n: int, p: int,
@@ -505,7 +542,11 @@ def _fused_args(lv: dict, srow, rate, sched: dict | None, n: int, p: int,
     the ones the loop keeps for both bodies (`_SHARED`, and in workload
     runs `_PHASE_COUNTERS`): per-row spec leaves, the injection tables and
     the state, int32 (every value fits: cycles, node ids, counts <= Bd)
-    and without the body's sacrificial slots and channel row."""
+    and without the body's sacrificial slots and channel row (the
+    recorder's counters, kept for both bodies, keep theirs).  Adaptive
+    runs add `prod`, the productive-ports leaf packed to P bits a (spec,
+    dst, node), and `dvc`; `windows`, `warmup` and `meas` place each
+    measured cycle in the recorder's windows."""
     B, dev = srow.shape[0], srow.device
     V, Bd, PI = cfg.n_vcs, cfg.buf_depth, p + 1
     i32 = torch.int32
@@ -532,8 +573,13 @@ def _fused_args(lv: dict, srow, rate, sched: dict | None, n: int, p: int,
              credit_pipe=zeros(B, c, d, V), op_slot=zeros(B, n, PI, V),
              eligible=zeros(B, n, PI, V, dtype=torch.bool),
              rr_vc=zeros(B), rr_port=zeros(B), delivered_ph=None,
-             offered_ph=None, accepted_ph=None, lat_ph=None,
-             ticket=zeros(1))
+             offered_ph=None, accepted_ph=None, lat_ph=None, prod=None,
+             dvc=None, ticket=zeros(1), windows=cfg.telemetry_windows,
+             warmup=cfg.warmup, meas=cfg.cycles - cfg.warmup)
+    if cfg.routing == "adaptive":
+        bit = torch.arange(p, dtype=i32, device=dev)
+        a.update(prod=(lv["prod"].to(i32) << bit).sum(3, dtype=i32),
+                 dvc=zeros(B, n, PI, V))
     if sched is not None:
         a.update(inj_w=sched["inj_w"], cum=sched["cum"],
                  **{k: sched[j].contiguous() for k, j in (
@@ -604,13 +650,15 @@ def _fused_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
                 n: int, p: int, c: int, d: int, cfg: SimConfig, alloc_fn):
     """The fused body of `_simulate_rows`: `cycle_route`, `alloc_fn` and
     `cycle_move` on int32 state of their own (`_fused_args`) and the
-    loop's `shared` tensors.  Returns (cycle, state, recorder) as
-    `_torch_body` does; it keeps no recorder."""
+    loop's `shared` tensors.  Returns (cycle, state) as `_torch_body`
+    does."""
     fa = _fused_args(lv, srow, rate, sched, n, p, c, d, cfg)
     fa.update(shared)
     state = [fa[k] for k in _FUSED_STATE]
     if sched is not None:
         state += [fa[k] for k in _PHASE_COUNTERS]
+    if cfg.telemetry:
+        state += [fa[k] for k in _RECORDER]
 
     def cycle(measuring: bool) -> None:
         """Simulate cycle `t` and advance `t` in three launches:
@@ -620,7 +668,7 @@ def _fused_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
             fa["op_slot"], fa["eligible"], fa["rr_vc"], fa["rr_port"])
         cycle_move(fa, win_mask, vc_choice, out_req, measuring)
 
-    return cycle, state, lambda: ()
+    return cycle, state
 
 
 def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
@@ -628,11 +676,9 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
     """The PyTorch body of `_simulate_rows`: about 170 stock ops a cycle
     on int64 state of its own, with sacrificial slots and a sacrificial
     channel row, around `alloc_fn`.  `shared` holds the tensors the loop
-    keeps for both bodies (`_simulate_rows`).  Returns (cycle, state,
-    recorder): `cycle(measuring)` simulates cycle `t` and advances
-    it, `state` lists the tensors carried across cycles, and
-    `recorder()` gives the flight recorder's outputs after the loop (none
-    without `cfg.telemetry`)."""
+    keeps for both bodies (`_simulate_rows`).  Returns (cycle, state):
+    `cycle(measuring)` simulates cycle `t` and advances it, and `state`
+    lists the tensors carried across cycles."""
     N, P, C, D = n, p, c, d
     V, Bd = cfg.n_vcs, cfg.buf_depth
     PI = P + 1
@@ -706,17 +752,9 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
     credit_pipe_flat = credit_pipe.view(-1)
     W = cfg.telemetry_windows
     if cfg.telemetry:
-        # the recorder's counters with a leading window axis (one window
-        # when W = 0); each measured cycle adds into one window, so the
-        # aggregates are the window sums, formed once after the loop
         meas = cfg.cycles - cfg.warmup
-        nw = max(W, 1)
-        tel_busy = torch.zeros((nw, B, C + 1), dtype=i32, device=dev)
-        tel_stall = torch.zeros((nw, B, C + 1), dtype=i32, device=dev)
-        tel_occ = torch.zeros((nw, B, C + 1, V), dtype=i32, device=dev)
-        tel_inj = torch.zeros((nw, B, N), dtype=i32, device=dev)
-        tel_eject = torch.zeros((nw, B, N), dtype=i32, device=dev)
-        tel_hist = torch.zeros((B, LAT_HIST_BINS), dtype=i32, device=dev)
+        tel_busy, tel_stall, tel_occ, tel_inj, tel_eject, tel_hist = (
+            shared[k] for k in _RECORDER)
         hist_edges = 2 ** torch.arange(LAT_HIST_BINS - 1, dtype=i64,
                                        device=dev)
         # row offsets into the flattened [B, C+1] and [B, bins] counters
@@ -729,8 +767,7 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
     if sched is not None:
         state += [delivered_ph, offered_ph, accepted_ph, lat_ph]
     if cfg.telemetry:
-        state += [tel_busy, tel_stall, tel_occ, tel_inj, tel_eject,
-                  tel_hist]
+        state += [shared[k] for k in _RECORDER]
 
     def cycle(measuring: bool) -> None:
         """Simulate cycle `t` and advance `t`.  `measuring` (past the
@@ -889,19 +926,7 @@ def _torch_body(lv: dict, srow, rate, sched: dict | None, shared: dict,
                 eject.int().view(-1))
         t.add_(1)
 
-    def recorder() -> tuple:
-        """The recorder's outputs: the window sums of its counters and
-        the latency histogram, then, with W windows, the counters by
-        window."""
-        if not cfg.telemetry:
-            return ()
-        wins = (tel_busy, tel_stall, tel_occ, tel_inj, tel_eject)
-        out = tuple(x.sum(0, dtype=i32) for x in wins) + (tel_hist,)
-        if W:
-            out += tuple(x.transpose(0, 1) for x in wins)
-        return out
-
-    return cycle, state, recorder
+    return cycle, state
 
 def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
                    n: int, p: int, c: int, d: int, cfg: SimConfig,
@@ -941,11 +966,12 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
     eager cycle, which loads whatever its ops need, and is then captured
     as a CUDA graph that every later cycle of that body replays.  On the
     CPU and under an op trace every cycle runs the body eagerly.  Where
-    `_fused` holds (a CUDA device, the `netstep` kernel, static routing,
-    no recorder, no op trace: static and workload runs on the card) the
-    body is the fused kernels `cycle_route`, `alloc_fn` and `cycle_move`
-    on int32 state of their own (`_fused_body`); every other run, the
-    CPU's included, keeps the PyTorch body (`_torch_body`).
+    `_fused` holds (a CUDA device, the `netstep` kernel, no op trace:
+    every mode of a run on the card) the body is the fused kernels
+    `cycle_route`, `alloc_fn` and `cycle_move` on int32 state of their
+    own (`_fused_body`); the CPU, `alloc="torch"` and op traces keep the
+    PyTorch body (`_torch_body`).  Both bodies add into the loop's
+    counters, the recorder's included (`_recorder_counters`).
 
     Each chunk of _BITS_CHUNK cycles is one `sim.cycles` span (`obs.
     trace`) with the attributes `t0`, `cycles`, `measured` (cycles past
@@ -989,10 +1015,11 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
             torch.zeros((B * K,), dtype=i32, device=dev),
             torch.zeros((B * K,), dtype=i32, device=dev),
             torch.zeros((B * K, N), dtype=i32, device=dev))))
+    shared.update(_recorder_counters(cfg, B, N, c, dev))
     node_r = torch.arange(N, device=dev)
     adaptive = cfg.routing == "adaptive"
     fused = _fused(dev, cfg, probe)
-    cycle, state, recorder = (_fused_body if fused else _torch_body)(
+    cycle, state = (_fused_body if fused else _torch_body)(
         lv, srow, rate, sched, shared, n, p, c, d, cfg, alloc_fn)
     if probe is not None:
         probe["state_bytes"] = sum(x.numel() * x.element_size()
@@ -1052,7 +1079,7 @@ def _simulate_rows(lv: dict, srow: torch.Tensor, rate: torch.Tensor,
         d_ph, o_ph, a_ph, l_ph = (shared[k] for k in _PHASE_COUNTERS)
         out += (d_ph.view(B, K), o_ph.view(B, K), a_ph.view(B, K),
                 l_ph.view(B, K, N))
-    return out + recorder()
+    return out + _recorder_outputs(shared, cfg)
 
 
 def _pad_fill(specs, shape, schedules, kmax) -> list[dict]:

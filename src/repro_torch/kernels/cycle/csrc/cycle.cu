@@ -3,11 +3,15 @@
 //
 // Replaces no TPU kernel.  The JAX package runs the cycle as the XLA ops of
 // its scan step (src/repro/core/simulator.py:585); the port ran the same
-// cycle as 166-176 stock PyTorch ops (`core.simulator._torch_body`, the
-// PyTorch body, which stays the oracle).  Same function, bit for bit:
+// cycle as 166-236 stock PyTorch ops (`core.simulator._torch_body`, the
+// PyTorch body, which stays the oracle and serves the CPU, alloc="torch"
+// and op traces).  Same function, bit for bit, in every mode of the
+// simulator (static or workload injection, static or adaptive routing,
+// with or without the flight recorder):
 //   cycle_route (§1-§4): link deliveries into the input buffers, credit
 //     returns onto the output ports, injection, the route lookup and the
-//     allocator's arguments (op_slot, eligible, rr % V, rr % PI);
+//     allocator's arguments (op_slot, eligible, rr % V, rr % PI; adaptive
+//     runs also each VC's downstream VC, dvc);
 //   netstep (unchanged, its own library): the switch allocation;
 //   cycle_move (§5): pops, upstream credit returns, ejections and link
 //     traversals, the counters, the rotating priority and the cycle.
@@ -32,7 +36,18 @@
 //   warp (its credits pass between them through memory and __syncwarp) and
 //   op_slot / eligible are stored as the contiguous spans netstep reads.
 // - V in {1, 2, 4, 8} is a template argument, so the VC loops unroll;
-//   any other V <= 32 takes the generic instantiation.
+//   any other V <= 32 takes the generic instantiation.  Adaptive routing
+//   (`prod` given) and the flight recorder (its counters given) are two
+//   more, <kV, kAdaptive, kRecord>, so <kV, false, false>, the static and
+//   workload runs' code, carries no branch of either.
+// - The adaptive lookup scores each VC's productive ports by their
+//   downstream adaptive credit.  Each out-port lane sums its own port's
+//   credits once, after §2, and its router's lanes take the sums with
+//   __shfl_sync; `prod` arrives packed, P bits a (spec, dst, node).
+// - The recorder adds only what one lane sees: each in-port the
+//   occupancy of its upstream channel, each traversal its out channel,
+//   each ejection its node and latency bin; starved head flits, which
+//   several in-ports may charge to one channel, add atomically.
 // - The per-row spec leaves arrive gathered and with each channel's depth
 //   beside it (up_delay, out_delay), one load instead of two in a chain.
 // - The destination draw is a binary search over the cumulative traffic
@@ -95,9 +110,20 @@ struct CycleParams {
   int32_t* offered_ph;       // [B * K]
   int32_t* accepted_ph;      // [B * K]
   int32_t* lat_ph;           // [B * K, N]
+  // adaptive routing (DESIGN.md §15), else null
+  const int32_t* prod;       // [S, N, N] productive out ports of (spec,
+                             // dst, node): bit o for port o
+  int32_t* dvc;              // [B, N, PI, V] each VC's downstream VC
+  // the flight recorder (DESIGN.md §13, §16), else null; nw = max(W, 1)
+  int32_t* tel_busy;         // [nw, B, C + 1] traversals (row C stays 0)
+  int32_t* tel_stall;        // [nw, B, C + 1] credit-starved head flits
+  int32_t* tel_occ;          // [nw, B, C + 1, V] occupancy sums
+  int32_t* tel_inj;          // [nw, B, N] injections
+  int32_t* tel_eject;        // [nw, B, N] ejections
+  int32_t* tel_hist;         // [B, kLatHistBins] latency histogram
   int64_t* t;                // [1] the cycle
   uint32_t* ticket;          // [1] blocks of cycle_move done, 0 between
-  int rows, n, p, v, bd, c, d, measuring;
+  int rows, n, p, v, bd, c, d, measuring, windows, warmup, meas;
 };
 
 namespace {
@@ -107,6 +133,7 @@ constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kEject = -2;       // Routing.EJECT
 constexpr int kBitsChunk = 256;  // simulator._BITS_CHUNK
+constexpr int kLatHistBins = 16;  // simulator.LAT_HIST_BINS
 
 // This lane's router and port in netstep's layout.
 struct Lane {
@@ -174,8 +201,28 @@ __device__ __forceinline__ void row_add(bool on, int row, int x, int y,
   }
 }
 
-// §1-§4.  kV in {1, 2, 4, 8}, or 0 for any V given at run time.
-template <int kV>
+// The recorder's window of cycle T (measuring): the measured cycles split
+// into `windows` windows, ((T - warmup) * W) // meas; 0 without windows.
+__device__ __forceinline__ int window_of(const CycleParams& a, int T) {
+  if (a.windows <= 0) return 0;
+  const long long w = (long long)(T - a.warmup) * a.windows / a.meas;
+  return w < 0 ? 0 : (w < a.windows ? (int)w : a.windows - 1);
+}
+
+// The latency histogram's bin of `lat`: bin h counts [2^(h-1), 2^h), the
+// last bin open-ended, as torch.bucketize(lat, 2 ** arange(bins - 1),
+// right=True) counts it.
+__device__ __forceinline__ int lat_bin(int lat) {
+  if (lat <= 0) return 0;
+  const int h = 32 - __clz(lat);
+  return h < kLatHistBins - 1 ? h : kLatHistBins - 1;
+}
+
+// §1-§4.  kV in {1, 2, 4, 8}, or 0 for any V given at run time; kAdaptive
+// routes VCs >= 1 over the productive ports (`prod`), kRecord adds the
+// flight recorder's counters.  <kV, false, false> is the static and
+// workload code: every addition sits under `if constexpr`.
+template <int kV, bool kAdaptive, bool kRecord>
 __global__ void __launch_bounds__(kThreads) cycle_route(const CycleParams a) {
   const int N = a.n, P = a.p, PI = a.p + 1, Bd = a.bd, C = a.c, D = a.d;
   const int V = kV > 0 ? kV : a.v;
@@ -185,6 +232,14 @@ __global__ void __launch_bounds__(kThreads) cycle_route(const CycleParams a) {
   const int k = T % kBitsChunk;
   const long long rp = l.router * PI + l.port;  // flat (row, node, port)
   const bool workload = a.rate_t != nullptr;
+  // kRecord: this cycle's window, and its row's offset into the [nw, B,
+  // ...] counters
+  const bool record = kRecord && a.measuring;
+  const long long wrow =
+      kRecord ? (long long)window_of(a, T) * a.rows + l.row : 0;
+  // kAdaptive: this out-port's VC-0 credit, its adaptive credit (summed
+  // over VCs >= 1) and the first of its adaptive VCs with the most credit
+  int cr0 = 0, cr_ad = 0, best_vc = 1;
 
   int want = 0, injected = 0, ph = 0;
   if (l.active && l.port < P) {
@@ -202,6 +257,15 @@ __global__ void __launch_bounds__(kThreads) cycle_route(const CycleParams a) {
         a.cnt[q] += 1;
         a.link_dst[li] = -1;
       }
+      if constexpr (kRecord) {
+        // the occupancy snapshot: post-arrival, pre-pop (injection fills
+        // port P, which no channel enters); one writer a channel
+        if (record) {
+          int32_t* occ = a.tel_occ + (wrow * (C + 1) + uc) * V;
+#pragma unroll
+          for (int c = 0; c < V; ++c) occ[c] += a.cnt[rp * V + c];
+        }
+      }
     }
     // §2: the credits at slot t % D of the channel out of this port
     const int oc = a.out_ch[bnp];
@@ -213,6 +277,21 @@ __global__ void __launch_bounds__(kThreads) cycle_route(const CycleParams a) {
         if (x) {
           a.credits[bnp * V + c] += x;
           a.credit_pipe[ci + c] = 0;
+        }
+      }
+    }
+    if constexpr (kAdaptive) {
+      const int32_t* cr = a.credits + bnp * V;
+      cr0 = cr[0];
+      int most = cr[1];
+      cr_ad = most;
+#pragma unroll
+      for (int c = 2; c < V; ++c) {
+        const int x = cr[c];
+        cr_ad += x;
+        if (x > most) {
+          most = x;
+          best_vc = c;
         }
       }
     }
@@ -247,34 +326,114 @@ __global__ void __launch_bounds__(kThreads) cycle_route(const CycleParams a) {
       a.buf_t[q * Bd + pos] = T;
       a.cnt[q] = cn + 1;
     }
+    if constexpr (kRecord) {
+      if (record && injected) a.tel_inj[wrow * N + l.node] += 1;
+    }
   }
   // the router's credits, returned by its other lanes, are read below
   __syncwarp();
 
-  if (l.active) {
-    // §4: each VC's head flit against the table and its credit
-    const long long s = a.srow[l.row];
-    const long long cb = l.router * P;
+  if constexpr (!kAdaptive) {
+    if (l.active) {
+      // §4: each VC's head flit against the table and its credit
+      const long long s = a.srow[l.row];
+      const long long cb = l.router * P;
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const long long q = rp * V + c;
+        int op = -3;
+        bool el = false;
+        if (a.cnt[q] > 0) {
+          const int dst = a.buf_dst[q * Bd + a.head[q]];
+          const int o = a.table[((s * N + dst) * N + l.node) * PI + l.port];
+          if (o == kEject) {
+            op = P;
+            el = true;
+          } else {
+            op = o;
+            el = o >= 0 && a.credits[(cb + (o < P ? o : P - 1)) * V + c] > 0;
+            if constexpr (kRecord) {
+              // credit starvation, charged to the requested out channel
+              if (record && o >= 0 && !el) {
+                const int st = a.out_ch[cb + (o < P ? o : P - 1)];
+                if (st >= 0) atomicAdd(a.tel_stall + wrow * (C + 1) + st, 1);
+              }
+            }
+          }
+        }
+        a.op_slot[q] = op;
+        a.eligible[q] = el;
+      }
+      if (l.node == 0 && l.port == 0) {
+        const int r = a.rr[l.row];
+        a.rr_vc[l.row] = r % V;
+        a.rr_port[l.row] = r % a.pi[l.row];
+      }
+    }
+  } else {
+    // §4, adaptive (DESIGN.md §15): VC 0 of the downstream port is the
+    // escape class, on the static table; VCs >= 1 take the productive
+    // port with the most adaptive credit (the first on ties) where one
+    // has any.  Every lane of the warp takes part in the shuffles that
+    // pass each out-port's credits to its router's lanes.
+    constexpr int kMaxV = kV > 0 ? kV : 32;
+    const int base = (threadIdx.x & 31) - l.port;  // the router's port 0
+    const long long s = l.active ? a.srow[l.row] : 0;
+    int op[kMaxV], best[kMaxV], ad_port[kMaxV], ad_vc[kMaxV];
+    unsigned cand[kMaxV];
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       const long long q = rp * V + c;
-      int op = -3;
-      bool el = false;
-      if (a.cnt[q] > 0) {
+      op[c] = -3;
+      cand[c] = 0;
+      if (l.active && a.cnt[q] > 0) {
         const int dst = a.buf_dst[q * Bd + a.head[q]];
-        const int o = a.table[((s * N + dst) * N + l.node) * PI + l.port];
-        if (o == kEject) {
-          op = P;
-          el = true;
-        } else {
-          op = o;
-          el = o >= 0 && a.credits[(cb + (o < P ? o : P - 1)) * V + c] > 0;
+        const long long dn = (s * N + dst) * N + l.node;
+        op[c] = a.table[dn * PI + l.port];
+        cand[c] = (unsigned)a.prod[dn];
+      }
+      best[c] = -1;
+      ad_port[c] = 0;
+      ad_vc[c] = 1;
+    }
+    for (int o = 0; o < P; ++o) {
+      const int x = __shfl_sync(kFull, cr_ad, base + o);
+      const int y = __shfl_sync(kFull, best_vc, base + o);
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        if (((cand[c] >> o) & 1u) && x > 0 && x > best[c]) {
+          best[c] = x;
+          ad_port[c] = o;
+          ad_vc[c] = y;
         }
       }
-      a.op_slot[q] = op;
-      a.eligible[q] = el;
     }
-    if (l.node == 0 && l.port == 0) {
+    const long long cb = l.router * P;
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const bool valid = op[c] != -3;
+      const bool ej = op[c] == kEject;
+      const int esc = ej ? P : op[c];
+      const int esc_cr = __shfl_sync(
+          kFull, cr0, base + (esc < 0 ? 0 : (esc < P ? esc : P - 1)));
+      if (l.active) {
+        const long long q = rp * V + c;
+        const bool use_ad = valid && !ej && best[c] > 0;
+        const int slot_c = use_ad ? ad_port[c] : esc;
+        const bool el = valid && slot_c >= 0 &&
+                        (use_ad || ej || (esc >= 0 && esc_cr > 0));
+        a.op_slot[q] = slot_c;
+        a.eligible[q] = el;
+        a.dvc[q] = use_ad ? ad_vc[c] : 0;
+        if constexpr (kRecord) {
+          if (record && valid && !ej && esc >= 0 && !el) {
+            const int st = a.out_ch[cb + (esc < P ? esc : P - 1)];
+            if (st >= 0) atomicAdd(a.tel_stall + wrow * (C + 1) + st, 1);
+          }
+        }
+      }
+    }
+    if (l.active && l.node == 0 && l.port == 0) {
       const int r = a.rr[l.row];
       a.rr_vc[l.row] = r % V;
       a.rr_port[l.row] = r % a.pi[l.row];
@@ -285,8 +444,8 @@ __global__ void __launch_bounds__(kThreads) cycle_route(const CycleParams a) {
             a.accepted, workload ? a.offered_ph : nullptr, a.accepted_ph);
 }
 
-// §5.  kV as in cycle_route.
-template <int kV>
+// §5.  kV, kAdaptive and kRecord as in cycle_route.
+template <int kV, bool kAdaptive, bool kRecord>
 __global__ void __launch_bounds__(kThreads) cycle_move(const CycleParams a) {
   const int N = a.n, P = a.p, PI = a.p + 1, Bd = a.bd, C = a.c, D = a.d;
   const int V = kV > 0 ? kV : a.v;
@@ -294,6 +453,9 @@ __global__ void __launch_bounds__(kThreads) cycle_move(const CycleParams a) {
   const int T = (int)*a.t;
   const long long rp = l.router * PI + l.port;
   const bool workload = a.rate_t != nullptr;
+  const bool record = kRecord && a.measuring;
+  const long long wrow =
+      kRecord ? (long long)window_of(a, T) * a.rows + l.row : 0;
 
   int ejected = 0, ph = 0;
   if (l.active) {
@@ -325,8 +487,16 @@ __global__ void __launch_bounds__(kThreads) cycle_move(const CycleParams a) {
           atomicAdd(a.lat_node + l.router, T - w_t);
           if (workload) atomicAdd(a.lat_ph + (long long)ph * N + l.node,
                                   T - w_t);
+          if constexpr (kRecord) {
+            atomicAdd(a.tel_eject + wrow * N + l.node, 1);
+            atomicAdd(a.tel_hist + (long long)l.row * kLatHistBins +
+                          lat_bin(T - w_t), 1);
+          }
         }
       } else if (rq >= 0 && rq < P) {
+        // the VC the flit takes downstream: its own, or the adaptive
+        // lookup's choice (the upstream credit above stays on wvc)
+        const int dv = kAdaptive ? a.dvc[q] : wvc;
         const long long bo = l.router * P + rq;
         const int oc = a.out_ch[bo];
         if (oc >= 0) {
@@ -334,9 +504,12 @@ __global__ void __launch_bounds__(kThreads) cycle_move(const CycleParams a) {
               ((long long)l.row * C + oc) * D + (a.out_delay[bo] + T) % D;
           a.link_dst[li] = w_dst;
           a.link_t[li] = w_t;
-          a.link_vc[li] = wvc;
+          a.link_vc[li] = dv;
+          if constexpr (kRecord) {
+            if (record) atomicAdd(a.tel_busy + wrow * (C + 1) + oc, 1);
+          }
         }
-        a.credits[bo * V + wvc] -= 1;
+        a.credits[bo * V + dv] -= 1;
       }
     }
     if (l.node == 0 && l.port == 0)
@@ -374,41 +547,59 @@ unsigned grid_of(const CycleParams& a) {
 bool takes(const CycleParams* a) {
   return a->rows > 0 && a->n > 0 && a->p >= 1 && a->p <= 31 && a->v >= 1 &&
          a->v <= 32 && a->bd >= 1 && a->c >= 1 && a->d >= 1 &&
-         (long long)a->rows * a->n <= (1LL << 30);
+         (long long)a->rows * a->n <= (1LL << 30) &&
+         (a->prod == nullptr || a->v >= 2) && a->windows >= 0 &&
+         (a->windows == 0 || a->meas >= 1);
+}
+
+template <int kV, bool kAdaptive, bool kRecord>
+void launch(bool route, unsigned g, cudaStream_t s, const CycleParams& a) {
+  if (route)
+    cycle_route<kV, kAdaptive, kRecord><<<g, kThreads, 0, s>>>(a);
+  else
+    cycle_move<kV, kAdaptive, kRecord><<<g, kThreads, 0, s>>>(a);
+}
+
+template <bool kAdaptive, bool kRecord>
+void launch_v(bool route, unsigned g, cudaStream_t s, const CycleParams& a) {
+  switch (a.v) {
+    case 1: launch<1, kAdaptive, kRecord>(route, g, s, a); break;
+    case 2: launch<2, kAdaptive, kRecord>(route, g, s, a); break;
+    case 4: launch<4, kAdaptive, kRecord>(route, g, s, a); break;
+    case 8: launch<8, kAdaptive, kRecord>(route, g, s, a); break;
+    default: launch<0, kAdaptive, kRecord>(route, g, s, a); break;
+  }
+}
+
+// Launches cycle_route (route) or cycle_move: the instantiation follows
+// from what the run gives, `prod` (adaptive routing) and the recorder's
+// counters.
+int launch_cycle(const CycleParams* a, void* stream, bool route) {
+  if (!takes(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned g = grid_of(*a);
+  const bool adaptive = a->prod != nullptr, record = a->tel_busy != nullptr;
+  if (adaptive && record) launch_v<true, true>(route, g, s, *a);
+  else if (adaptive) launch_v<true, false>(route, g, s, *a);
+  else if (record) launch_v<false, true>(route, g, s, *a);
+  else launch_v<false, false>(route, g, s, *a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launches on `stream` and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for shapes
-// outside what the kernels take (P in [1, 31], V in [1, 32], at most 2^30
-// routers); the wrapper checks types, shapes and contiguity.
+// outside what the kernels take (P in [1, 31], V in [1, 32], V >= 2 with
+// adaptive routing, at most 2^30 routers, windows >= 0 over a measured
+// span of at least one cycle); the wrapper checks types, shapes and
+// contiguity.
 extern "C" int cycle_route_launch(const CycleParams* a, void* stream) {
-  if (!takes(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const unsigned g = grid_of(*a);
-  switch (a->v) {
-    case 1: cycle_route<1><<<g, kThreads, 0, s>>>(*a); break;
-    case 2: cycle_route<2><<<g, kThreads, 0, s>>>(*a); break;
-    case 4: cycle_route<4><<<g, kThreads, 0, s>>>(*a); break;
-    case 8: cycle_route<8><<<g, kThreads, 0, s>>>(*a); break;
-    default: cycle_route<0><<<g, kThreads, 0, s>>>(*a); break;
-  }
-  return (int)cudaGetLastError();
+  return launch_cycle(a, stream, true);
 }
 
 extern "C" int cycle_move_launch(const CycleParams* a, void* stream) {
-  if (!takes(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const unsigned g = grid_of(*a);
-  switch (a->v) {
-    case 1: cycle_move<1><<<g, kThreads, 0, s>>>(*a); break;
-    case 2: cycle_move<2><<<g, kThreads, 0, s>>>(*a); break;
-    case 4: cycle_move<4><<<g, kThreads, 0, s>>>(*a); break;
-    case 8: cycle_move<8><<<g, kThreads, 0, s>>>(*a); break;
-    default: cycle_move<0><<<g, kThreads, 0, s>>>(*a); break;
-  }
-  return (int)cudaGetLastError();
+  return launch_cycle(a, stream, false);
 }
 
 // The destination draw alone, for tests: out[i] = the draw of u[i] from

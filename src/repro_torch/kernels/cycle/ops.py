@@ -2,7 +2,10 @@
 
 `cycle_route` (§1-§4) and `cycle_move` (§5) take the state and arguments
 of one simulator run as a dict of tensors (`ARGS`, as `csrc/cycle.cu`'s
-`CycleParams` lays them out), check them, then on CUDA tensors launch
+`CycleParams` lays them out) and the recorder's window ints (`RUN_INTS`).
+Three groups are given whole or not at all, and pick the run's mode:
+`WORKLOAD` (phase tables), `ADAPTIVE` (adaptive routing) and `RECORDER`
+(the flight recorder).  The wrappers check them, then on CUDA tensors launch
 the hand-written kernels on PyTorch's current stream, and on CPU tensors
 compute the plain versions (`ref.py`).  A CUDA input never falls back: a
 tensor of another device, type, shape or layout, a build failure or a
@@ -23,22 +26,32 @@ from pathlib import Path
 import torch
 
 from ..build import CudaLibrary
-from .ref import cycle_move_ref, cycle_route_ref, draw_ref
+from .ref import LAT_HIST_BINS, cycle_move_ref, cycle_route_ref, draw_ref
 
 #: the tensor arguments, in `CycleParams` order; `None` for an absent
-#: optional one (static runs have no phase tables or phase counters)
+#: optional one (the groups `WORKLOAD`, `ADAPTIVE` and `RECORDER` below)
 ARGS = ("up_ch", "up_delay", "out_ch", "out_delay", "table", "srow", "pi",
         "rate", "inj_w", "cum", "rate_t", "kidx_row", "bk", "u_inj",
         "u_dst", "vcs", "buf_dst", "buf_t", "head", "cnt", "credits",
         "link_dst", "link_t", "link_vc", "credit_pipe", "rr", "op_slot",
         "eligible", "rr_vc", "rr_port", "win", "vc", "req", "delivered",
         "offered", "accepted", "lat_node", "delivered_ph", "offered_ph",
-        "accepted_ph", "lat_ph", "t", "ticket")
+        "accepted_ph", "lat_ph", "prod", "dvc", "tel_busy", "tel_stall",
+        "tel_occ", "tel_inj", "tel_eject", "tel_hist", "t", "ticket")
 #: the integer arguments, in `CycleParams` order
-INTS = ("rows", "n", "p", "v", "bd", "c", "d", "measuring")
+INTS = ("rows", "n", "p", "v", "bd", "c", "d", "measuring", "windows",
+        "warmup", "meas")
+#: the integer arguments `a` gives (the rest follow from the shapes)
+RUN_INTS = ("windows", "warmup", "meas")
 #: the arguments only workload runs give
 WORKLOAD = ("rate_t", "kidx_row", "bk", "delivered_ph", "offered_ph",
             "accepted_ph", "lat_ph")
+#: the arguments only adaptive runs give: the productive ports, packed P
+#: bits a (spec, dst, node), and each VC's downstream VC
+ADAPTIVE = ("prod", "dvc")
+#: the flight recorder's counters, given exactly with the recorder on
+RECORDER = ("tel_busy", "tel_stall", "tel_occ", "tel_inj", "tel_eject",
+            "tel_hist")
 
 
 class _Params(ctypes.Structure):
@@ -63,6 +76,7 @@ def _shapes(a: dict) -> dict:
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
     x, bk = a["inj_w"].shape[0], a["delivered_ph"]
     k = bk.shape[0] if bk is not None else 0
+    nw = max(a["windows"], 1)
     return dict(
         up_ch=(i32, (B, N, P)), up_delay=(i32, (B, N, P)),
         out_ch=(i32, (B, N, P)), out_delay=(i32, (B, N, P)),
@@ -83,23 +97,39 @@ def _shapes(a: dict) -> dict:
         delivered=(i32, (B,)), offered=(i32, (B,)), accepted=(i32, (B,)),
         lat_node=(i32, (B, N)), delivered_ph=(i32, (k,)),
         offered_ph=(i32, (k,)), accepted_ph=(i32, (k,)),
-        lat_ph=(i32, (k, N)), t=(i64, (1,)), ticket=(i32, (1,)))
+        lat_ph=(i32, (k, N)), prod=(i32, (None, N, N)),
+        dvc=(i32, (B, N, PI, V)), tel_busy=(i32, (nw, B, C + 1)),
+        tel_stall=(i32, (nw, B, C + 1)), tel_occ=(i32, (nw, B, C + 1, V)),
+        tel_inj=(i32, (nw, B, N)), tel_eject=(i32, (nw, B, N)),
+        tel_hist=(i32, (B, LAT_HIST_BINS)), t=(i64, (1,)),
+        ticket=(i32, (1,)))
 
 
 def _check(a: dict) -> torch.device:
     """Raise on an argument the kernels do not take; returns the device."""
-    missing = [k for k in ARGS if k not in a]
+    missing = [k for k in ARGS + RUN_INTS if k not in a]
     if missing:
         raise ValueError(f"cycle kernels: missing arguments {missing}")
-    workload = a["rate_t"] is not None
-    for k in WORKLOAD:
-        if (a[k] is not None) != workload:
-            raise ValueError(f"cycle kernels: {k} must be given exactly in "
-                             f"workload runs (with rate_t)")
+    for group, what in ((WORKLOAD, "workload runs (with rate_t)"),
+                        (ADAPTIVE, "adaptive runs (with prod)"),
+                        (RECORDER, "recorder runs (with tel_busy)")):
+        given = a[group[0]] is not None
+        for k in group:
+            if (a[k] is not None) != given:
+                raise ValueError(f"cycle kernels: {k} must be given exactly "
+                                 f"in {what}")
     _, _, PI, V, _ = a["buf_dst"].shape
     if not (2 <= PI <= 32 and 1 <= V <= 32):
         raise ValueError(f"cycle kernels take 1 <= P <= 31 ports and 1 <= "
                          f"V <= 32 VCs, got P={PI - 1}, V={V}")
+    if a["prod"] is not None and V < 2:
+        raise ValueError(f"cycle kernels: adaptive routing needs V >= 2 "
+                         f"(the escape VC and an adaptive one), got V={V}")
+    w, meas = a["windows"], a["meas"]
+    if w < 0 or (w and (meas < 1 or a["tel_busy"] is None)):
+        raise ValueError(f"cycle kernels: {w} recorder windows need the "
+                         f"recorder and a measured span of at least one "
+                         f"cycle, got {meas}")
     devs = set()
     for k, (dtype, shape) in _shapes(a).items():
         x = a[k]
@@ -130,7 +160,8 @@ def _launch(fn, a: dict, measuring: bool, counted) -> None:
     p = _Params(**{k: (a[k].data_ptr() if a[k] is not None else None)
                    for k in ARGS},
                 rows=B, n=N, p=PI - 1, v=V, bd=Bd, c=C, d=D,
-                measuring=int(measuring))
+                measuring=int(measuring),
+                **{k: int(a[k]) for k in RUN_INTS})
     with torch.cuda.device(a["t"].device):
         rc = fn(ctypes.byref(p), torch.cuda.current_stream().cuda_stream)
         capturing = torch.cuda.is_current_stream_capturing()
@@ -144,9 +175,11 @@ def _launch(fn, a: dict, measuring: bool, counted) -> None:
 
 def cycle_route(a: dict, measuring: bool) -> None:
     """§1-§4 of cycle `a["t"]` on the state in `a`, in place, ending in
-    the allocator's arguments `op_slot`, `eligible`, `rr_vc`, `rr_port`;
-    `measuring` adds the offered and accepted counters.  `a` holds every
-    name of `ARGS` but the allocation's `win`, `vc` and `req`."""
+    the allocator's arguments `op_slot`, `eligible`, `rr_vc`, `rr_port`
+    (and, adaptive, `dvc`); `measuring` adds the offered and accepted
+    counters and the recorder's occupancy, injections and stalls.  `a`
+    holds every name of `ARGS` but the allocation's `win`, `vc` and
+    `req`, and `RUN_INTS`."""
     a = dict(a, win=None, vc=None, req=None)
     if _check(a).type == "cpu":
         return cycle_route_ref(a, measuring)
@@ -157,7 +190,8 @@ def cycle_move(a: dict, win: torch.Tensor, vc: torch.Tensor,
                req: torch.Tensor, measuring: bool) -> None:
     """§5 of cycle `a["t"]` given the allocation (`netstep`'s win [B, N,
     PI, V] bool, vc / req [B, N, PI] int32), in place, then `t` + 1;
-    `measuring` adds the delivered and latency counters."""
+    `measuring` adds the delivered and latency counters and the
+    recorder's traversals, ejections and latency bins."""
     a = dict(a, win=win, vc=vc, req=req)
     if _check(a).type == "cpu":
         return cycle_move_ref(a, win, vc, req, measuring)

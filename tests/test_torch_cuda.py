@@ -349,9 +349,10 @@ FUSED_BATCHES = {
 }
 
 
-def _fused_batch(batch, mode, v):
+def _fused_batch(batch, mode, v, **kw):
     """(specs, rates, cfg, schedules) of a fused-kernel test: 300 cycles
-    with a warm-up of 100, so both bodies cross a chunk edge."""
+    with a warm-up of 100, so both bodies cross a chunk edge; `kw` adds
+    to the SimConfig."""
     import repro_torch.workloads as W
     specs, scheds = [], []
     for name, n in FUSED_BATCHES[batch]:
@@ -359,24 +360,41 @@ def _fused_batch(batch, mode, v):
         specs.append(sim.make_spec(r, TR.uniform(r.topo)))
         scheds.append(W.hotspot_drift(r.topo, n_phases=3,
                                       dwell=70).compile())
-    cfg = sim.SimConfig(cycles=300, warmup=100, n_vcs=v)
+    cfg = sim.SimConfig(cycles=300, warmup=100, n_vcs=v, **kw)
     return (specs, np.array([0.05, 0.3, 0.6], np.float32), cfg,
             scheds if mode == "workload" else None)
 
 
+#: the adaptive and recorder modes of the fused-kernel tests: W = 0 and 3
+FUSED_MODES = {
+    "adaptive": dict(routing="adaptive"),
+    "recorder": dict(telemetry=True),
+    "recorder_windows": dict(telemetry=True, telemetry_windows=3),
+    "adaptive_recorder": dict(routing="adaptive", telemetry=True,
+                              telemetry_windows=3),
+}
+
+
 @pytest.mark.parametrize("batch", list(FUSED_BATCHES))
-@pytest.mark.parametrize("mode,v", [
-    ("static", 1), ("static", 2), ("static", 3), ("static", 4),
-    ("static", 8), ("workload", 2), ("workload", 4), ("workload", 8)])
-def test_fused_kernels_equal_torch_body_and_cpu(cuda, batch, mode, v,
+@pytest.mark.parametrize("mode,v,kind", [
+    pytest.param(m, v, None, id=f"{m}-{v}") for m, v in (
+        ("static", 1), ("static", 2), ("static", 3), ("static", 4),
+        ("static", 8), ("workload", 2), ("workload", 4), ("workload", 8))
+] + [
+    pytest.param(m, v, kind, id=f"{m}-{v}-{kind}")
+    for kind in FUSED_MODES for m in ("static", "workload")
+    for v in (2, 4, 8)])
+def test_fused_kernels_equal_torch_body_and_cpu(cuda, batch, mode, v, kind,
                                                 monkeypatch):
-    """The fused cycle kernels (graphed, the card's default for static and
-    workload runs) equal the PyTorch body on the card (the predicate
-    patched off) and the CPU run, every result key bit for bit; V = 3
-    takes the kernels' generic instantiation."""
+    """The fused cycle kernels (graphed, the card's default in every
+    mode) equal the PyTorch body on the card (the predicate patched off)
+    and the CPU run, every result key bit for bit; V = 3 takes the
+    kernels' generic instantiation, and adaptive routing and the flight
+    recorder (1 or 3 windows) their own."""
     from repro_torch.kernels.cycle.ops import cycle_move, cycle_route
     from repro_torch.obs.metrics import metrics
-    specs, rates, cfg, scheds = _fused_batch(batch, mode, v)
+    specs, rates, cfg, scheds = _fused_batch(batch, mode, v,
+                                             **FUSED_MODES.get(kind, {}))
     assert sim._fused(cuda, cfg, None)
     before = metrics.get("sim.fused_cycles")
     launched = netstep.launches, cycle_route.launches, cycle_move.launches
@@ -443,14 +461,15 @@ def test_fused_draw_equals_linear_count(cuda, n):
     ids=["static", "adaptive", "recorder"])
 def test_fused_cycles_counted_where_the_kernels_ran(cuda, kw):
     """`sim.fused_cycles` and the `sim.cycles` spans' `fused` count the
-    cycles simulated through the fused kernels: all of a static run's,
-    none of an adaptive or recorder run's."""
+    cycles simulated through the fused kernels: all of a run's on the
+    card with the kernel allocator, static, adaptive or with the
+    recorder alike."""
     import importlib
     tr = importlib.import_module("repro_torch.obs.trace")
     from repro_torch.obs.metrics import metrics
     specs, rates, cfg, _ = _graph_batch("static")
     cfg = cfg._replace(**kw)
-    want = cfg.cycles if not kw else 0
+    want = cfg.cycles
     before = metrics.get("sim.fused_cycles")
     tr.clear_trace()
     tr.enable_tracing()

@@ -39,19 +39,20 @@ STATIC = sim.SimConfig()
     ("cpu", STATIC, None, False),
     ("cpu", STATIC._replace(alloc="torch"), None, False),
     ("cuda", STATIC._replace(alloc="torch"), None, False),
-    ("cuda", STATIC._replace(routing="adaptive"), None, False),
-    ("cuda", STATIC._replace(telemetry=True), None, False),
+    ("cuda", STATIC._replace(routing="adaptive"), None, True),
+    ("cuda", STATIC._replace(telemetry=True), None, True),
     ("cuda", STATIC._replace(telemetry=True, telemetry_windows=2), None,
-     False),
+     True),
     ("cuda", STATIC._replace(routing="adaptive", telemetry=True), None,
-     False),
+     True),
 ], ids=["cuda", "cuda0_alloc_cuda", "profile_probe", "profile_bytes",
         "op_trace", "cpu", "cpu_torch", "alloc_torch", "adaptive",
         "recorder", "recorder_windows", "adaptive_recorder"])
 def test_fused_path_only_where_it_applies(device, cfg, probe, want):
-    """The fused kernels run exactly for (CUDA, the kernel allocator,
-    static routing, no recorder, no op trace); every other run keeps the
-    PyTorch body.  Decided without a card."""
+    """The fused kernels run exactly for (CUDA, the kernel allocator, no
+    op trace), in every routing and recorder mode; the CPU,
+    `alloc="torch"` and op traces keep the PyTorch body.  Decided without
+    a card."""
     assert sim._fused(torch.device(device), cfg, probe) is want
     assert sim._fused(device, cfg, probe) is want
 
@@ -65,7 +66,7 @@ BATCHES = {
 }
 
 
-def _batch(name, mode, v):
+def _batch(name, mode, v, **kw):
     import repro_torch.workloads as W
     specs, scheds = [], []
     for topo, n in BATCHES[name]:
@@ -73,24 +74,17 @@ def _batch(name, mode, v):
         specs.append(sim.make_spec(r, TR.uniform(r.topo)))
         scheds.append(W.hotspot_drift(r.topo, n_phases=3,
                                       dwell=70).compile())
-    cfg = sim.SimConfig(cycles=300, warmup=100, n_vcs=v)
+    cfg = sim.SimConfig(cycles=300, warmup=100, n_vcs=v, **kw)
     return (specs, np.array([0.3, 0.6], np.float32), cfg,
             scheds if mode == "workload" else None)
 
 
-@pytest.mark.parametrize("name,mode,v", [
-    ("hetero", "static", 4), ("hetero", "workload", 4),
-    ("straddle", "static", 1), ("straddle", "static", 2),
-    ("straddle", "static", 3),
-    ("straddle", "static", 8), ("straddle", "workload", 2),
-    ("straddle", "workload", 8)])
-def test_plain_fused_cycle_equals_torch_body(name, mode, v, monkeypatch):
-    """The fused path run on the CPU, where the kernels' wrappers compute
-    their plain versions (pulled deliveries and credits on int32 state),
-    equals the PyTorch body in every result key, bit for bit, over 300
-    cycles with a warm-up of 100 (both cross a chunk edge)."""
+def _fused_equals_body(specs, rates, cfg, scheds, monkeypatch):
+    """Runs the batch on the CPU through the PyTorch body, then through
+    the fused path (the wrappers computing their plain versions), and
+    asserts every result key equal, bit for bit and in dtype; returns the
+    body's results."""
     from repro_torch.obs.metrics import metrics
-    specs, rates, cfg, scheds = _batch(name, mode, v)
     body = sim.run_batch(specs, rates, cfg, schedules=scheds, device="cpu")
     monkeypatch.setattr(sim, "_fused", lambda device, cfg, probe: True)
     before = metrics.get("sim.fused_cycles")
@@ -106,6 +100,50 @@ def test_plain_fused_cycle_equals_torch_body(name, mode, v, monkeypatch):
         for key in set(b) - {"pad_fill"}:
             np.testing.assert_array_equal(f[key], b[key], err_msg=key)
             assert np.asarray(f[key]).dtype == np.asarray(b[key]).dtype
+    return body
+
+
+@pytest.mark.parametrize("name,mode,v", [
+    ("hetero", "static", 4), ("hetero", "workload", 4),
+    ("straddle", "static", 1), ("straddle", "static", 2),
+    ("straddle", "static", 3),
+    ("straddle", "static", 8), ("straddle", "workload", 2),
+    ("straddle", "workload", 8)])
+def test_plain_fused_cycle_equals_torch_body(name, mode, v, monkeypatch):
+    """The fused path run on the CPU, where the kernels' wrappers compute
+    their plain versions (pulled deliveries and credits on int32 state),
+    equals the PyTorch body in every result key, bit for bit, over 300
+    cycles with a warm-up of 100 (both cross a chunk edge)."""
+    _fused_equals_body(*_batch(name, mode, v), monkeypatch)
+
+
+#: the adaptive and recorder modes of the fused path's CPU tests
+MODES = {
+    "adaptive": dict(routing="adaptive"),
+    "recorder": dict(telemetry=True),
+    "recorder_windows": dict(telemetry=True, telemetry_windows=3),
+    "adaptive_recorder": dict(routing="adaptive", telemetry=True,
+                              telemetry_windows=3),
+}
+
+
+@pytest.mark.parametrize("kind", list(MODES))
+@pytest.mark.parametrize("name,mode,v", [
+    ("hetero", "static", 4), ("hetero", "workload", 4),
+    ("straddle", "static", 2), ("straddle", "workload", 8)])
+def test_plain_fused_adaptive_and_recorder_equal_torch_body(
+        name, mode, v, kind, monkeypatch):
+    """The plain versions' adaptive lookup (packed productive ports,
+    the downstream VC carried to cycle_move) and flight recorder
+    (occupancy, stalls and injections in cycle_route; traversals,
+    ejections and latency bins in cycle_move; 1 or 3 windows) equal the
+    PyTorch body in every result key, bit for bit."""
+    body = _fused_equals_body(*_batch(name, mode, v, **MODES[kind]),
+                              monkeypatch)
+    if "telemetry" in MODES[kind]:
+        assert sum(int(r["link_busy"].sum()) for r in body) > 0
+        assert sum(int(r["link_stall"].sum()) for r in body) > 0
+        assert sum(int(r["lat_hist"].sum()) for r in body) > 0
 
 
 def test_fused_spans_count_the_fused_cycles(monkeypatch):
@@ -162,7 +200,8 @@ def _state():
              offered=torch.zeros(B, dtype=i32),
              accepted=torch.zeros(B, dtype=i32),
              lat_node=torch.zeros((B, N), dtype=i32),
-             t=torch.zeros(1, dtype=torch.int64))
+             t=torch.zeros(1, dtype=torch.int64),
+             **sim._recorder_counters(cfg, B, N, shape.c, "cpu"))
     return a
 
 
@@ -179,7 +218,21 @@ def _state():
      ValueError, "exactly in workload runs"),
     (lambda a: dict(rate=a["rate"].to("meta")), ValueError,
      "several devices"),
-], ids=["dtype", "shape", "layout", "t_dtype", "half_workload", "devices"])
+    (lambda a: dict(dvc=torch.zeros_like(a["op_slot"])), ValueError,
+     "exactly in adaptive runs"),
+    (lambda a: dict(tel_hist=torch.zeros((a["srow"].shape[0], 16),
+                                         dtype=torch.int32)),
+     ValueError, "exactly in recorder runs"),
+    (lambda a: dict(prod=torch.zeros(a["table"].shape[:3],
+                                     dtype=torch.int32),
+                    dvc=torch.zeros_like(a["op_slot"]),
+                    tel_busy=torch.zeros(1)),
+     ValueError, "exactly in recorder runs"),
+    (lambda a: dict(windows=2, meas=200), ValueError,
+     "2 recorder windows need the recorder"),
+], ids=["dtype", "shape", "layout", "t_dtype", "half_workload", "devices",
+        "half_adaptive", "half_recorder", "adaptive_and_half_recorder",
+        "windows_without_recorder"])
 def test_wrappers_raise_on_what_the_kernels_do_not_take(bad, exc, match):
     a = _state()
     ops.cycle_route(a, False)                    # the good arguments run
